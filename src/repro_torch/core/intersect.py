@@ -1,0 +1,373 @@
+"""The neighbourhood-intersection engine: plan once, execute many.
+
+Counterpart of ``repro.core.intersect`` for the exact local count:
+
+* **Adjacency view.**  ``CsrAdjacency`` reads a ``Graph``'s CSR arrays
+  and exposes ``bounds(v) -> (starts, lens)`` into one flat sorted array.
+* **Plans.**  ``plan_buckets`` (host numpy, verbatim from the reference,
+  so the plan work counts match) lays out contiguous query-row buckets,
+  each with a row count and candidate/target widths.
+* **Execution.**  ``run_plan`` probes each bucket — whole, or in
+  ``query_chunk`` slices — through one of two backends:
+
+  - ``"cuda"``: the Hopper kernel K1 (``kernels/intersect``), which reads
+    the candidate and target slices straight from the CSR array, clamped
+    to the bucket widths as the reference's dense gather clamps them;
+  - ``"torch"``: the reference's ``jnp`` probe in plain PyTorch — a dense
+    candidate gather and a bounded binary search of
+    ``ceil(log2(d_targ + 1))`` steps over the *unclamped* target slice,
+    which under-searches when ``d_targ`` is too small, exactly as the
+    reference does.
+
+  The two agree on every exact plan: ``plan_buckets`` sizes ``d_targ``
+  to at least every large degree of its bucket.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.graph.csr import Graph, _ceil_to, _next_pow2
+from repro_torch.kernels.intersect.intersect import intersect_levels
+from repro_torch.kernels.intersect.ref import search_steps, split_counts
+
+#: Default small-endpoint-degree bucket boundaries: queries whose smaller
+#: endpoint has degree <= w probe at candidate width w (plus an implicit
+#: top bucket at the max/capped width).
+DEFAULT_BUCKET_WIDTHS = (32, 256)
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+# --------------------------------------------------------------- views
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrAdjacency:
+    """Adjacency view over a ``Graph``'s CSR arrays (Algorithm 1).
+
+    ``flat`` is the CSR neighbour array (``g.dst``); vertex ``v``'s sorted
+    neighbour list is ``flat[row_offsets[v] : row_offsets[v] + deg[v]]``.
+    """
+
+    flat: torch.Tensor
+    row_offsets: torch.Tensor
+    deg: torch.Tensor
+    n_nodes: int
+
+    @classmethod
+    def from_graph(cls, g: Graph) -> "CsrAdjacency":
+        return cls(flat=g.dst, row_offsets=g.row_offsets, deg=g.deg,
+                   n_nodes=g.n_nodes)
+
+    def bounds(self, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(starts, lens)`` of each vertex's slice of ``flat``; any
+        ``v >= n_nodes`` (sentinel) gets length 0."""
+        n = self.n_nodes
+        vc = v.clamp(0, n)
+        deg_ext = torch.cat([
+            self.deg,
+            torch.zeros((1,), dtype=torch.int32, device=self.deg.device),
+        ])
+        return self.row_offsets[vc], torch.where(v < n, deg_ext[vc], 0)
+
+
+# --------------------------------------------------------------- plans
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanBucket:
+    """One contiguous query-row range probed at one width pair.
+
+    ``[start, start + rows)`` are the rows sliced from the query block;
+    the first ``count`` are real queries, rows past ``count`` are masked.
+    ``d_cand`` is the candidate width (smaller endpoint), ``d_targ`` the
+    target width / binary-search depth (larger endpoint).
+    """
+
+    start: int
+    count: int
+    rows: int
+    d_cand: int
+    d_targ: int
+
+
+@dataclasses.dataclass(frozen=True)
+class IntersectPlan:
+    """A hashable execution plan for one query-block layout, produced on
+    the host once (``plan_buckets``) and executed by ``run_plan``."""
+
+    buckets: tuple[PlanBucket, ...]
+    backend: str = "torch"
+    query_chunk: int | None = None
+
+    @property
+    def total_rows(self) -> int:
+        return max((b.start + b.rows for b in self.buckets), default=0)
+
+    @property
+    def probe_rows(self) -> int:
+        return sum(b.rows for b in self.buckets)
+
+    @property
+    def probe_cells(self) -> float:
+        return float(sum(float(b.rows) * b.d_cand for b in self.buckets))
+
+    @property
+    def peak_rows(self) -> int:
+        return max(
+            (min(b.rows, self.query_chunk or b.rows) for b in self.buckets),
+            default=0,
+        )
+
+
+def plan_buckets(
+    ds_h,
+    dl_h,
+    *,
+    bucket_widths: tuple[int, ...] = DEFAULT_BUCKET_WIDTHS,
+    d_cap: int | None = None,
+    row_mult: int = 64,
+    backend: str = "torch",
+    query_chunk: int | None = None,
+    layout: str = "asc",
+) -> IntersectPlan:
+    """Exact host-side plan from a known per-query degree profile.
+
+    ``ds_h``/``dl_h`` are the small/large endpoint degrees of the real
+    queries, sorted by ``ds_h`` in the direction named by ``layout``
+    (``"asc"`` or ``"desc"``).  Buckets are contiguous ``searchsorted``
+    ranges; ``d_cand`` is the bucket's width boundary (clamped to
+    ``d_cap`` if given — a lossy candidate-list cap), ``d_targ`` the
+    widest larger-endpoint list in the bucket, 128-aligned.  Widths are
+    rounded (pow2 top, 128-aligned ``d_targ``, ``row_mult``-padded rows)
+    as in the reference, so the plan work counts match it.
+    """
+    if layout not in ("asc", "desc"):
+        raise ValueError(f"layout must be 'asc' or 'desc'; got {layout!r}")
+    ds_h = np.asarray(ds_h)
+    dl_h = np.asarray(dl_h)
+    H = int(ds_h.shape[0])
+    buckets = []
+    if H:
+        d_top = int(ds_h[-1] if layout == "asc" else ds_h[0])
+        top = _next_pow2(max(d_top, 1))
+        if d_cap is not None:
+            top = min(top, int(d_cap))
+        widths = sorted(
+            w for w in {int(w) for w in bucket_widths} if 0 < w < top
+        )
+        widths.append(top)
+        if layout == "asc":
+            bounds = [
+                int(np.searchsorted(ds_h, w, side="right"))
+                for w in widths[:-1]
+            ] + [H]
+        else:
+            # rows with d_small > w form a prefix of the descending block
+            asc = ds_h[::-1]
+            bounds = [
+                H - int(np.searchsorted(asc, w, side="right"))
+                for w in widths[:-1]
+            ] + [0]
+        start = H if layout == "desc" else 0
+        for w, b in zip(widths, bounds):
+            lo, hi = (b, start) if layout == "desc" else (start, b)
+            start = b
+            if hi <= lo:
+                continue
+            buckets.append(PlanBucket(
+                start=lo,
+                count=hi - lo,
+                rows=_ceil_to(hi - lo, row_mult),
+                d_cand=w,
+                d_targ=_ceil_to(int(dl_h[lo:hi].max()), 128),
+            ))
+    return IntersectPlan(
+        buckets=tuple(buckets), backend=backend, query_chunk=query_chunk,
+    )
+
+
+# ----------------------------------------------------------- execution
+
+
+class EngineCounts(NamedTuple):
+    """``run_plan`` result: the paper's diff-level / same-level apex
+    splits ``(c1, c2)`` as int32 scalar tensors, and ``overflow`` (bool
+    tensor), True iff some real query's candidate (or target) list
+    exceeded its bucket width — exact plans set it only under an explicit
+    ``d_cap``/``d_max`` clamp."""
+
+    c1: torch.Tensor
+    c2: torch.Tensor
+    overflow: torch.Tensor
+
+
+def _swapped_bounds(su, lu, sw, lw, row_ok):
+    """Per-query (small-side, large-side) slice bounds from the two
+    endpoints' bounds, probing from the smaller list; masked rows probe
+    nothing."""
+    swap = lw < lu
+    s_s = torch.where(swap, sw, su)
+    l_s = torch.where(row_ok, torch.where(swap, lw, lu), 0)
+    s_l = torch.where(swap, su, sw)
+    l_l = torch.where(row_ok, torch.where(swap, lu, lw), 0)
+    return s_s, l_s, s_l, l_l
+
+
+def _width_overflow(l_s, l_l, *, d_cand, d_targ) -> torch.Tensor:
+    """The reference's width-overflow predicate (``_gather_cand_targ``):
+    some row's candidate or target list is longer than its width."""
+    return ((l_s > d_cand) | (l_l > d_targ)).any()
+
+
+def probe_operands(adj: CsrAdjacency, qu, qw, bounds, base: int, count: int,
+                   level: torch.Tensor):
+    """The kernel operands of one slice of bucket rows: ``(s_s, l_s, s_l,
+    l_l, lev_u)``.  ``base`` is the slice's offset within its bucket
+    (rows at or past ``count`` are masked), ``bounds`` the slice's
+    ``(su, lu, sw, lw)`` endpoint bounds."""
+    n = adj.n_nodes
+    pos = base + torch.arange(qu.shape[0], dtype=torch.int32,
+                              device=qu.device)
+    row_ok = (pos < count) & (qu < n) & (qw < n)
+    s_s, l_s, s_l, l_l = _swapped_bounds(*bounds, row_ok)
+    lev_ext = torch.cat([
+        level, torch.full((1,), -9, dtype=torch.int32, device=level.device)
+    ])
+    lev_u = lev_ext[qu.clamp(0, n)]
+    return s_s, l_s, s_l, l_l, lev_u
+
+
+def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
+                 level, backend):
+    """Summed ``(c1, c2, overflow)`` for one slice of bucket rows."""
+    s_s, l_s, s_l, l_l, lev_u = probe_operands(
+        adj, qu, qw, bounds, base, count, level
+    )
+    overflow = _width_overflow(l_s, l_l, d_cand=d_cand, d_targ=d_targ)
+    if backend == "cuda":
+        c1, c2 = intersect_levels(
+            adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
+            d_cand=d_cand, d_targ=d_targ,
+        )
+    else:
+        # the reference's jnp probe: search depth sized by d_targ over the
+        # UNclamped target list (under-searches when d_targ is too small)
+        c1, c2 = split_counts(
+            adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
+            d_cand=d_cand, num_steps=search_steps(d_targ),
+        )
+    return (c1.sum(dtype=torch.int32), c2.sum(dtype=torch.int32), overflow)
+
+
+def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
+    """Yield ``(bucket, base, qu, qw, bounds)`` for every slice
+    ``run_plan`` probes, in its order: each bucket whole, or in
+    ``query_chunk`` slices.  ``qu``/``qw`` are padded to the plan's
+    total rows with the sentinel first."""
+    n = adj.n_nodes
+    need = plan.total_rows
+    if qu.shape[0] < need:
+        fill = torch.full((need - qu.shape[0],), n, dtype=qu.dtype,
+                          device=qu.device)
+        qu = torch.cat([qu, fill])
+        qw = torch.cat([qw, fill])
+    # endpoint bounds once per block, then sliced per bucket
+    su, lu = adj.bounds(qu)
+    sw, lw = adj.bounds(qw)
+    for b in plan.buckets:
+        chunk = min(plan.query_chunk or b.rows, b.rows)
+        if b.rows % chunk:
+            raise ValueError(
+                f"bucket rows={b.rows} not a multiple of "
+                f"query_chunk={chunk} (plan the rows with row_mult=chunk)"
+            )
+        for base in range(0, b.rows, chunk):
+            lo, hi = b.start + base, b.start + base + chunk
+            yield b, base, qu[lo:hi], qw[lo:hi], tuple(
+                x[lo:hi] for x in (su, lu, sw, lw)
+            )
+
+
+def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
+             level: torch.Tensor) -> EngineCounts:
+    """Execute a bucket plan against an adjacency view.
+
+    ``qu``/``qw`` are the query endpoints (entries ``>= adj.n_nodes`` are
+    sentinels and never counted).  Coverage is the planner's contract:
+    rows beyond ``plan.total_rows`` are not probed (that is how the
+    sequential pipeline skips the non-horizontal tail and how ``cap_h``
+    truncates).  Hits are split into the paper's ``(c1, c2)`` by apex
+    level.  Sums are int32, as in the reference.
+    """
+    dev = qu.device
+    c1 = torch.zeros((), dtype=torch.int32, device=dev)
+    c2 = torch.zeros((), dtype=torch.int32, device=dev)
+    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    if qu.shape[0] == 0 or not plan.buckets:
+        return EngineCounts(c1, c2, ovf)
+    for b, base, qu_c, qw_c, bounds in bucket_slices(adj, qu, qw, plan):
+        d1, d2, do = _count_chunk(
+            adj, qu_c, qw_c, bounds, base, b.count,
+            d_cand=b.d_cand, d_targ=b.d_targ, level=level,
+            backend=plan.backend,
+        )
+        c1, c2, ovf = c1 + d1, c2 + d2, ovf | do
+    return EngineCounts(c1, c2, ovf)
+
+
+# ------------------------------------------------- probe-level wrappers
+
+
+def resolve_backend(backend: str = "auto",
+                    device: str | torch.device = "cpu") -> str:
+    """The port's backend rule: ``"auto"`` is ``"cuda"`` (the Hopper
+    kernel) on a CUDA device and ``"torch"`` (the plain probe) on the
+    CPU.  ``"cuda"`` on the CPU raises; ``"torch"`` on the card runs only
+    when asked for by name."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"intersect_backend must be 'auto', 'torch' or 'cuda'; "
+            f"got {backend!r}"
+        )
+    dev = torch.device(device)
+    if backend == "auto":
+        return "cuda" if dev.type == "cuda" else "torch"
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' launches the Hopper kernel and needs a CUDA "
+            f"device; got {dev}"
+        )
+    return backend
+
+
+def count_common_neighbors(
+    g: Graph,
+    qu: torch.Tensor,
+    qw: torch.Tensor,
+    level: torch.Tensor,
+    *,
+    d_cand: int,
+    d_targ: int | None = None,
+    backend: str = "torch",
+    query_chunk: int | None = None,
+):
+    """Summed ``(c1, c2)`` (diff-level / same-level apex hits) over one
+    fixed-width query block — a single-bucket ``run_plan``, kept as the
+    stable block-level API.  ``query_chunk`` probes the rows in slices
+    of that size (rows must be a multiple)."""
+    backend = resolve_backend(backend, g.device)
+    rows = qu.shape[0]
+    chunk = rows if query_chunk is None else min(query_chunk, rows)
+    if rows % chunk:
+        raise ValueError(f"rows={rows} not a multiple of query_chunk={chunk}")
+    plan = IntersectPlan(
+        buckets=(PlanBucket(0, rows, rows, d_cand, d_targ or d_cand),),
+        backend=backend, query_chunk=chunk,
+    )
+    eng = run_plan(CsrAdjacency.from_graph(g), qu, qw, plan, level=level)
+    return eng.c1, eng.c2

@@ -1,0 +1,109 @@
+"""Plain PyTorch versions of K1, the level-split intersection.
+
+Two forms of one function:
+
+* :func:`intersect_ref` takes the *dense* blocks the TPU kernel takes
+  (counterpart of ``repro.kernels.intersect.ref.intersect_ref``):
+
+    cand   int32[Q, Dc]  sorted candidate neighbour lists (pad = -1)
+    targ   int32[Q, Dt]  sorted target neighbour lists   (pad = -2)
+    lev_c  int32[Q, Dc]  BFS level of each candidate
+    lev_u  int32[Q]      BFS level of the horizontal edge's endpoints
+
+* :func:`intersect_levels_ref` takes the CSR-bounds form the Hopper
+  kernel takes: one flat sorted adjacency array, per row the candidate
+  slice ``flat[s_s : s_s + l_s]`` and the target slice
+  ``flat[s_l : s_l + l_l]``, each clamped to the bucket's width
+  (``d_cand`` / ``d_targ``) exactly as the reference's dense gather
+  clamps them.  It never holds more than ``_CELL_BUDGET`` cells of
+  ``[rows, d_cand]`` intermediates at once: it works through the rows in
+  chunks.
+
+Both return per-row ``(c1, c2)`` int32: c1 counts the candidates found
+in the target row whose level differs from ``lev_u``, c2 those on the
+same level — the two counters of Theorem 1.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.graph.csr import bounded_binary_search, gather_rows
+
+CAND_PAD = -1
+TARG_PAD = -2
+
+#: Upper bound on the ``[rows, d_cand]`` cells one chunk of the plain
+#: CSR-bounds path materializes (each cell costs a few int32 temporaries).
+_CELL_BUDGET = 1 << 24
+
+
+def intersect_ref(cand, targ, lev_c, lev_u):
+    """Dense all-pairs form; ``Dc`` and ``Dt`` may differ."""
+    eq = cand[:, :, None] == targ[:, None, :]
+    hit = eq.any(dim=2) & (cand >= 0)
+    same = lev_c == lev_u[:, None]
+    return (
+        (hit & ~same).sum(dim=1, dtype=torch.int32),
+        (hit & same).sum(dim=1, dtype=torch.int32),
+    )
+
+
+def search_steps(d_targ: int) -> int:
+    """Binary-search depth that converges on any list of ``<= d_targ``
+    entries: ``max(1, ceil(log2(d_targ + 1)))``."""
+    return max(1, math.ceil(math.log2(int(d_targ) + 1)))
+
+
+def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
+                 d_cand: int, num_steps: int):
+    """Per-row ``(c1, c2)`` by dense candidate gather + bounded binary
+    search over ``flat[s_l : s_l + l_search]``, in row chunks.
+
+    Candidates are clamped to ``d_cand``; the search runs exactly
+    ``num_steps`` halvings, so a ``l_search`` longer than ``2**num_steps
+    - 1`` under-searches the way the reference's jnp probe does.  The
+    candidate level is ``level[cand]`` (``-7`` for an id outside
+    ``level``, the TPU kernel's pad)."""
+    q = s_s.shape[0]
+    dev = s_s.device
+    c1 = torch.zeros(q, dtype=torch.int32, device=dev)
+    c2 = torch.zeros(q, dtype=torch.int32, device=dev)
+    if q == 0 or d_cand <= 0:
+        return c1, c2
+    n = level.shape[0]
+    lev_ext = torch.cat([
+        level, torch.full((1,), -7, dtype=torch.int32, device=dev)
+    ])
+    step = max(1, _CELL_BUDGET // d_cand)
+    for r0 in range(0, q, step):
+        r1 = min(q, r0 + step)
+        ls = l_s[r0:r1].clamp(max=d_cand)
+        cand = gather_rows(flat, s_s[r0:r1], ls, width=d_cand, pad=CAND_PAD)
+        rows = cand.shape[0]
+        found = bounded_binary_search(
+            flat,
+            s_l[r0:r1, None].expand(rows, d_cand),
+            l_search[r0:r1, None].expand(rows, d_cand),
+            cand,
+            num_steps=num_steps,
+        ) & (cand >= 0)
+        same = lev_ext[cand.clamp(0, n)] == lev_u[r0:r1, None]
+        c1[r0:r1] = (found & ~same).sum(dim=1, dtype=torch.int32)
+        c2[r0:r1] = (found & same).sum(dim=1, dtype=torch.int32)
+    return c1, c2
+
+
+def intersect_levels_ref(flat, s_s, l_s, s_l, l_l, level, lev_u, *,
+                         d_cand: int, d_targ: int):
+    """CSR-bounds form of K1: ``(c1, c2)`` int32[Q] for candidate lists
+    ``flat[s_s : s_s + min(l_s, d_cand)]`` against target lists
+    ``flat[s_l : s_l + min(l_l, d_targ)]`` (sorted), split by
+    ``level[cand] == lev_u``.  Equal to ``intersect_ref`` on the dense
+    blocks the reference's ``_gather_cand_targ`` builds from the same
+    bounds."""
+    return split_counts(
+        flat, s_s, l_s, s_l, l_l.clamp(max=d_targ), level, lev_u,
+        d_cand=d_cand, num_steps=search_steps(d_targ),
+    )

@@ -1,0 +1,320 @@
+"""The port's intersection engine held bit for bit against the JAX
+package: ``plan_buckets`` field for field, the plain versions of K1
+(dense ``intersect_ref`` and CSR-bounds ``intersect_levels_ref``)
+against ``intersect_pallas`` in interpret mode and the reference's
+``intersect_ref``, and ``run_plan`` / ``count_common_neighbors`` with and
+without ``query_chunk``.  Inputs are numpy arrays made from a seed."""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import bfs as jbfs
+from repro.core import edges as jedges
+from repro.core import intersect as jint
+from repro.graph import csr as jcsr
+from repro.kernels.intersect.intersect import intersect_pallas
+from repro.kernels.intersect.ref import intersect_ref as j_intersect_ref
+from repro_torch.core import bfs as tbfs
+from repro_torch.core import edges as tedges
+from repro_torch.core import intersect as tint
+from repro_torch.graph import csr as tcsr
+from repro_torch.graph import generators as gen
+from repro_torch.kernels.intersect import intersect as tkern
+from repro_torch.kernels.intersect.ref import (
+    intersect_levels_ref,
+    intersect_ref,
+    search_steps,
+    split_counts,
+)
+
+CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _np(x):
+    return np.asarray(x.cpu().numpy() if isinstance(x, torch.Tensor) else x)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x, dtype=np.int32))
+
+
+# ------------------------------------------------------------------ plans
+
+def _profile(seed, h, layout):
+    rng = np.random.default_rng(seed)
+    ds = rng.integers(1, 700, size=h)
+    dl = ds + rng.integers(0, 900, size=h)
+    order = np.argsort(ds, kind="stable")
+    if layout == "desc":
+        order = order[::-1]
+    return ds[order], dl[order]
+
+
+@pytest.mark.parametrize("layout", ["asc", "desc"])
+@pytest.mark.parametrize("kw", [
+    {},
+    {"bucket_widths": (8, 64, 512)},
+    {"d_cap": 100},
+    {"row_mult": 1},
+    {"row_mult": 128, "query_chunk": 128},
+    {"bucket_widths": (1000,)},
+], ids=["default", "widths", "d_cap", "rows1", "chunk128", "one_bucket"])
+def test_plan_buckets_match_reference(layout, kw):
+    ds, dl = _profile(len(kw) + (layout == "asc"), 3000, layout)
+    jp = jint.plan_buckets(ds, dl, layout=layout, **kw)
+    tp = tint.plan_buckets(ds, dl, layout=layout, **kw)
+    assert len(tp.buckets) == len(jp.buckets) > 0
+    for jb, tb in zip(jp.buckets, tp.buckets):
+        assert (tb.start, tb.count, tb.rows, tb.d_cand, tb.d_targ) == (
+            jb.start, jb.count, jb.rows, jb.d_cand, jb.d_targ)
+    assert tp.total_rows == jp.total_rows
+    assert tp.probe_rows == jp.probe_rows
+    assert tp.probe_cells == jp.probe_cells
+    assert tp.peak_rows == jp.peak_rows
+
+
+def test_plan_buckets_empty_and_bad_layout():
+    assert tint.plan_buckets([], [], layout="desc").buckets == ()
+    with pytest.raises(ValueError, match="layout must be"):
+        tint.plan_buckets([1], [1], layout="sideways")
+
+
+# ------------------------------------------------ K1 plain versions (dense)
+
+def _random_sorted_lists(rng, q, d, hi):
+    out = np.full((q, d), -1, dtype=np.int32)
+    for i in range(q):
+        ln = rng.integers(0, d + 1)
+        vals = np.unique(rng.integers(0, hi, size=ln))
+        out[i, : len(vals)] = vals
+    return out
+
+
+SWEEP = [
+    (7, 17, 8, 128),      # sub-block ragged
+    (64, 128, 32, 128),   # exact tiles
+    (33, 260, 16, 128),   # multi-tile D with remainder
+    (128, 64, 128, 64),   # small blocks
+]
+
+
+@pytest.mark.parametrize("q,d,bq,bd", SWEEP)
+def test_intersect_ref_matches_reference_and_pallas(q, d, bq, bd):
+    rng = np.random.default_rng(q * 1000 + d)
+    cand = _random_sorted_lists(rng, q, d, 400)
+    targ = _random_sorted_lists(rng, q, d, 400)
+    targ = np.where(targ < 0, -2, targ)
+    lev_c = rng.integers(0, 5, size=(q, d)).astype(np.int32)
+    lev_u = rng.integers(0, 5, size=(q,)).astype(np.int32)
+    jargs = tuple(map(jnp.asarray, (cand, targ, lev_c, lev_u)))
+    c1p, c2p = intersect_pallas(*jargs, block_q=bq, block_d=bd,
+                                interpret=True)
+    c1r, c2r = j_intersect_ref(*jargs)
+    c1t, c2t = intersect_ref(*map(_t, (cand, targ, lev_c, lev_u)))
+    assert c1t.dtype == c2t.dtype == torch.int32
+    for a in (c1p, c1r):
+        np.testing.assert_array_equal(_np(c1t), np.asarray(a))
+    for a in (c2p, c2r):
+        np.testing.assert_array_equal(_np(c2t), np.asarray(a))
+
+
+# ------------------------------------------- K1 plain versions (CSR bounds)
+
+def _csr_operands(rng, q, d, n=400, lmax=None):
+    """Flat sorted adjacency of n vertices + q random query rows whose
+    candidate/target slices are vertex lists (lengths up to ``lmax``)."""
+    lmax = lmax or d
+    lists = [np.unique(rng.integers(0, n, size=rng.integers(0, lmax + 1)))
+             for _ in range(n)]
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    lens = np.array([len(x) for x in lists], np.int32)
+    u = rng.integers(0, n, size=q)
+    w = rng.integers(0, n, size=q)
+    level = rng.integers(0, 4, size=n).astype(np.int32)
+    lev_u = level[u]
+    return (flat, starts[u], lens[u], starts[w], lens[w], level, lev_u)
+
+
+def _pallas_on_dense(ops, *, d_cand, d_targ, bq, bd):
+    """The reference kernel on the dense blocks its engine gathers from
+    the same bounds (``_gather_cand_targ``)."""
+    flat, s_s, l_s, s_l, l_l, level, lev_u = map(jnp.asarray, ops)
+    cand, targ, _ = jint._gather_cand_targ(
+        flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ,
+        need_targ=True)
+    n = level.shape[0]
+    lev_ext = jnp.concatenate([level, jnp.full((1,), -7, jnp.int32)])
+    lev_c = jnp.where(cand >= 0, lev_ext[jnp.clip(cand, 0, n)], -7)
+    return intersect_pallas(cand, targ, lev_c, lev_u, block_q=bq,
+                            block_d=bd, interpret=True)
+
+
+@pytest.mark.parametrize("q,d,bq,bd", SWEEP)
+def test_intersect_levels_ref_matches_pallas(q, d, bq, bd):
+    rng = np.random.default_rng(q + d)
+    ops = _csr_operands(rng, q, d)
+    d_targ = int(max(ops[4].max(), 1))
+    c1p, c2p = _pallas_on_dense(ops, d_cand=d, d_targ=d_targ, bq=bq, bd=bd)
+    c1t, c2t = intersect_levels_ref(*map(_t, ops), d_cand=d, d_targ=d_targ)
+    np.testing.assert_array_equal(_np(c1t), np.asarray(c1p))
+    np.testing.assert_array_equal(_np(c2t), np.asarray(c2p))
+    # the wrapper takes the plain version for CPU tensors
+    c1w, c2w = tkern.intersect_levels(*map(_t, ops), d_cand=d, d_targ=d_targ)
+    np.testing.assert_array_equal(_np(c1w), _np(c1t))
+    np.testing.assert_array_equal(_np(c2w), _np(c2t))
+
+
+@pytest.mark.parametrize("d_cand,d_targ", [(16, 200), (64, 24), (8, 8)])
+def test_intersect_levels_ref_clamps_like_the_dense_gather(d_cand, d_targ):
+    # lists up to 100 long against widths that clamp them
+    rng = np.random.default_rng(d_cand * d_targ)
+    ops = _csr_operands(rng, 48, 100, n=300)
+    assert ops[2].max() > d_cand or ops[4].max() > d_targ
+    c1p, c2p = _pallas_on_dense(ops, d_cand=d_cand, d_targ=d_targ, bq=16,
+                                bd=128)
+    c1t, c2t = intersect_levels_ref(*map(_t, ops), d_cand=d_cand,
+                                    d_targ=d_targ)
+    np.testing.assert_array_equal(_np(c1t), np.asarray(c1p))
+    np.testing.assert_array_equal(_np(c2t), np.asarray(c2p))
+
+
+def test_wrapper_rejects_operands_the_kernel_does_not_take():
+    ops = [_t(x) for x in _csr_operands(np.random.default_rng(0), 8, 16)]
+    with pytest.raises(TypeError, match="int32"):
+        tkern.intersect_levels(ops[0].long(), *ops[1:], d_cand=16,
+                               d_targ=16)
+    with pytest.raises(ValueError, match="1-D"):
+        tkern.intersect_levels(ops[0], ops[1][:, None], *ops[2:],
+                               d_cand=16, d_targ=16)
+    with pytest.raises(ValueError, match="rows"):
+        tkern.intersect_levels(*ops[:4], ops[4][:3], *ops[5:], d_cand=16,
+                               d_targ=16)
+    with pytest.raises(ValueError, match="one device"):
+        tkern.intersect_levels(ops[0].to("meta"), *ops[1:], d_cand=16,
+                               d_targ=16)
+    with pytest.raises(ValueError, match=">= 0"):
+        tkern.intersect_levels(*ops, d_cand=-1, d_targ=16)
+    before = tkern.LAUNCHES
+    tkern.intersect_levels(*ops, d_cand=16, d_targ=16)
+    assert tkern.LAUNCHES == before  # the plain path is not a launch
+
+
+# ---------------------------------------------------------- engine level
+
+def _engine_inputs(edges, n):
+    jg = jcsr.from_edges(edges, n)
+    tg = tcsr.from_edges(edges, n, device=CPU)
+    jl = jbfs.bfs_levels(jg.src, jg.dst, n, row_offsets=jg.row_offsets)
+    tl = tbfs.bfs_levels(tg.src, tg.dst, n, row_offsets=tg.row_offsets)
+    jq = jedges.horizontal_queries(jg, jl, order="desc")
+    tq = tedges.horizontal_queries(tg, tl, order="desc")
+    return jg, tg, jl, tl, jq, tq
+
+
+GRAPHS = {
+    "karate": gen.karate(),
+    "ring_of_cliques": gen.ring_of_cliques(5, 6),
+    "rmat10": gen.rmat(10, 16, seed=0),
+}
+
+
+@pytest.mark.parametrize("query_chunk", [None, 64])
+@pytest.mark.parametrize("case", sorted(GRAPHS))
+def test_run_plan_matches_reference(case, query_chunk):
+    jg, tg, jl, tl, jq, tq = _engine_inputs(*GRAPHS[case])
+    h = int(jq[4])
+    ds, dl = np.asarray(jq[2])[:h], np.asarray(jq[3])[:h]
+    kw = dict(layout="desc", query_chunk=query_chunk,
+              row_mult=query_chunk or 64)
+    jp = jint.plan_buckets(ds, dl, backend="jnp", **kw)
+    tp = tint.plan_buckets(ds, dl, backend="torch", **kw)
+    je = jint.run_plan(jint.CsrAdjacency.from_graph(jg), jq[0], jq[1], jp,
+                       level=jl)
+    te = tint.run_plan(tint.CsrAdjacency.from_graph(tg), tq[0], tq[1], tp,
+                       level=tl)
+    assert int(te.c1) == int(je.c1) and int(te.c2) == int(je.c2)
+    assert bool(te.overflow) == bool(je.overflow) is False
+    assert te.c1.dtype == te.c2.dtype == torch.int32
+
+
+def test_run_plan_flags_a_clamped_candidate_width():
+    jg, tg, jl, tl, jq, tq = _engine_inputs(*GRAPHS["rmat10"])
+    h = int(jq[4])
+    ds, dl = np.asarray(jq[2])[:h], np.asarray(jq[3])[:h]
+    jp = jint.plan_buckets(ds, dl, layout="desc", d_cap=40)
+    tp = tint.plan_buckets(ds, dl, layout="desc", d_cap=40)
+    je = jint.run_plan(jint.CsrAdjacency.from_graph(jg), jq[0], jq[1], jp,
+                       level=jl)
+    te = tint.run_plan(tint.CsrAdjacency.from_graph(tg), tq[0], tq[1], tp,
+                       level=tl)
+    assert (int(te.c1), int(te.c2)) == (int(je.c1), int(je.c2))
+    assert bool(te.overflow) and bool(je.overflow)
+
+
+@pytest.mark.parametrize("query_chunk", [None, 32])
+@pytest.mark.parametrize("d_cand,d_targ", [(64, None), (128, 256), (16, 4)],
+                         ids=["square", "wide_targ", "under_search"])
+def test_count_common_neighbors_matches_reference(d_cand, d_targ,
+                                                  query_chunk):
+    jg, tg, jl, tl, jq, tq = _engine_inputs(*GRAPHS["rmat10"])
+    rows = 2048  # includes the sentinel tail of the compacted block
+    ja = jint.count_common_neighbors(
+        jg, jq[0][:rows], jq[1][:rows], jl, d_cand=d_cand, d_targ=d_targ,
+        query_chunk=query_chunk)
+    ta = tint.count_common_neighbors(
+        tg, tq[0][:rows], tq[1][:rows], tl, d_cand=d_cand, d_targ=d_targ,
+        query_chunk=query_chunk, backend="torch")
+    assert (int(ta[0]), int(ta[1])) == (int(ja[0]), int(ja[1]))
+
+
+def test_backends_agree_row_by_row_on_exact_plans():
+    """``"torch"`` (unclamped search, reference jnp probe) and the
+    kernel's function (clamped target, ``intersect_levels_ref``) give the
+    same per-row counts on every bucket of an exact plan."""
+    _, tg, _, tl, _, tq = _engine_inputs(*gen.rmat(11, 16, seed=0))
+    h = int(tq[4])
+    plan = tint.plan_buckets(_np(tq[2])[:h], _np(tq[3])[:h], layout="desc")
+    adj = tint.CsrAdjacency.from_graph(tg)
+    assert len(plan.buckets) == 3
+    for b, base, qu, qw, bounds in tint.bucket_slices(adj, tq[0], tq[1],
+                                                      plan):
+        ops = tint.probe_operands(adj, qu, qw, bounds, base, b.count, tl)
+        s_s, l_s, s_l, l_l, lev_u = ops
+        kern = intersect_levels_ref(adj.flat, s_s, l_s, s_l, l_l, tl, lev_u,
+                                    d_cand=b.d_cand, d_targ=b.d_targ)
+        probe = split_counts(adj.flat, s_s, l_s, s_l, l_l, tl, lev_u,
+                             d_cand=b.d_cand,
+                             num_steps=search_steps(b.d_targ))
+        for a, c in zip(kern, probe):
+            np.testing.assert_array_equal(_np(a), _np(c))
+        assert int(l_l.max()) <= b.d_targ and int(l_s.max()) <= b.d_cand
+
+
+@pytest.mark.parametrize("backend,device,expect", [
+    ("auto", "cpu", "torch"),
+    ("auto", "cuda", "cuda"),
+    ("torch", "cpu", "torch"),
+    ("torch", "cuda", "torch"),
+    ("cuda", "cuda", "cuda"),
+])
+def test_resolve_backend_rule(backend, device, expect):
+    assert tint.resolve_backend(backend, device) == expect
+
+
+def test_resolve_backend_refusals():
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tint.resolve_backend("cuda", "cpu")
+    with pytest.raises(ValueError, match="intersect_backend must be"):
+        tint.resolve_backend("pallas", "cpu")
