@@ -42,9 +42,11 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-#: published H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
+#: H100 SXM at the 700 W limit: HBM rate from NVIDIA's data sheet; int32
+#: rate from the H100 architecture white paper, 64 INT32 lanes per SM x
+#: 132 SMs x the 1.98 GHz boost clock (the data sheet gives none)
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 #: expected (triangles, horizontal queries) of rmat(s, 16, seed=0):
 #: scales 10 and 12 as the JAX package records them
@@ -90,9 +92,10 @@ def bucket_bound(flat, levels, ops, d_cand: int, d_targ: int):
     ``bound_ms`` is the larger of (a) the bytes of the call with each
     input read once and each output written once — the flat adjacency,
     the level array, five int32 operands and two int32 outputs per row —
-    over HBM's 3.35 TB/s, and (b) its compares, one per binary-search
-    step of each clamped candidate plus one, over the card's 67 TFLOP/s
-    fp32 rate (the data sheet gives no separate int32 rate).
+    over HBM's 3.35 TB/s, and (b) its integer operations over the card's
+    int32 rate: per clamped candidate, a compare and a select for each of
+    the ``ceil(log2(l_l + 1))`` binary-search steps, and one equality
+    compare at the end.
     ``row_bytes_ms`` is the per-row gathered volume, each row's clamped
     candidates, their levels and its clamped target list, (2 l_s + l_l)
     int32, plus 8 B out per row, over the same 3.35 TB/s: the bytes a
@@ -103,10 +106,10 @@ def bucket_bound(flat, levels, ops, d_cand: int, d_targ: int):
     q = s_s.shape[0]
     once = (flat.numel() + levels.numel()) * 4 + q * 7 * 4
     rows = int(((2 * ls + ll) * 4).sum().item()) + q * 8
-    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1)) + 1
-    nops = int((ls.to(torch.float64) * steps).sum().item())
+    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
+    nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
     t_bytes = once / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
     row_ms = rows / HBM_BYTES_PER_S * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", once, nops, row_ms
@@ -156,8 +159,9 @@ def compare(flat, levels, ops, b, rows=None):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale", type=int, default=20,
-                    help="RMAT scale of the full-size phase (default 20)")
+    ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
+                    help="RMAT scale of the full-size phase (default 20); "
+                         "only scales whose count is known")
     ap.add_argument("--runs", type=int, default=3,
                     help="timed full-size counts after the warm-up")
     args = ap.parse_args()
@@ -186,7 +190,8 @@ def main() -> int:
         nvidia_smi=card,
         nvcc=sh(build.nvcc_path(), "--version").splitlines()[-1])
     t0 = time.perf_counter()
-    build.build_all()
+    for name in build.SOURCES:
+        build.library(name)
     log("build", seconds=time.perf_counter() - t0,
         sources={k: {"nvcc_seconds": s, "ptxas": e.strip().splitlines()}
                  for k, (s, e) in build.BUILD_LOG.items()})
@@ -231,7 +236,7 @@ def main() -> int:
     edges, n = gen.rmat(scale, 16, seed=0)
     log("data", graph=f"rmat{scale}", n_nodes=n, edge_rows=len(edges),
         generate_seconds=time.perf_counter() - t0)
-    expect = EXPECTED.get(scale)
+    expect = EXPECTED[scale]
     torch.cuda.reset_peak_memory_stats()
 
     # the main path: counters to 0 just before, read just after
@@ -248,8 +253,7 @@ def main() -> int:
         stages=clock.seconds, counts=clock.counts)
     if main_launches["intersect_levels"] == 0 or report.backend != "cuda":
         raise SystemExit("the main path did not launch the kernel")
-    if expect is not None and (report.triangles, report.num_horizontal) != \
-            expect:
+    if (report.triangles, report.num_horizontal) != expect:
         raise SystemExit(f"rmat{scale}: got {report.triangles} triangles, "
                          f"{report.num_horizontal} horizontal; "
                          f"expected {expect}")
@@ -323,16 +327,6 @@ def main() -> int:
     log("top_bucket_sample", rows=len(sops[0]), d_cand=b.d_cand,
         d_targ=b.d_targ, kernel_ms=s_kernel, plain_ms=s_plain,
         library_ms=None)
-    # the top bucket in full at other shared-memory staging capacities
-    # (0 = every target searched in global memory)
-    b, ops = buckets[-1]
-    call = (flat, *ops[:4], levels, ops[4])
-    caps = sorted({0, 4096, k1mod.STAGE_CAP, k1mod.max_stage()})
-    log("top_bucket_stage_cap", d_cand=b.d_cand, d_targ=b.d_targ,
-        default=k1mod.STAGE_CAP, kernel_ms={
-            str(c): cuda_ms(lambda c=c: k1mod.intersect_levels(
-                *call, d_cand=b.d_cand, d_targ=b.d_targ, stage_cap=c))
-            for c in caps})
     if max_err:
         raise SystemExit(f"kernel disagrees with its plain version: {max_err}")
 

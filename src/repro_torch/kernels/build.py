@@ -8,9 +8,8 @@ repository root (git-ignored):
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so <source>
 
 The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded.  ``build_all``
-starts one ``nvcc`` per source, all at once.  Nothing is imported or
-compiled when this module is imported.
+source is rebuilt and a stale library is never loaded.  Nothing is
+imported or compiled when this module is imported.
 """
 from __future__ import annotations
 
@@ -63,49 +62,29 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str):
-    out = _target(name)
-    if out.exists():
-        return None
+def _build(name: str, out: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-    proc = subprocess.Popen(
-        cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-    )
-    return proc, tmp, out, time.perf_counter()
-
-
-def _finish(name: str, job) -> None:
-    proc, tmp, out, t0 = job
-    stdout, stderr = proc.communicate()
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
             f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n"
-            f"{stdout}{stderr}"
+            f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: a concurrent build never loads a stub
-    BUILD_LOG[name] = (time.perf_counter() - t0, stderr)
-
-
-def build_all() -> dict[str, tuple[float, str]]:
-    """Compile every source not yet built, one ``nvcc`` each, started
-    together; returns :data:`BUILD_LOG`."""
-    jobs = {name: _start(name) for name in SOURCES}
-    for name, job in jobs.items():
-        if job is not None:
-            _finish(name, job)
-    return BUILD_LOG
+    BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr)
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of source ``name``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        job = _start(name)
-        if job is not None:
-            _finish(name, job)
-        lib = ctypes.CDLL(str(_target(name)))
+        out = _target(name)
+        if not out.exists():
+            _build(name, out)
+        lib = ctypes.CDLL(str(out))
         _LIBS[name] = lib
     return lib

@@ -27,8 +27,9 @@
 //     the candidates, each lane binary-searches the target slice in
 //     global memory (hub rows stay hot in the 50 MB L2);
 //   * wide buckets: one block per row; the target slice is staged in
-//     dynamic shared memory when it fits the launch's staging capacity,
-//     otherwise searched in global memory.
+//     16 KB of shared memory (kStageCap entries) when it fits, otherwise
+//     searched in global memory.  A larger stage leaves fewer blocks per
+//     SM and measured slower on the card (PERF.md).
 //
 // Each row writes its own c1/c2: no atomics, deterministic.  Sentinel
 // and masked rows carry l_s = l_l = 0 and count nothing.  All index math
@@ -48,6 +49,8 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerWarpBlock = 8;       // warp kernel: 256 threads
 constexpr int kBlockThreads = 512;         // block kernel
 constexpr int kWarpMaxCand = 256;          // widest bucket run warp-per-row
+constexpr int kStageCap = 4096;            // block kernel's staged target
+                                           // (16 KB: four blocks per SM)
 
 // Lower-bound membership test of key in a[0:len] (a sorted).
 __device__ __forceinline__ bool contains_global(const int* __restrict__ a,
@@ -117,7 +120,7 @@ intersect_levels_warp(const int* __restrict__ flat,
 }
 
 // One block per row; the target slice is staged in shared memory when
-// it has at most stage_cap entries (the launch's dynamic allocation).
+// it has at most kStageCap entries.
 __global__ void __launch_bounds__(kBlockThreads)
 intersect_levels_block(const int* __restrict__ flat,
                        const int* __restrict__ s_s,
@@ -126,9 +129,9 @@ intersect_levels_block(const int* __restrict__ flat,
                        const int* __restrict__ l_l,
                        const int* __restrict__ level, int n_level,
                        const int* __restrict__ lev_u, int d_cand,
-                       int d_targ, int stage_cap, int* __restrict__ c1,
+                       int d_targ, int* __restrict__ c1,
                        int* __restrict__ c2) {
-  extern __shared__ int stage[];
+  __shared__ int stage[kStageCap];
   __shared__ int red_a[kBlockThreads / kWarp];
   __shared__ int red_b[kBlockThreads / kWarp];
   const int row = blockIdx.x;
@@ -138,7 +141,7 @@ intersect_levels_block(const int* __restrict__ flat,
   const int* __restrict__ targ = flat + s_l[row];
   const int lu = lev_u[row];
   int a = 0, b = 0;
-  if (ll <= stage_cap) {  // block-uniform branch
+  if (ll <= kStageCap) {  // block-uniform branch
 #pragma unroll 4
     for (int j = threadIdx.x; j < ll; j += kBlockThreads)
       stage[j] = __ldg(targ + j);
@@ -178,19 +181,12 @@ intersect_levels_block(const int* __restrict__ flat,
 
 extern "C" {
 
-// Largest staging capacity (int32 entries) one block may ask for.
-int intersect_levels_max_stage() {
-  return (227 * 1024 - 2 * (kBlockThreads / kWarp) * 4) / 4;
-}
-
-// Launch K1 over q rows.  stage_cap (int32 entries) sizes the block
-// kernel's dynamic shared memory; it is ignored by the warp kernel.
-// Returns a cudaError_t (0 = launched).
+// Launch K1 over q rows.  Returns a cudaError_t (0 = launched).
 int intersect_levels_launch(const int* flat, const int* s_s, const int* l_s,
                             const int* s_l, const int* l_l,
                             const int* level, int n_level, const int* lev_u,
-                            int q, int d_cand, int d_targ, int stage_cap,
-                            int* c1, int* c2, void* stream) {
+                            int q, int d_cand, int d_targ, int* c1,
+                            int* c2, void* stream) {
   if (q <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d_cand <= kWarpMaxCand) {
@@ -200,16 +196,9 @@ int intersect_levels_launch(const int* flat, const int* s_s, const int* l_s,
         c1, c2);
     return static_cast<int>(cudaGetLastError());
   }
-  if (stage_cap < 0 || stage_cap > intersect_levels_max_stage())
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(stage_cap) * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      intersect_levels_block, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  intersect_levels_block<<<q, kBlockThreads, smem, st>>>(
-      flat, s_s, l_s, s_l, l_l, level, n_level, lev_u, d_cand, d_targ,
-      stage_cap, c1, c2);
+  intersect_levels_block<<<q, kBlockThreads, 0, st>>>(
+      flat, s_s, l_s, s_l, l_l, level, n_level, lev_u, d_cand, d_targ, c1,
+      c2);
   return static_cast<int>(cudaGetLastError());
 }
 

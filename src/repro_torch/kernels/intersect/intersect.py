@@ -19,13 +19,6 @@ from repro_torch.kernels.intersect.ref import intersect_levels_ref
 #: number of times the CUDA kernel was launched in this process
 LAUNCHES = 0
 
-#: default staging capacity (int32 entries) of the wide-row block kernel:
-#: 16 KB of shared memory, so four 512-thread blocks (the SM's thread
-#: limit) share an SM; a target row longer than this is searched in global
-#: memory instead.  A larger stage costs blocks per SM: chip_smoke.py's
-#: ``top_bucket_stage_cap`` line times the alternatives on the card.
-STAGE_CAP = 4096
-
 _FN = None
 
 
@@ -36,19 +29,10 @@ def _launcher():
 
         fn = library("intersect").intersect_levels_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, p, p, p, i, p, i, i, i, p, p, p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-def max_stage() -> int:
-    """Largest staging capacity (int32 entries) the kernel accepts."""
-    from repro_torch.kernels.build import library
-
-    lib = library("intersect")
-    lib.intersect_levels_max_stage.restype = ctypes.c_int
-    return int(lib.intersect_levels_max_stage())
 
 
 def _check(flat, s_s, l_s, s_l, l_l, level, lev_u, d_cand, d_targ):
@@ -78,15 +62,13 @@ def _check(flat, s_s, l_s, s_l, l_l, level, lev_u, d_cand, d_targ):
 
 
 def intersect_levels(flat, s_s, l_s, s_l, l_l, level, lev_u, *,
-                     d_cand: int, d_targ: int, stage_cap: int | None = None):
+                     d_cand: int, d_targ: int):
     """Per-row ``(c1, c2)`` int32[Q]: candidates
     ``flat[s_s : s_s + min(l_s, d_cand)]`` found in the sorted target
     ``flat[s_l : s_l + min(l_l, d_targ)]``, split by whether
     ``level[cand]`` differs from (c1) or equals (c2) ``lev_u``.
 
-    Every operand is a 1-D int32 tensor on one device.  ``stage_cap``
-    overrides the wide-row kernel's shared-memory staging capacity
-    (default ``min(d_targ, STAGE_CAP)``)."""
+    Every operand is a 1-D int32 tensor on one device."""
     global LAUNCHES
     dev = _check(flat, s_s, l_s, s_l, l_l, level, lev_u, d_cand, d_targ)
     if dev.type == "cpu":
@@ -105,19 +87,18 @@ def intersect_levels(flat, s_s, l_s, s_l, l_l, level, lev_u, *,
     c2 = torch.empty(q, dtype=torch.int32, device=dev)
     if q == 0:
         return c1, c2
-    cap = min(int(d_targ), STAGE_CAP) if stage_cap is None else int(stage_cap)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _launcher()(
             flat.data_ptr(), s_s.data_ptr(), l_s.data_ptr(), s_l.data_ptr(),
             l_l.data_ptr(), level.data_ptr(), int(level.shape[0]),
-            lev_u.data_ptr(), int(q), int(d_cand), int(d_targ), cap,
+            lev_u.data_ptr(), int(q), int(d_cand), int(d_targ),
             c1.data_ptr(), c2.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"intersect_levels launch failed: cudaError {err} "
-            f"(q={q}, d_cand={d_cand}, d_targ={d_targ}, stage_cap={cap})"
+            f"(q={q}, d_cand={d_cand}, d_targ={d_targ})"
         )
     LAUNCHES += 1
     return c1, c2

@@ -32,32 +32,37 @@ def cuda_device():
 
 
 def _random_operands(rng, q, d, n=2000):
-    lists = [np.unique(rng.integers(0, n, size=rng.integers(0, d + 1)))
+    """``n`` sorted unique lists of up to ``d`` ids and ``q`` random
+    (candidate row, target row) pairs over them, as the kernel's operands."""
+    ids = max(n, 2 * d)
+    lists = [np.unique(rng.integers(0, ids, size=rng.integers(0, d + 1)))
              for _ in range(n)]
     flat = np.concatenate(lists).astype(np.int32)
     starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
     lens = np.array([len(x) for x in lists], np.int32)
     u = rng.integers(0, n, size=q)
     w = rng.integers(0, n, size=q)
-    level = rng.integers(0, 4, size=n).astype(np.int32)
+    level = rng.integers(0, 4, size=ids).astype(np.int32)
     return (flat, starts[u], lens[u], starts[w], lens[w], level, level[u])
 
 
-@pytest.mark.parametrize("d_cand,d_targ,stage_cap", [
-    (32, 1024, None),      # warp kernel
-    (256, 300, None),      # warp kernel, clamped targets
-    (1024, 1024, None),    # block kernel, staged targets
-    (1024, 1024, 0),       # block kernel, global-memory search
-    (512, 100, 64),        # block kernel, clamps and mixed staging
+# The block kernel stages a target of at most 4,096 entries in shared
+# memory and searches a longer one in global memory; lists of up to
+# 10,000 entries reach both branches within one launch.
+@pytest.mark.parametrize("d_cand,d_targ,d_list", [
+    (32, 1024, 1200),      # warp kernel
+    (256, 300, 1200),      # warp kernel, clamped targets
+    (1024, 1024, 1200),    # block kernel, staged targets
+    (16384, 16384, 10000),  # block kernel, staged and global-memory search
+    (512, 100, 1200),      # block kernel, clamped lists
 ])
 def test_kernel_matches_plain_on_random_operands(cuda_device, d_cand,
-                                                 d_targ, stage_cap):
+                                                 d_targ, d_list):
     rng = np.random.default_rng(d_cand + d_targ)
     ops = [torch.from_numpy(x).to(cuda_device)
-           for x in _random_operands(rng, 3000, 1200)]
+           for x in _random_operands(rng, 3000, d_list)]
     before = tkern.LAUNCHES
-    k1, k2 = tkern.intersect_levels(*ops, d_cand=d_cand, d_targ=d_targ,
-                                    stage_cap=stage_cap)
+    k1, k2 = tkern.intersect_levels(*ops, d_cand=d_cand, d_targ=d_targ)
     torch.cuda.synchronize()
     assert tkern.LAUNCHES == before + 1
     r1, r2 = intersect_levels_ref(*ops, d_cand=d_cand, d_targ=d_targ)
