@@ -1,19 +1,26 @@
 """One front door for cover-edge triangle counting (the port).
 
 Counterpart of ``repro.api`` for the routes ported so far: the exact
-single-graph count on the local route (Algorithm 1).
+single-graph count on the local route (Algorithm 1), with per-vertex
+credit, and triangle finding.
 
 * :class:`TCOptions` — the local route's knobs, validated as in the
   reference.
-* :class:`TriangleEngine` — ``count`` on the local route, on the
-  engine's device (``"cuda"`` unless the caller asks for ``"cpu"``).
+* :class:`TriangleEngine` — ``count`` on the local route and ``find``,
+  on the engine's device (``"cuda"`` unless the caller asks for
+  ``"cpu"``).
 * :class:`TriangleReport` — the result contract: ``triangles``, ``k``,
-  ``c1``/``c2``, the normalized :class:`Overflow` flags and provenance.
+  ``c1``/``c2``, the normalized :class:`Overflow` flags, provenance and,
+  with ``per_vertex``, each vertex's triangle count and degree.
 
-    from repro_torch.api import TriangleEngine
+    from repro_torch.api import TCOptions, TriangleEngine
 
-    report = TriangleEngine().count((edges, n_nodes))
+    engine = TriangleEngine()
+    report = engine.count((edges, n_nodes))
     print(report.triangles, report.k, report.backend)
+    rep = engine.count((edges, n_nodes), options=TCOptions(per_vertex=True))
+    print(rep.top_k(10), rep.transitivity())
+    tri, count = engine.find((edges, n_nodes), max_triangles=1000)
 
 The other routes of the reference (batch, distributed, approx, stream)
 raise ``NotImplementedError`` naming the ROADMAP item that ports them.
@@ -79,6 +86,10 @@ class TCOptions:
       query_chunk:    probe-chunk rows (bounds peak memory); also
                       overrides ``row_mult`` when set.
       row_mult:       bucket-row quantization of the plan.
+      per_vertex:     also return per-vertex triangle attribution
+                      (``TriangleReport.per_vertex`` + derived
+                      clustering / transitivity / top-k), from the same
+                      probe pass through the hit mask.
       d_max:          lossy candidate-width clamp (``None`` = exact).
       cap_h:          cap on the compacted horizontal-query block.
       root:           BFS root.
@@ -91,6 +102,7 @@ class TCOptions:
     bucket_widths: tuple = DEFAULT_BUCKET_WIDTHS
     query_chunk: Optional[int] = None
     row_mult: int = 64
+    per_vertex: bool = False
     d_max: Optional[int] = None
     cap_h: Optional[int] = None
     root: int = 0
@@ -144,7 +156,13 @@ class TriangleReport:
     (measured horizontal-edge fraction), ``num_horizontal``, the apex
     level split ``c1``/``c2``, ``overflow``, provenance (``route``,
     resolved ``backend``, ``plan_id``, ``options``) and the BFS
-    ``levels`` as a host array."""
+    ``levels`` as a host array.
+
+    With ``TCOptions(per_vertex=True)`` it also carries ``per_vertex``
+    (int32[n_nodes], each vertex's triangle count — ``sum(per_vertex) ==
+    3 * triangles``) and ``degrees`` (int32[n_nodes]), from which
+    :meth:`local_clustering`, :meth:`transitivity` and :meth:`top_k`
+    derive."""
 
     triangles: int
     k: float
@@ -157,6 +175,44 @@ class TriangleReport:
     plan_id: str
     options: TCOptions
     levels: Optional[np.ndarray] = None
+    per_vertex: Optional[np.ndarray] = None
+    degrees: Optional[np.ndarray] = None
+
+    def _require_per_vertex(self) -> None:
+        if self.per_vertex is None or self.degrees is None:
+            raise ValueError(
+                "this report carries no per-vertex attribution; run with "
+                "TCOptions(per_vertex=True) on an exact route"
+            )
+
+    def local_clustering(self) -> np.ndarray:
+        """Per-vertex local clustering coefficient ``t(v) / C(deg(v), 2)``
+        (0 where ``deg(v) < 2``), float64[n_nodes]."""
+        self._require_per_vertex()
+        d = self.degrees.astype(np.int64)
+        wedges = d * (d - 1) // 2
+        out = np.zeros(d.shape, np.float64)
+        np.divide(
+            self.per_vertex.astype(np.float64), wedges,
+            out=out, where=wedges > 0,
+        )
+        return out
+
+    def transitivity(self) -> float:
+        """Global transitivity ``3T / #wedges`` (0.0 on wedge-free
+        graphs) — closed triples over connected triples."""
+        self._require_per_vertex()
+        d = self.degrees.astype(np.int64)
+        wedges = int((d * (d - 1) // 2).sum())
+        return 0.0 if wedges == 0 else 3.0 * self.triangles / wedges
+
+    def top_k(self, k: int) -> np.ndarray:
+        """Vertex ids of the ``k`` triangle-densest vertices, descending
+        by ``per_vertex`` count (ties broken by lower id)."""
+        self._require_per_vertex()
+        pv = self.per_vertex.astype(np.int64)
+        order = np.lexsort((np.arange(pv.shape[0]), -pv))
+        return order[: max(0, min(int(k), pv.shape[0]))]
 
 
 class TriangleEngine:
@@ -231,20 +287,54 @@ class TriangleEngine:
         else:
             n_nodes = int(graph_or_edges[1])
         if n_nodes == 0:
+            empty_pv = np.zeros((0,), np.int32) if o.per_vertex else None
             return TriangleReport(
                 triangles=0, k=0.0, num_horizontal=0, c1=0, c2=0,
                 overflow=Overflow(), route=r, backend=backend,
                 plan_id="empty", options=o,
                 levels=np.zeros((0,), np.int32),
+                per_vertex=empty_pv, degrees=empty_pv,
             )
-        res = self.count_raw(graph_or_edges, options=o, clock=clock)
+        g = self._graph(graph_or_edges, clock)
+        res = _seq._triangle_count(g, o, clock=clock)
         tri, c1, c2, nh, k, ovf = (
             x.item() for x in (res.triangles, res.c1, res.c2,
                                res.num_horizontal, res.k, res.h_overflow)
         )
+        pv = degs = None
+        if o.per_vertex:
+            pv, degs = res.per_vertex.cpu().numpy(), g.deg.cpu().numpy()
         return TriangleReport(
             triangles=int(tri), k=float(k), num_horizontal=int(nh),
             c1=int(c1), c2=int(c2), overflow=Overflow(h=bool(ovf)),
             route=r, backend=backend, plan_id=f"exact/{backend}",
             options=o, levels=res.levels.cpu().numpy(),
+            per_vertex=pv, degrees=degs,
         )
+
+    def find_raw(self, graph_or_edges, *, max_triangles: int,
+                 options: Optional[TCOptions] = None,
+                 clock: Optional[_seq.StageClock] = None):
+        """Triangle finding: ``(tri int32[max_triangles, 3], count)``,
+        tensors on the engine's device."""
+        return _seq._find_triangles(
+            self._graph(graph_or_edges, clock), options or self.options,
+            max_triangles=int(max_triangles), clock=clock,
+        )
+
+    def find(
+        self,
+        graph_or_edges: Union[Graph, EdgeList],
+        *,
+        max_triangles: int,
+        options: Optional[TCOptions] = None,
+        clock: Optional[_seq.StageClock] = None,
+    ):
+        """Triangle *finding* (local route): the triangles themselves,
+        ``(tri int32[max_triangles, 3], count)`` as tensors on the
+        engine's device; each row is ``(u, w, apex)`` with ``u < w`` the
+        horizontal edge that found it, and rows past ``count`` are
+        ``-1``.  Same pipeline, same options, as ``count``; the order is
+        the reference's (bucket by bucket, row-major)."""
+        return self.find_raw(graph_or_edges, max_triangles=max_triangles,
+                             options=options, clock=clock)

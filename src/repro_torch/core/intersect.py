@@ -1,6 +1,7 @@
 """The neighbourhood-intersection engine: plan once, execute many.
 
-Counterpart of ``repro.core.intersect`` for the exact local count:
+Counterpart of ``repro.core.intersect`` for the exact local count, its
+per-vertex credit and triangle finding:
 
 * **Adjacency view.**  ``CsrAdjacency`` reads a ``Graph``'s CSR arrays
   and exposes ``bounds(v) -> (starts, lens)`` into one flat sorted array.
@@ -21,18 +22,35 @@ Counterpart of ``repro.core.intersect`` for the exact local count:
 
   The two agree on every exact plan: ``plan_buckets`` sizes ``d_targ``
   to at least every large degree of its bucket.
+
+* **Hits.**  Per-vertex credit and finding need the membership mask
+  itself, not its counts, so there the ``cuda`` backend switches from K1
+  to K2 (the ragged hit mask), as the reference switches from
+  ``intersect_pallas`` to ``intersect_pallas_hits``.  The mask is
+  ragged — only each row's real candidates — and is turned into a hit
+  list ``(row, candidate id)`` chunk by chunk, each chunk at most
+  ``HIT_CELL_BUDGET`` candidate cells, in plan order.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.graph.csr import Graph, _ceil_to, _next_pow2
-from repro_torch.kernels.intersect.intersect import intersect_levels
-from repro_torch.kernels.intersect.ref import search_steps, split_counts
+from repro_torch.graph.csr import Graph, _ceil_to, _next_pow2, gather_rows
+from repro_torch.graph.segment import segment_sum
+from repro_torch.kernels.intersect.intersect import (
+    intersect_hits,
+    intersect_levels,
+)
+from repro_torch.kernels.intersect.ref import (
+    CAND_PAD,
+    probe_hits,
+    search_steps,
+    split_counts,
+)
 
 #: Default small-endpoint-degree bucket boundaries: queries whose smaller
 #: endpoint has degree <= w probe at candidate width w (plus an implicit
@@ -40,6 +58,11 @@ from repro_torch.kernels.intersect.ref import search_steps, split_counts
 DEFAULT_BUCKET_WIDTHS = (32, 256)
 
 BACKENDS = ("auto", "torch", "cuda")
+
+#: Most candidate cells one hit-mask probe covers (one K2 launch on the
+#: card): the mask costs a byte per cell and its hit list ~24 bytes per
+#: hit, so this bounds a chunk's memory to a few GB.
+HIT_CELL_BUDGET = 1 << 28
 
 
 # --------------------------------------------------------------- views
@@ -196,14 +219,16 @@ def plan_buckets(
 
 class EngineCounts(NamedTuple):
     """``run_plan`` result: the paper's diff-level / same-level apex
-    splits ``(c1, c2)`` as int32 scalar tensors, and ``overflow`` (bool
+    splits ``(c1, c2)`` as int32 scalar tensors, ``overflow`` (bool
     tensor), True iff some real query's candidate (or target) list
     exceeded its bucket width — exact plans set it only under an explicit
-    ``d_cap``/``d_max`` clamp."""
+    ``d_cap``/``d_max`` clamp — and, with ``per_vertex``, the credit
+    int32[n + 1] (slot ``n`` is the throwaway of sentinel rows)."""
 
     c1: torch.Tensor
     c2: torch.Tensor
     overflow: torch.Tensor
+    per_vertex: Optional[torch.Tensor] = None
 
 
 def _swapped_bounds(su, lu, sw, lw, row_ok):
@@ -242,13 +267,130 @@ def probe_operands(adj: CsrAdjacency, qu, qw, bounds, base: int, count: int,
     return s_s, l_s, s_l, l_l, lev_u
 
 
+def _probe_rows(adj: CsrAdjacency, s_s, l_s, s_l, l_l, *, d_cand, d_targ,
+                backend):
+    """One hit-mask probe: the ragged ``(offsets int64[Q + 1], hits
+    bool[offsets[-1]])`` of rows ``flat[s_s : s_s + min(l_s, d_cand)]``
+    against their targets.  ``"cuda"`` is K2 over the target clamped to
+    ``d_targ``; ``"torch"`` the reference's jnp probe, a bounded search
+    of ``search_steps(d_targ)`` steps over the *unclamped* target."""
+    if backend == "cuda":
+        return intersect_hits(adj.flat, s_s, l_s, s_l, l_l,
+                              d_cand=d_cand, d_targ=d_targ)
+    return probe_hits(adj.flat, s_s, l_s, s_l, l_l, d_cand=d_cand,
+                      num_steps=search_steps(d_targ))
+
+
+def hit_list(flat, s_s, offsets, hits):
+    """The ragged mask as a hit list ``(row int64[H], cand int32[H])``,
+    row-major (row by row, candidates in order): each hit's row and its
+    candidate ``flat[s_s[row] + j]``."""
+    pos = hits.nonzero().squeeze(1)
+    row = torch.searchsorted(offsets[1:], pos, right=True)
+    return row, flat[s_s[row].long() + (pos - offsets[row])]
+
+
+def cell_chunks(l_s, *, d_cand: int):
+    """Row ranges ``[(r0, r1), ...]`` covering ``l_s`` in order, each of
+    at most ``HIT_CELL_BUDGET + d_cand`` clamped candidate cells (one
+    host sync)."""
+    budget = HIT_CELL_BUDGET
+    q = l_s.shape[0]
+    cum = torch.cumsum(l_s.clamp(0, max(0, d_cand)), 0, dtype=torch.int64)
+    total = int(cum[-1].item()) if q else 0
+    if total <= budget:
+        return [(0, q)] if q else []
+    marks = torch.arange(budget, total, budget, dtype=torch.int64,
+                         device=l_s.device)
+    cuts = [0, *torch.searchsorted(cum, marks, right=True).tolist(), q]
+    return [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+
+
+def hit_chunks(adj: CsrAdjacency, ops, *, d_cand, d_targ, backend,
+               clock=None):
+    """Yield ``(row, cand)`` hit lists (:func:`hit_list`) of one slice of
+    bucket rows, ``ops = (s_s, l_s, s_l, l_l, ...)``, chunk after chunk
+    under the cell budget, in row-major order; ``row`` indexes the slice.
+    A ``clock`` (``core.sequential.StageClock``) records the ``probe``
+    and ``hit_list`` stages."""
+    s_s, l_s, s_l, l_l = ops[:4]
+    for r0, r1 in cell_chunks(l_s, d_cand=d_cand):
+        offsets, hits = _probe_rows(
+            adj, s_s[r0:r1], l_s[r0:r1], s_l[r0:r1], l_l[r0:r1],
+            d_cand=d_cand, d_targ=d_targ, backend=backend,
+        )
+        if clock is not None:
+            clock.lap("probe")
+        row, cand = hit_list(adj.flat, s_s[r0:r1], offsets, hits)
+        del offsets, hits
+        if clock is not None:
+            clock.lap("hit_list")
+        yield row + r0, cand
+
+
+def _ends_credit(n, end_rows, qu_c, qw_c):
+    """Endpoint half of the exactly-once rule: ``end_rows`` hits per row
+    credit both edge endpoints.  Sentinel endpoints (``n``) land in the
+    throwaway slot ``n``."""
+    return (segment_sum(end_rows, qu_c, n + 1)
+            + segment_sum(end_rows, qw_c, n + 1))
+
+
+def _chunk_credit(n, cand, end_rows, qu_c, qw_c):
+    """int32[n + 1] per-vertex triangle credit of one probed chunk.
+
+    Exactly-once rule: every hit credits its apex (the candidate it
+    found); ``end_rows`` — per row, the hits whose triangle is seen ONLY
+    at this horizontal edge (the diff-level hits under Algorithm 1) —
+    additionally credits the edge endpoints ``qu``/``qw``.  Same-level
+    hits credit the apex alone, because an all-same-level triangle
+    surfaces once per corner across its three horizontal edges.
+
+    Apex credit scatters each hit's candidate id directly (``cand``, the
+    hit list's ids, all real vertices).  The reference's slot
+    accumulator (``_apex_window_add`` + ``_apex_from_slots``) exists
+    because of how XLA scatters; it adds the same integers."""
+    apex = torch.zeros(n + 1, dtype=torch.int32, device=cand.device)
+    apex.index_add_(0, cand.long(),
+                    torch.ones_like(cand, dtype=torch.int32))
+    return apex + _ends_credit(n, end_rows, qu_c, qw_c)
+
+
 def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
-                 level, backend):
-    """Summed ``(c1, c2, overflow)`` for one slice of bucket rows."""
+                 level, backend, per_vertex=False, clock=None):
+    """Summed ``(c1, c2, overflow, credit)`` for one slice of bucket
+    rows; ``credit`` is int32[n + 1] with ``per_vertex``, else None.
+
+    Without ``per_vertex`` the ``cuda`` backend counts with K1 and the
+    ``torch`` backend with the jnp probe's counts.  With it, both go
+    through the hit mask (K2 on the card) and c1/c2 are derived from the
+    mask: a hit is same-level (c2) when its apex's level equals the
+    edge's, else diff-level (c1).  A ``clock`` records the per-vertex
+    path's ``probe``, ``hit_list`` and ``credit`` stages."""
     s_s, l_s, s_l, l_l, lev_u = probe_operands(
         adj, qu, qw, bounds, base, count, level
     )
     overflow = _width_overflow(l_s, l_l, d_cand=d_cand, d_targ=d_targ)
+    if per_vertex:
+        n = adj.n_nodes
+        c1 = torch.zeros((), dtype=torch.int32, device=qu.device)
+        c2 = torch.zeros((), dtype=torch.int32, device=qu.device)
+        credit = torch.zeros(n + 1, dtype=torch.int32, device=qu.device)
+        for row, cand in hit_chunks(adj, (s_s, l_s, s_l, l_l),
+                                    d_cand=d_cand, d_targ=d_targ,
+                                    backend=backend, clock=clock):
+            diff = level[cand] != lev_u[row]
+            n_diff = diff.sum(dtype=torch.int32)
+            c1 = c1 + n_diff
+            c2 = c2 + (cand.shape[0] - n_diff)
+            diff_rows = segment_sum(
+                torch.ones_like(cand, dtype=torch.int32)[diff], row[diff],
+                qu.shape[0],
+            )
+            credit += _chunk_credit(n, cand, diff_rows, qu, qw)
+            if clock is not None:
+                clock.lap("credit")
+        return c1, c2, overflow, credit
     if backend == "cuda":
         c1, c2 = intersect_levels(
             adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
@@ -261,7 +403,8 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
             adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
             d_cand=d_cand, num_steps=search_steps(d_targ),
         )
-    return (c1.sum(dtype=torch.int32), c2.sum(dtype=torch.int32), overflow)
+    return (c1.sum(dtype=torch.int32), c2.sum(dtype=torch.int32), overflow,
+            None)
 
 
 def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
@@ -294,7 +437,8 @@ def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
 
 
 def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
-             level: torch.Tensor) -> EngineCounts:
+             level: torch.Tensor, per_vertex: bool = False,
+             clock=None) -> EngineCounts:
     """Execute a bucket plan against an adjacency view.
 
     ``qu``/``qw`` are the query endpoints (entries ``>= adj.n_nodes`` are
@@ -303,21 +447,32 @@ def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
     sequential pipeline skips the non-horizontal tail and how ``cap_h``
     truncates).  Hits are split into the paper's ``(c1, c2)`` by apex
     level.  Sums are int32, as in the reference.
+
+    With ``per_vertex=True`` the same probe pass also returns triangle
+    credit (:func:`_chunk_credit`), int32[n + 1]: slot ``n`` absorbs
+    sentinel-row credit and is dropped by the caller, and
+    ``sum(per_vertex[:n]) == 3 * triangles`` exactly.  A ``clock``
+    (``core.sequential.StageClock``) splits that path's stages.
     """
     dev = qu.device
+    n = adj.n_nodes
     c1 = torch.zeros((), dtype=torch.int32, device=dev)
     c2 = torch.zeros((), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    credit = (torch.zeros(n + 1, dtype=torch.int32, device=dev)
+              if per_vertex else None)
     if qu.shape[0] == 0 or not plan.buckets:
-        return EngineCounts(c1, c2, ovf)
+        return EngineCounts(c1, c2, ovf, credit)
     for b, base, qu_c, qw_c, bounds in bucket_slices(adj, qu, qw, plan):
-        d1, d2, do = _count_chunk(
+        d1, d2, do, dc = _count_chunk(
             adj, qu_c, qw_c, bounds, base, b.count,
             d_cand=b.d_cand, d_targ=b.d_targ, level=level,
-            backend=plan.backend,
+            backend=plan.backend, per_vertex=per_vertex, clock=clock,
         )
         c1, c2, ovf = c1 + d1, c2 + d2, ovf | do
-    return EngineCounts(c1, c2, ovf)
+        if per_vertex:
+            credit += dc
+    return EngineCounts(c1, c2, ovf, credit)
 
 
 # ------------------------------------------------- probe-level wrappers
@@ -371,3 +526,41 @@ def count_common_neighbors(
     )
     eng = run_plan(CsrAdjacency.from_graph(g), qu, qw, plan, level=level)
     return eng.c1, eng.c2
+
+
+def probe_block(g: Graph, qu: torch.Tensor, qw: torch.Tensor, *,
+                d_cand: int, d_targ: int | None = None,
+                backend: str = "torch"):
+    """Backend-dispatched block probe, dense: ``(apexes int32[q, d_cand],
+    found bool[q, d_cand])``.  Candidates come from the smaller-degree
+    endpoint in CSR order, clamped to ``d_cand``; ``d_targ`` bounds the
+    larger side's width and search depth (``None`` = ``d_cand``).
+    Apexes are padded with ``n`` (the finding pipeline's convention).
+    The dense form is for small blocks; the pipelines use the ragged
+    mask."""
+    backend = resolve_backend(backend, g.device)
+    n = g.n_nodes
+    adj = CsrAdjacency.from_graph(g)
+    row_ok = (qu < n) & (qw < n)
+    s_s, l_s, s_l, l_l = _swapped_bounds(*adj.bounds(qu), *adj.bounds(qw),
+                                         row_ok)
+    _, hits = _probe_rows(adj, s_s, l_s, s_l, l_l, d_cand=d_cand,
+                          d_targ=d_targ or d_cand, backend=backend)
+    ls = l_s.clamp(max=d_cand)
+    cand = gather_rows(adj.flat, s_s, ls, width=d_cand, pad=CAND_PAD)
+    found = torch.zeros(cand.shape, dtype=torch.bool, device=cand.device)
+    found[torch.arange(d_cand, device=cand.device)[None, :]
+          < ls[:, None]] = hits
+    return torch.where(cand >= 0, cand, n), found
+
+
+def probe_common_neighbors(g: Graph, eu: torch.Tensor, ew: torch.Tensor, *,
+                           d_max: int, d_search: int | None = None):
+    """For query edges ``(eu, ew)`` (sentinel-padded with ``n``), the
+    candidate common neighbours and their membership mask,
+    ``(apexes int32[q, d_max], found bool[q, d_max])``, by the plain
+    probe.  ``d_max`` bounds the candidate width, ``d_search`` the search
+    over the larger list (``None`` = ``d_max``, exact only when it is the
+    global max degree)."""
+    return probe_block(g, eu, ew, d_cand=d_max, d_targ=d_search,
+                       backend="torch")

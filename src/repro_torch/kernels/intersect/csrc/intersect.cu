@@ -1,27 +1,41 @@
-// K1 for Hopper: sorted-list intersection with the paper's level split.
+// K1 and K2 for Hopper: sorted-list intersection over CSR bounds, with
+// two epilogues on one row walk.
 //
-// Replaces repro/kernels/intersect/intersect.py:intersect_pallas (its
-// Pallas body _kernel).  Computes, per query row r,
+// K1 (intersect_levels_launch) replaces
+// repro/kernels/intersect/intersect.py:intersect_pallas (its Pallas body
+// _kernel).  K2 (intersect_hits_launch) replaces intersect_pallas_hits
+// (its body _hits_kernel).  Both read, per query row r,
 //
 //   cand = flat[s_s[r] : s_s[r] + min(l_s[r], d_cand)]   (sorted)
 //   targ = flat[s_l[r] : s_l[r] + min(l_l[r], d_targ)]   (sorted)
+//
+// and test each candidate for membership in targ.  K1 counts the hits,
+//
 //   c1[r] = #{c in cand : c in targ, level[c] != lev_u[r]}
 //   c2[r] = #{c in cand : c in targ, level[c] == lev_u[r]}
 //
 // which is what intersect_pallas computes on the dense [Q, d_cand] /
-// [Q, d_targ] blocks the reference gathers from the same bounds.  The
-// TPU form (a tiled all-pairs equality cube over those dense blocks)
-// does not carry over: at Graph500 scale 18-20 the dense blocks alone
-// would be 0.15-1.1 TB.  This kernel reads the adjacency straight from
-// the CSR array instead; each row walks its real candidate list and
-// binary-searches the target slice, so the work is
-// sum(l_s * log2(l_l)) and nothing of size [Q, d_cand] exists.
+// [Q, d_targ] blocks the reference gathers from the same bounds.  K2
+// writes the membership mask itself, ragged: candidate j of row r sets
+// hits[offsets[r] + j] to 1 (found) or 0, where offsets (int64[Q + 1],
+// from the wrapper) is the running sum of min(l_s, d_cand).  That is
+// intersect_pallas_hits' bool[Q, d_cand] with the padding cells left
+// out.
 //
-// What bounds it on this card: memory.  The bytes it must move are, per
-// row, its candidates, their levels and its target list, (2 l_s + l_l)
-// int32, plus five int32 operands in and two out; its operations are a
-// few integer compares per binary-search step, far below the card's
-// integer rate.  The design does the simple thing about it:
+// The TPU form (a tiled all-pairs equality cube over the dense blocks)
+// does not carry over: at Graph500 scale 18-20 the dense blocks alone
+// would be 0.15-1.1 TB, and K2's dense mask at scale 20 ~97 GB.  These
+// kernels read the adjacency straight from the CSR array instead; each
+// row walks its real candidate list and binary-searches the target
+// slice, so the work is sum(l_s * log2(l_l)) and nothing of size
+// [Q, d_cand] exists.
+//
+// What bounds them on this card: memory.  The bytes a row must move are
+// its candidates (and, for K1, their levels) and its target list, plus
+// five int32 operands in and two int32 out (K1) or one byte out per
+// candidate (K2); the operations are a few integer compares per
+// binary-search step, far below the card's integer rate.  The design
+// does the simple thing about it:
 //
 //   * narrow buckets (d_cand <= 256): one warp per row, lanes stride over
 //     the candidates, each lane binary-searches the target slice in
@@ -31,10 +45,12 @@
 //     searched in global memory.  A larger stage leaves fewer blocks per
 //     SM and measured slower on the card (PERF.md).
 //
-// Each row writes its own c1/c2: no atomics, deterministic.  Sentinel
-// and masked rows carry l_s = l_l = 0 and count nothing.  All index math
-// is int32: offsets stay below the slot count (< 2**31, enforced when
-// the graph is built).
+// K1 writes each row's c1/c2, K2 each candidate's byte: no atomics,
+// deterministic.  Sentinel and masked rows carry l_s = l_l = 0 and
+// touch nothing.  Index math within the adjacency is int32: offsets
+// into flat stay below the slot count (< 2**31, enforced when the graph
+// is built).  K2's output index is int64: one bucket's mask at scale 20
+// holds 3.45e9 cells.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes); each entry point launches on the given stream and returns
@@ -46,10 +62,10 @@
 namespace {
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerWarpBlock = 8;       // warp kernel: 256 threads
-constexpr int kBlockThreads = 512;         // block kernel
+constexpr int kRowsPerWarpBlock = 8;       // warp kernels: 256 threads
+constexpr int kBlockThreads = 512;         // block kernels
 constexpr int kWarpMaxCand = 256;          // widest bucket run warp-per-row
-constexpr int kStageCap = 4096;            // block kernel's staged target
+constexpr int kStageCap = 4096;            // block kernels' staged target
                                            // (16 KB: four blocks per SM)
 
 // Lower-bound membership test of key in a[0:len] (a sorted).
@@ -73,6 +89,48 @@ __device__ __forceinline__ bool contains_shared(const int* a, int len,
   return lo < len && a[lo] == key;
 }
 
+// The two row walks.  Each calls visit(j, c, found) once for every
+// candidate j < ls of the row (c = cand[j]), from the thread that owns j.
+
+// Warp mapping: the 32 lanes stride over the candidates; d_cand <=
+// kWarpMaxCand, so each lane takes at most 8.
+template <class Visit>
+__device__ __forceinline__ void warp_walk(const int* __restrict__ cand,
+                                          int ls,
+                                          const int* __restrict__ targ,
+                                          int ll, int lane, Visit visit) {
+  for (int j = lane; j < ls; j += kWarp) {
+    const int c = __ldg(cand + j);
+    visit(j, c, c >= 0 && contains_global(targ, ll, c));
+  }
+}
+
+// Block mapping: the target slice is staged in shared memory when it has
+// at most kStageCap entries (a block-uniform branch), and the block's
+// threads stride over the candidates.
+template <class Visit>
+__device__ __forceinline__ void block_walk(int* stage,
+                                           const int* __restrict__ cand,
+                                           int ls,
+                                           const int* __restrict__ targ,
+                                           int ll, Visit visit) {
+  if (ll <= kStageCap) {
+#pragma unroll 4
+    for (int j = threadIdx.x; j < ll; j += kBlockThreads)
+      stage[j] = __ldg(targ + j);
+    __syncthreads();
+    for (int j = threadIdx.x; j < ls; j += kBlockThreads) {
+      const int c = __ldg(cand + j);
+      visit(j, c, c >= 0 && contains_shared(stage, ll, c));
+    }
+  } else {
+    for (int j = threadIdx.x; j < ls; j += kBlockThreads) {
+      const int c = __ldg(cand + j);
+      visit(j, c, c >= 0 && contains_global(targ, ll, c));
+    }
+  }
+}
+
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
   for (int off = kWarp / 2; off > 0; off >>= 1)
@@ -86,8 +144,8 @@ __device__ __forceinline__ void tally(int c, const int* __restrict__ level,
   if (lc == lu) ++b; else ++a;
 }
 
-// One warp per row; d_cand <= kWarpMaxCand, so each lane takes at most
-// 8 candidates.
+// ------------------------------------------------------------------ K1
+
 __global__ void __launch_bounds__(kWarp * kRowsPerWarpBlock)
 intersect_levels_warp(const int* __restrict__ flat,
                       const int* __restrict__ s_s,
@@ -101,16 +159,12 @@ intersect_levels_warp(const int* __restrict__ flat,
   const int row = blockIdx.x * kRowsPerWarpBlock + (threadIdx.x / kWarp);
   const int lane = threadIdx.x % kWarp;
   if (row >= q) return;  // uniform across the warp
-  const int ls = min(l_s[row], d_cand);
-  const int ll = min(l_l[row], d_targ);
-  const int* __restrict__ cand = flat + s_s[row];
-  const int* __restrict__ targ = flat + s_l[row];
   const int lu = lev_u[row];
   int a = 0, b = 0;
-  for (int j = lane; j < ls; j += kWarp) {
-    const int c = __ldg(cand + j);
-    if (c >= 0 && contains_global(targ, ll, c)) tally(c, level, n_level, lu, a, b);
-  }
+  warp_walk(flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+            min(l_l[row], d_targ), lane, [&](int, int c, bool found) {
+              if (found) tally(c, level, n_level, lu, a, b);
+            });
   a = warp_sum(a);
   b = warp_sum(b);
   if (lane == 0) {
@@ -119,8 +173,6 @@ intersect_levels_warp(const int* __restrict__ flat,
   }
 }
 
-// One block per row; the target slice is staged in shared memory when
-// it has at most kStageCap entries.
 __global__ void __launch_bounds__(kBlockThreads)
 intersect_levels_block(const int* __restrict__ flat,
                        const int* __restrict__ s_s,
@@ -135,27 +187,12 @@ intersect_levels_block(const int* __restrict__ flat,
   __shared__ int red_a[kBlockThreads / kWarp];
   __shared__ int red_b[kBlockThreads / kWarp];
   const int row = blockIdx.x;
-  const int ls = min(l_s[row], d_cand);
-  const int ll = min(l_l[row], d_targ);
-  const int* __restrict__ cand = flat + s_s[row];
-  const int* __restrict__ targ = flat + s_l[row];
   const int lu = lev_u[row];
   int a = 0, b = 0;
-  if (ll <= kStageCap) {  // block-uniform branch
-#pragma unroll 4
-    for (int j = threadIdx.x; j < ll; j += kBlockThreads)
-      stage[j] = __ldg(targ + j);
-    __syncthreads();
-    for (int j = threadIdx.x; j < ls; j += kBlockThreads) {
-      const int c = __ldg(cand + j);
-      if (c >= 0 && contains_shared(stage, ll, c)) tally(c, level, n_level, lu, a, b);
-    }
-  } else {
-    for (int j = threadIdx.x; j < ls; j += kBlockThreads) {
-      const int c = __ldg(cand + j);
-      if (c >= 0 && contains_global(targ, ll, c)) tally(c, level, n_level, lu, a, b);
-    }
-  }
+  block_walk(stage, flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+             min(l_l[row], d_targ), [&](int, int c, bool found) {
+               if (found) tally(c, level, n_level, lu, a, b);
+             });
   a = warp_sum(a);
   b = warp_sum(b);
   const int warp = threadIdx.x / kWarp;
@@ -175,6 +212,40 @@ intersect_levels_block(const int* __restrict__ flat,
       c2[row] = b;
     }
   }
+}
+
+// ------------------------------------------------------------------ K2
+
+__global__ void __launch_bounds__(kWarp * kRowsPerWarpBlock)
+intersect_hits_warp(const int* __restrict__ flat,
+                    const int* __restrict__ s_s,
+                    const int* __restrict__ l_s,
+                    const int* __restrict__ s_l,
+                    const int* __restrict__ l_l,
+                    const int64_t* __restrict__ offsets, int q, int d_cand,
+                    int d_targ, uint8_t* __restrict__ hits) {
+  const int row = blockIdx.x * kRowsPerWarpBlock + (threadIdx.x / kWarp);
+  if (row >= q) return;  // uniform across the warp
+  uint8_t* __restrict__ out = hits + offsets[row];
+  warp_walk(flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+            min(l_l[row], d_targ), threadIdx.x % kWarp,
+            [&](int j, int, bool found) { out[j] = found; });
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+intersect_hits_block(const int* __restrict__ flat,
+                     const int* __restrict__ s_s,
+                     const int* __restrict__ l_s,
+                     const int* __restrict__ s_l,
+                     const int* __restrict__ l_l,
+                     const int64_t* __restrict__ offsets, int d_cand,
+                     int d_targ, uint8_t* __restrict__ hits) {
+  __shared__ int stage[kStageCap];
+  const int row = blockIdx.x;
+  uint8_t* __restrict__ out = hits + offsets[row];
+  block_walk(stage, flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+             min(l_l[row], d_targ),
+             [&](int j, int, bool found) { out[j] = found; });
 }
 
 }  // namespace
@@ -199,6 +270,25 @@ int intersect_levels_launch(const int* flat, const int* s_s, const int* l_s,
   intersect_levels_block<<<q, kBlockThreads, 0, st>>>(
       flat, s_s, l_s, s_l, l_l, level, n_level, lev_u, d_cand, d_targ, c1,
       c2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K2 over q rows into hits[0 : offsets[q]] (one byte per clamped
+// candidate).  Returns a cudaError_t (0 = launched).
+int intersect_hits_launch(const int* flat, const int* s_s, const int* l_s,
+                          const int* s_l, const int* l_l,
+                          const int64_t* offsets, int q, int d_cand,
+                          int d_targ, uint8_t* hits, void* stream) {
+  if (q <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d_cand <= kWarpMaxCand) {
+    const int blocks = (q + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
+    intersect_hits_warp<<<blocks, kWarp * kRowsPerWarpBlock, 0, st>>>(
+        flat, s_s, l_s, s_l, l_l, offsets, q, d_cand, d_targ, hits);
+    return static_cast<int>(cudaGetLastError());
+  }
+  intersect_hits_block<<<q, kBlockThreads, 0, st>>>(
+      flat, s_s, l_s, s_l, l_l, offsets, d_cand, d_targ, hits);
   return static_cast<int>(cudaGetLastError());
 }
 

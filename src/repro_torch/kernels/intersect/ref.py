@@ -1,6 +1,6 @@
-"""Plain PyTorch versions of K1, the level-split intersection.
+"""Plain PyTorch versions of the intersect kernels K1 and K2.
 
-Two forms of one function:
+K1, the level-split intersection, in two forms of one function:
 
 * :func:`intersect_ref` takes the *dense* blocks the TPU kernel takes
   (counterpart of ``repro.kernels.intersect.ref.intersect_ref``):
@@ -22,6 +22,12 @@ Two forms of one function:
 Both return per-row ``(c1, c2)`` int32: c1 counts the candidates found
 in the target row whose level differs from ``lev_u``, c2 those on the
 same level — the two counters of Theorem 1.
+
+K2, the membership mask, in the same two forms: :func:`hits_ref` on the
+dense blocks (counterpart of ``intersect_pallas_hits``'s body), and
+:func:`intersect_hits_ref` on CSR bounds, which returns the mask
+*ragged* — only each row's real (clamped) candidates, row after row —
+because the dense ``bool[Q, Dc]`` does not fit at Graph500 scale 20.
 """
 from __future__ import annotations
 
@@ -41,8 +47,7 @@ _CELL_BUDGET = 1 << 24
 
 def intersect_ref(cand, targ, lev_c, lev_u):
     """Dense all-pairs form; ``Dc`` and ``Dt`` may differ."""
-    eq = cand[:, :, None] == targ[:, None, :]
-    hit = eq.any(dim=2) & (cand >= 0)
+    hit = hits_ref(cand, targ)
     same = lev_c == lev_u[:, None]
     return (
         (hit & ~same).sum(dim=1, dtype=torch.int32),
@@ -56,27 +61,16 @@ def search_steps(d_targ: int) -> int:
     return max(1, math.ceil(math.log2(int(d_targ) + 1)))
 
 
-def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
-                 d_cand: int, num_steps: int):
-    """Per-row ``(c1, c2)`` by dense candidate gather + bounded binary
-    search over ``flat[s_l : s_l + l_search]``, in row chunks.
-
-    Candidates are clamped to ``d_cand``; the search runs exactly
-    ``num_steps`` halvings, so a ``l_search`` longer than ``2**num_steps
-    - 1`` under-searches the way the reference's jnp probe does.  The
-    candidate level is ``level[cand]`` (``-7`` for an id outside
-    ``level``, the TPU kernel's pad)."""
+def _found_chunks(flat, s_s, l_s, s_l, l_search, *, d_cand: int,
+                  num_steps: int):
+    """Yield ``(r0, r1, ls, cand, found)`` for row chunks of at most
+    ``_CELL_BUDGET`` cells: the dense candidate gather (clamped to
+    ``d_cand``, pad ``CAND_PAD``) and its membership by a bounded binary
+    search of ``num_steps`` halvings over ``flat[s_l : s_l +
+    l_search]``.  A ``l_search`` longer than ``2**num_steps - 1``
+    under-searches the way the reference's jnp probe does."""
     q = s_s.shape[0]
-    dev = s_s.device
-    c1 = torch.zeros(q, dtype=torch.int32, device=dev)
-    c2 = torch.zeros(q, dtype=torch.int32, device=dev)
-    if q == 0 or d_cand <= 0:
-        return c1, c2
-    n = level.shape[0]
-    lev_ext = torch.cat([
-        level, torch.full((1,), -7, dtype=torch.int32, device=dev)
-    ])
-    step = max(1, _CELL_BUDGET // d_cand)
+    step = max(1, _CELL_BUDGET // max(1, d_cand))
     for r0 in range(0, q, step):
         r1 = min(q, r0 + step)
         ls = l_s[r0:r1].clamp(max=d_cand)
@@ -89,6 +83,28 @@ def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
             cand,
             num_steps=num_steps,
         ) & (cand >= 0)
+        yield r0, r1, ls, cand, found
+
+
+def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
+                 d_cand: int, num_steps: int):
+    """Per-row ``(c1, c2)`` by dense candidate gather + bounded binary
+    search over ``flat[s_l : s_l + l_search]``, in row chunks
+    (:func:`_found_chunks`).  The candidate level is ``level[cand]``
+    (``-7`` for an id outside ``level``, the TPU kernel's pad)."""
+    q = s_s.shape[0]
+    dev = s_s.device
+    c1 = torch.zeros(q, dtype=torch.int32, device=dev)
+    c2 = torch.zeros(q, dtype=torch.int32, device=dev)
+    if q == 0 or d_cand <= 0:
+        return c1, c2
+    n = level.shape[0]
+    lev_ext = torch.cat([
+        level, torch.full((1,), -7, dtype=torch.int32, device=dev)
+    ])
+    for r0, r1, _, cand, found in _found_chunks(
+        flat, s_s, l_s, s_l, l_search, d_cand=d_cand, num_steps=num_steps
+    ):
         same = lev_ext[cand.clamp(0, n)] == lev_u[r0:r1, None]
         c1[r0:r1] = (found & ~same).sum(dim=1, dtype=torch.int32)
         c2[r0:r1] = (found & same).sum(dim=1, dtype=torch.int32)
@@ -105,5 +121,59 @@ def intersect_levels_ref(flat, s_s, l_s, s_l, l_l, level, lev_u, *,
     bounds."""
     return split_counts(
         flat, s_s, l_s, s_l, l_l.clamp(max=d_targ), level, lev_u,
+        d_cand=d_cand, num_steps=search_steps(d_targ),
+    )
+
+
+# --------------------------------------------------------------- K2
+
+
+def hits_ref(cand, targ):
+    """Dense form of K2: ``bool[Q, Dc]``, true where ``cand[r, j]`` (not
+    a pad) appears in ``targ[r]`` — the function of
+    ``intersect_pallas_hits``."""
+    eq = cand[:, :, None] == targ[:, None, :]
+    return eq.any(dim=2) & (cand >= 0)
+
+
+def hit_offsets(l_s, *, d_cand: int):
+    """int64[Q + 1] start of each row's ragged mask: the running sum of
+    the clamped candidate counts ``min(l_s, d_cand)``."""
+    off = torch.zeros(l_s.shape[0] + 1, dtype=torch.int64,
+                      device=l_s.device)
+    torch.cumsum(l_s.clamp(0, max(0, d_cand)), 0, out=off[1:])
+    return off
+
+
+def probe_hits(flat, s_s, l_s, s_l, l_search, *, d_cand: int,
+               num_steps: int):
+    """Ragged membership mask ``(offsets int64[Q + 1], hits
+    bool[offsets[-1]])`` by dense candidate gather + bounded binary
+    search over ``flat[s_l : s_l + l_search]`` in row chunks
+    (:func:`_found_chunks`): row r's mask is ``hits[offsets[r] :
+    offsets[r + 1]]``, one entry per candidate ``flat[s_s[r] + j]``,
+    ``j < min(l_s[r], d_cand)``, in candidate order."""
+    offsets = hit_offsets(l_s, d_cand=d_cand)
+    parts = [torch.zeros(0, dtype=torch.bool, device=s_s.device)]
+    if s_s.shape[0] and d_cand > 0:
+        pos = torch.arange(d_cand, device=s_s.device)
+        for _, _, ls, _, found in _found_chunks(
+            flat, s_s, l_s, s_l, l_search, d_cand=d_cand,
+            num_steps=num_steps,
+        ):
+            parts.append(found[pos[None, :] < ls[:, None]])
+    return offsets, torch.cat(parts)
+
+
+def intersect_hits_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
+                       d_targ: int):
+    """CSR-bounds form of K2: ``(offsets int64[Q + 1], hits
+    bool[offsets[-1]])``, the candidates ``flat[s_s : s_s + min(l_s,
+    d_cand)]`` found in the sorted target ``flat[s_l : s_l + min(l_l,
+    d_targ)]``, row after row (:func:`probe_hits`).  Scattered back into
+    ``[Q, d_cand]`` it equals :func:`hits_ref` on the dense blocks the
+    reference's ``_gather_cand_targ`` builds from the same bounds."""
+    return probe_hits(
+        flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
         d_cand=d_cand, num_steps=search_steps(d_targ),
     )

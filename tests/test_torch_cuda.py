@@ -1,5 +1,6 @@
-"""Tests that need the card: the Hopper kernel K1 against its plain
-version on CUDA tensors, and the main path's count at RMAT scale 16.
+"""Tests that need the card: the Hopper kernels K1 and K2 against their
+plain versions on CUDA tensors, and the count, find and per-vertex paths
+at RMAT scale 16 going through them.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -18,7 +19,10 @@ from repro_torch.core.edges import horizontal_queries
 from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import from_edges
 from repro_torch.kernels.intersect import intersect as tkern
-from repro_torch.kernels.intersect.ref import intersect_levels_ref
+from repro_torch.kernels.intersect.ref import (
+    intersect_hits_ref,
+    intersect_levels_ref,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -61,10 +65,10 @@ def test_kernel_matches_plain_on_random_operands(cuda_device, d_cand,
     rng = np.random.default_rng(d_cand + d_targ)
     ops = [torch.from_numpy(x).to(cuda_device)
            for x in _random_operands(rng, 3000, d_list)]
-    before = tkern.LAUNCHES
+    before = tkern.LAUNCHES["intersect_levels"]
     k1, k2 = tkern.intersect_levels(*ops, d_cand=d_cand, d_targ=d_targ)
     torch.cuda.synchronize()
-    assert tkern.LAUNCHES == before + 1
+    assert tkern.LAUNCHES["intersect_levels"] == before + 1
     r1, r2 = intersect_levels_ref(*ops, d_cand=d_cand, d_targ=d_targ)
     assert torch.equal(k1, r1) and torch.equal(k2, r2)
 
@@ -88,9 +92,12 @@ def test_kernel_matches_plain_on_every_bucket_of_rmat16(cuda_device):
 
 def test_count_rmat16_goes_through_the_kernel(cuda_device):
     edges, n = gen.rmat(16, 16, seed=0)
-    tkern.LAUNCHES = 0
+    before = dict(tkern.LAUNCHES)
     r = TriangleEngine(device=cuda_device).count((edges, n))
-    assert tkern.LAUNCHES == 3  # one per bucket of the exact plan
+    # one K1 launch per bucket of the exact plan, and no K2
+    assert tkern.LAUNCHES == {"intersect_levels":
+                              before["intersect_levels"] + 3,
+                              "intersect_hits": before["intersect_hits"]}
     assert r.backend == "cuda" and r.plan_id == "exact/cuda"
     assert (r.triangles, r.num_horizontal) == (15673932, 528985)
     assert not r.overflow
@@ -105,3 +112,71 @@ def test_wrapper_refuses_mixed_devices(cuda_device):
     ops[0] = ops[0].to(cuda_device)
     with pytest.raises(ValueError, match="one device"):
         tkern.intersect_levels(*ops, d_cand=16, d_targ=16)
+    with pytest.raises(ValueError, match="one device"):
+        tkern.intersect_hits(*ops[:5], d_cand=16, d_targ=16)
+
+
+# K2 takes K1's two mappings: the same cases reach the warp kernel, the
+# staged and the global-memory branch of the block kernel, and clamps.
+@pytest.mark.parametrize("d_cand,d_targ,d_list", [
+    (32, 1024, 1200),      # warp kernel
+    (256, 300, 1200),      # warp kernel, clamped targets
+    (1024, 1024, 1200),    # block kernel, staged targets
+    (16384, 16384, 10000),  # block kernel, staged and global-memory search
+    (512, 100, 1200),      # block kernel, clamped lists
+])
+def test_hits_kernel_matches_plain_on_random_operands(cuda_device, d_cand,
+                                                      d_targ, d_list):
+    rng = np.random.default_rng(d_cand + d_targ + 1)
+    ops = [torch.from_numpy(x).to(cuda_device)
+           for x in _random_operands(rng, 3000, d_list)[:5]]
+    before = tkern.LAUNCHES["intersect_hits"]
+    ko, kh = tkern.intersect_hits(*ops, d_cand=d_cand, d_targ=d_targ)
+    torch.cuda.synchronize()
+    assert tkern.LAUNCHES["intersect_hits"] == before + 1
+    ro, rh = intersect_hits_ref(*ops, d_cand=d_cand, d_targ=d_targ)
+    assert torch.equal(ko, ro) and torch.equal(kh, rh)
+    assert kh.any() and not kh.all()
+
+
+def test_hits_kernel_matches_plain_on_every_bucket_of_rmat16(cuda_device):
+    edges, n = gen.rmat(16, 16, seed=0)
+    res = TriangleEngine(device=cuda_device).count_raw((edges, n))
+    g = from_edges(edges, n, device=cuda_device)
+    qu, qw, *_ = horizontal_queries(g, res.levels, order="desc")
+    adj = tint.CsrAdjacency.from_graph(g)
+    for b, base, qu_b, qw_b, bounds in tint.bucket_slices(adj, qu, qw,
+                                                          res.plan):
+        ops = tint.probe_operands(adj, qu_b, qw_b, bounds, base, b.count,
+                                  res.levels)[:4]
+        k = tkern.intersect_hits(adj.flat, *ops, d_cand=b.d_cand,
+                                 d_targ=b.d_targ)
+        r = intersect_hits_ref(adj.flat, *ops, d_cand=b.d_cand,
+                               d_targ=b.d_targ)
+        assert torch.equal(k[0], r[0]) and torch.equal(k[1], r[1])
+
+
+def test_find_and_per_vertex_rmat16_go_through_k2(cuda_device):
+    edges, n = gen.rmat(16, 16, seed=0)
+    expect = 15673932
+    eng = TriangleEngine(device=cuda_device)
+    before = dict(tkern.LAUNCHES)
+    tri, cnt = eng.find((edges, n), max_triangles=expect)
+    assert tkern.LAUNCHES["intersect_hits"] > before["intersect_hits"]
+    assert tkern.LAUNCHES["intersect_levels"] == before["intersect_levels"]
+    assert tri.device.type == "cuda" and int(cnt) == expect
+    plain_tri, plain_cnt = eng.find((edges, n), max_triangles=expect,
+                                    options=TCOptions(backend="torch"))
+    assert torch.equal(tri, plain_tri) and int(plain_cnt) == expect
+
+    before = dict(tkern.LAUNCHES)
+    r = eng.count((edges, n), options=TCOptions(per_vertex=True))
+    assert tkern.LAUNCHES["intersect_hits"] > before["intersect_hits"]
+    assert tkern.LAUNCHES["intersect_levels"] == before["intersect_levels"]
+    assert r.triangles == expect and int(r.per_vertex.sum()) == 3 * expect
+    plain = eng.count((edges, n),
+                      options=TCOptions(per_vertex=True, backend="torch"))
+    assert (plain.c1, plain.c2) == (r.c1, r.c2)
+    np.testing.assert_array_equal(plain.per_vertex, r.per_vertex)
+    found = np.bincount(tri.cpu().numpy().reshape(-1), minlength=n)
+    np.testing.assert_array_equal(found, r.per_vertex)

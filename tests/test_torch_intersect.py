@@ -206,7 +206,7 @@ def test_wrapper_rejects_operands_the_kernel_does_not_take():
                                d_targ=16)
     with pytest.raises(ValueError, match=">= 0"):
         tkern.intersect_levels(*ops, d_cand=-1, d_targ=16)
-    before = tkern.LAUNCHES
+    before = dict(tkern.LAUNCHES)
     tkern.intersect_levels(*ops, d_cand=16, d_targ=16)
     assert tkern.LAUNCHES == before  # the plain path is not a launch
 
