@@ -27,8 +27,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                unique, closed triangles whose corners are the per-vertex
                credit); one profiled run of each for the device's busy
                share.  Per
-               bucket: each kernel's milliseconds from CUDA events beside
-               its bound, the plain version timed and compared.
+               bucket: each kernel's milliseconds from CUDA events at the
+               main path's launch shapes (K1 one launch per bucket, K2
+               one per chunk of the cell budget) beside its bound, and
+               the plain version on the same rows, timed and compared.
   5. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
@@ -129,8 +131,9 @@ def hits_bound(flat, ops, d_cand: int, d_targ: int):
     """K2's least time on the card for one bucket's call, from this run's
     operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms, cells)``.
 
-    Bytes: the flat adjacency, five int32 operands in per row, the int64
-    offsets and one byte out per clamped candidate, over 3.35 TB/s.
+    Bytes: the flat adjacency, four int32 operands (s_s, l_s, s_l, l_l)
+    and the int64 offset in per row, and one byte out per clamped
+    candidate, over 3.35 TB/s.
     Operations: as K1's (:func:`bucket_bound`), a compare and a select
     per binary-search step and one final compare, per clamped candidate,
     over the int32 rate.  ``row_bytes_ms`` is the per-row gathered
@@ -141,8 +144,8 @@ def hits_bound(flat, ops, d_cand: int, d_targ: int):
     ll = l_l.clamp(max=d_targ).to(torch.int64)
     q = s_s.shape[0]
     cells = int(ls.sum().item())
-    once = flat.numel() * 4 + q * 5 * 4 + (q + 1) * 8 + cells
-    rows = int(((ls + ll) * 4).sum().item()) + q * (5 * 4 + 8) + cells
+    once = flat.numel() * 4 + q * 4 * 4 + (q + 1) * 8 + cells
+    rows = int(((ls + ll) * 4).sum().item()) + q * (4 * 4 + 8) + cells
     steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
     nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
     t_bytes = once / HBM_BYTES_PER_S * 1e3
@@ -287,10 +290,7 @@ def main() -> int:
     from repro_torch.graph.csr import from_edges
     from repro_torch.kernels import build
     from repro_torch.kernels.intersect import intersect as kmod
-    from repro_torch.kernels.intersect.ref import (
-        hit_offsets,
-        intersect_levels_ref,
-    )
+    from repro_torch.kernels.intersect.ref import intersect_levels_ref
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -537,7 +537,7 @@ def main() -> int:
     flat, buckets = bucket_operands(g, levels, plan)
     rng = np.random.default_rng(0)
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0)
-    tot_h = dict(ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
+    tot_h = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
                  sample_ms=0.0, sample_plain_ms=0.0, sample_rows=0,
                  launches=0)
     bound_by, bound_by_h = [], []
@@ -567,31 +567,38 @@ def main() -> int:
             c1=s1, c2=s2)
         top_sample = (b, tuple(x[rows] for x in ops))
 
-        # K2 on the whole bucket in one launch into preallocated outputs
-        # (the main path launches it per chunk of the cell budget)
-        offsets = hit_offsets(ops[1], d_cand=b.d_cand)
-        hits = torch.empty(int(offsets[-1].item()), dtype=torch.bool,
-                           device=dev)
-        ms_h = cuda_ms(lambda: kmod.intersect_hits_into(
-            flat, *ops[:4], offsets, hits, **kw))
-        n_hits = int(hits.sum().item())
-        del hits, offsets
+        # K2 at the main path's own launch shapes: one call of the
+        # wrapper per chunk of the cell budget (its offsets cumsum and
+        # one sync included), each timed and held against the plain
+        # version on the same rows; the times summed over the chunks
+        ms_h = p_ms_h = 0.0
+        n_hits = err_all = 0
+        chunks = cell_chunks(ops[1], d_cand=b.d_cand)
+        for r0, r1 in chunks:
+            cops = tuple(x[r0:r1] for x in ops[:4])
+            ms_h += cuda_ms(lambda: kmod.intersect_hits(flat, *cops, **kw))
+            err_c, hits_c, _, p_c = compare_hits(flat, cops, b)
+            err_all = max(err_all, err_c)
+            n_hits += hits_c
+            p_ms_h += p_c
         bound_h, by_h, nbytes_h, nops_h, row_ms_h, cells = hits_bound(
             flat, ops, b.d_cand, b.d_targ)
         err_h, _, k_ms, p_ms = compare_hits(flat, ops, b, rows)
-        max_err_hits = max(max_err_hits, err_h)
-        chunks = len(cell_chunks(ops[1], d_cand=b.d_cand))
-        for key, v in (("ms", ms_h), ("bound_ms", bound_h),
+        max_err_hits = max(max_err_hits, err_all, err_h)
+        for key, v in (("ms", ms_h), ("plain_ms", p_ms_h),
+                       ("bound_ms", bound_h),
                        ("row_bytes_bound_ms", row_ms_h),
                        ("sample_ms", k_ms), ("sample_plain_ms", p_ms),
-                       ("sample_rows", len(rows)), ("launches", chunks)):
+                       ("sample_rows", len(rows)),
+                       ("launches", len(chunks))):
             tot_h[key] += v
         bound_by_h.append((bound_h, by_h))
         log("bucket", kernel="intersect_hits", graph=f"rmat{scale}",
             count=b.count, rows=b.rows, d_cand=b.d_cand, d_targ=b.d_targ,
-            cells=cells, hits=n_hits, main_path_launches=chunks,
+            cells=cells, hits=n_hits, main_path_launches=len(chunks),
             kernel_ms=ms_h, bound_ms=bound_h, bound_by=by_h,
             bytes=nbytes_h, ops=nops_h, row_bytes_bound_ms=row_ms_h,
+            plain_ms=p_ms_h, max_abs_err_all_rows=err_all,
             sample_rows=len(rows), sample_kernel_ms=k_ms,
             sample_plain_ms=p_ms, max_abs_err_sample=err_h,
             library_ms=None)
@@ -650,8 +657,7 @@ def main() -> int:
         "matches_plain": max_err_hits == 0,
         "max_abs_err": max_err_hits,
         "ms": tot_h["ms"],
-        "plain_ms": tot_h["sample_plain_ms"],
-        "plain_on": f"{tot_h['sample_rows']} sampled rows",
+        "plain_ms": tot_h["plain_ms"],
         "sample_rows": tot_h["sample_rows"],
         "sample_ms": tot_h["sample_ms"],
         "sample_plain_ms": tot_h["sample_plain_ms"],
@@ -659,9 +665,9 @@ def main() -> int:
         "bound_by": max(bound_by_h)[1],
         "row_bytes_bound_ms": tot_h["row_bytes_bound_ms"],
         "library_ms": None,
-        "shape": f"rmat{scale} plan, {len(buckets)} buckets, one launch "
-                 f"per bucket ({tot_h['launches']} chunks on the main "
-                 f"path)",
+        "shape": f"rmat{scale} plan, {len(buckets)} buckets, "
+                 f"{tot_h['launches']} launches at the main path's chunk "
+                 f"shapes",
     }]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

@@ -312,16 +312,6 @@ class TriangleEngine:
             per_vertex=pv, degrees=degs,
         )
 
-    def find_raw(self, graph_or_edges, *, max_triangles: int,
-                 options: Optional[TCOptions] = None,
-                 clock: Optional[_seq.StageClock] = None):
-        """Triangle finding: ``(tri int32[max_triangles, 3], count)``,
-        tensors on the engine's device."""
-        return _seq._find_triangles(
-            self._graph(graph_or_edges, clock), options or self.options,
-            max_triangles=int(max_triangles), clock=clock,
-        )
-
     def find(
         self,
         graph_or_edges: Union[Graph, EdgeList],
@@ -336,5 +326,12 @@ class TriangleEngine:
         horizontal edge that found it, and rows past ``count`` are
         ``-1``.  Same pipeline, same options, as ``count``; the order is
         the reference's (bucket by bucket, row-major)."""
-        return self.find_raw(graph_or_edges, max_triangles=max_triangles,
-                             options=options, clock=clock)
+        return _seq._find_triangles(
+            self._graph(graph_or_edges, clock), options or self.options,
+            max_triangles=int(max_triangles), clock=clock,
+        )
+
+    #: the reference's ``find_raw`` returns device arrays where its
+    #: ``find`` returns host ones; here ``find`` already returns tensors
+    #: on the engine's device, so the two are one function
+    find_raw = find

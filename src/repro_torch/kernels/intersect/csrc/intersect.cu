@@ -32,8 +32,9 @@
 //
 // What bounds them on this card: memory.  The bytes a row must move are
 // its candidates (and, for K1, their levels) and its target list, plus
-// five int32 operands in and two int32 out (K1) or one byte out per
-// candidate (K2); the operations are a few integer compares per
+// five int32 operands in and two int32 out (K1), or four int32 operands
+// and an int64 offset in and one byte out per candidate (K2); the
+// operations are a few integer compares per
 // binary-search step, far below the card's integer rate.  The design
 // does the simple thing about it:
 //

@@ -138,38 +138,15 @@ def intersect_hits(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int):
     if dev.type == "cpu":
         return intersect_hits_ref(flat, s_s, l_s, s_l, l_l,
                                   d_cand=d_cand, d_targ=d_targ)
+    flat, s_s, l_s, s_l, l_l = (
+        t.contiguous() for t in (flat, s_s, l_s, s_l, l_l)
+    )
     offsets = hit_offsets(l_s, d_cand=d_cand)
     hits = torch.empty(int(offsets[-1].item()), dtype=torch.bool,
                        device=dev)
-    intersect_hits_into(flat, s_s, l_s, s_l, l_l, offsets, hits,
-                        d_cand=d_cand, d_targ=d_targ)
-    return offsets, hits
-
-
-def intersect_hits_into(flat, s_s, l_s, s_l, l_l, offsets, hits, *,
-                        d_cand: int, d_targ: int) -> None:
-    """Launch K2 into given outputs: ``offsets`` int64[Q + 1] as
-    :func:`~repro_torch.kernels.intersect.ref.hit_offsets` makes them,
-    ``hits`` bool[offsets[-1]] — :func:`intersect_hits` without its
-    allocation and sync.  CUDA tensors only."""
-    dev = _check(d_cand, d_targ, ("l_s", "s_l", "l_l"),
-                 flat=flat, s_s=s_s, l_s=l_s, s_l=s_l, l_l=l_l)
-    if dev.type != "cuda":
-        raise ValueError(f"intersect_hits_into launches K2 and needs CUDA "
-                         f"tensors; got {dev}")
     q = s_s.shape[0]
-    if (offsets.dtype != torch.int64 or offsets.shape != (q + 1,)
-            or hits.dtype != torch.bool or hits.dim() != 1
-            or not hits.is_contiguous()
-            or offsets.device != dev or hits.device != dev):
-        raise ValueError("offsets must be int64[Q + 1] and hits a "
-                         "contiguous 1-D bool tensor, both on the "
-                         "operands' device")
-    flat, s_s, l_s, s_l, l_l, offsets = (
-        t.contiguous() for t in (flat, s_s, l_s, s_l, l_l, offsets)
-    )
     if q == 0:
-        return
+        return offsets, hits
     _launch(
         "intersect_hits", dev,
         flat.data_ptr(), s_s.data_ptr(), l_s.data_ptr(), s_l.data_ptr(),
@@ -178,3 +155,4 @@ def intersect_hits_into(flat, s_s, l_s, s_l, l_l, offsets, hits, *,
         shape=f"q={q}, d_cand={d_cand}, d_targ={d_targ}, "
               f"cells={hits.shape[0]}",
     )
+    return offsets, hits

@@ -164,8 +164,8 @@ def test_hits_wrapper_rejects_operands_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=">= 0"):
         tkern.intersect_hits(*ops, d_cand=16, d_targ=-1)
     offsets, hits = tkern.intersect_hits(*ops, d_cand=16, d_targ=16)
-    with pytest.raises(ValueError, match="needs CUDA"):
-        tkern.intersect_hits_into(*ops, offsets, hits, d_cand=16, d_targ=16)
+    plain = intersect_hits_ref(*ops, d_cand=16, d_targ=16)
+    assert torch.equal(offsets, plain[0]) and torch.equal(hits, plain[1])
 
 
 def test_cell_chunks_cover_the_rows_in_order(monkeypatch):
