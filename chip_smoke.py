@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
-1), triangle finding and per-vertex credit end to end on one NVIDIA
-H100, through the hand-written Hopper kernels K1 and K2.
+1), triangle finding, per-vertex credit and the stream route (exact
+batch deltas) end to end on one NVIDIA H100, through the hand-written
+Hopper kernels K1, K2 and K3.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -9,14 +10,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 
   1. setup   — versions, toolchain, the card's name and power limit, and
                the build of every CUDA source with nvcc (timed);
-  2. kernel  — K1 and K2 against their plain PyTorch versions on the same
-               CUDA tensors: every row of every bucket of RMAT scale 16,
-               and a seeded sample of 4,096 rows from each bucket at full
-               size;
+  2. kernel  — K1, K2 and K3 against their plain PyTorch versions on the
+               same CUDA tensors: every row of every bucket of RMAT
+               scale 16 (K3 also against K1's c1 + c2), and a seeded
+               sample of 4,096 rows from each bucket at full size;
   3. small   — ``TriangleEngine(device="cuda").count`` on karate and RMAT
                scales 10, 12 and 16, each count asserted; the per-vertex
-               credit and the found list at scale 12 against the port's
-               CPU path;
+               credit, the found list and two stream sessions (with and
+               without credit) at scale 12 against the port's CPU path;
   4. full    — RMAT scale 20 (Graph500, edge factor 16, seed 0), the
                largest scale at which the int32 c1/c2 contract holds.
                Three main paths, each a warm-up run with the launch
@@ -29,9 +30,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                share.  Per
                bucket: each kernel's milliseconds from CUDA events at the
                main path's launch shapes (K1 one launch per bucket, K2
-               one per chunk of the cell budget) beside its bound, and
-               the plain version on the same rows, timed and compared.
-  5. summary — one JSON line per kernel, the card's name and power
+               one per chunk of the cell budget; K3 one per bucket of
+               the same plan run level-free, equal to K1's c1 + c2 row
+               for row) beside its bound, and the plain version on the
+               same rows, timed and compared.
+  5. stream  — stream sessions on the same graph (``stream_staleness``
+               1e9, so the timed path is pure delta maintenance): the
+               session's opening count, one warm-up and 8 timed applies
+               of 4,096 mixed updates (K3), 4 timed applies with
+               per-vertex credit in a second session (K2), one apply of
+               1 % of the edges, and a forced refresh (K1); each checked
+               against a fresh count, with updates per second, stage
+               split, host syncs, K3's device time and peak memory.
+  6. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -155,6 +166,87 @@ def hits_bound(flat, ops, d_cand: int, d_targ: int):
     return max(t_bytes, t_ops), by, once, nops, row_ms, cells
 
 
+def count_bound(flat, ops, d_cand: int, d_targ: int):
+    """K3's least time on the card for one bucket's call, from this run's
+    operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms)``.
+
+    Bytes: the flat adjacency (every candidate and target list), four
+    int32 operands (s_s, l_s, s_l, l_l) in and one int32 count out per
+    row, over 3.35 TB/s.  Operations: K1's (:func:`bucket_bound`).
+    ``row_bytes_ms``: each row's clamped candidates and clamped target
+    list, (l_s + l_l) int32, plus its operands and output."""
+    s_s, l_s, s_l, l_l = ops[:4]
+    ls = l_s.clamp(max=d_cand).to(torch.int64)
+    ll = l_l.clamp(max=d_targ).to(torch.int64)
+    q = s_s.shape[0]
+    once = flat.numel() * 4 + q * 5 * 4
+    rows = int(((ls + ll) * 4).sum().item()) + q * 5 * 4
+    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
+    nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
+    t_bytes = once / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    row_ms = rows / HBM_BYTES_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, once, nops, row_ms
+
+
+def compare_count(flat, levels, ops, b):
+    """``(max |K3 - plain|, max |K3 - (c1 + c2)|, hits, plain_ms)`` over
+    every row: K3 against its plain version (timed with CUDA events) and
+    against K1's per-row c1 + c2 on the same rows; these launches are
+    comparisons, not the main path."""
+    from repro_torch.kernels.intersect.intersect import (
+        intersect_count,
+        intersect_levels,
+    )
+    from repro_torch.kernels.intersect.ref import intersect_count_ref
+
+    kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
+    k = intersect_count(flat, *ops[:4], **kw)
+    c1, c2 = intersect_levels(flat, *ops[:4], levels, ops[4], **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    r = intersect_count_ref(flat, *ops[:4], **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    if not len(k):
+        return 0, 0, 0, start.elapsed_time(stop)
+    return (int((k - r).abs().max().item()),
+            int((k - c1 - c2).abs().max().item()), int(k.sum().item()),
+            start.elapsed_time(stop))
+
+
+def mutation_batch(rng, edges: np.ndarray, n: int, k: int):
+    """``k`` mixed updates as an ``(ops, edges)`` pair: half deletes of
+    distinct live edges (``edges``, the current ``(lo, hi)`` rows), half
+    inserts of uniformly random pairs (a pair already present comes back
+    ``noop-present``, a self pair ``noop-self-loop``), shuffled."""
+    n_del = min(k // 2, edges.shape[0])
+    take = rng.choice(edges.shape[0], n_del, replace=False)
+    ins = rng.integers(0, n, size=(k - n_del, 2))
+    ops = np.r_[-np.ones(n_del, np.int8), np.ones(k - n_del, np.int8)]
+    rows = np.r_[edges[take], ins]
+    order = rng.permutation(k)
+    return ops[order], rows[order]
+
+
+def host_syncs(run) -> int:
+    """How many synchronizing CUDA operations ``run()`` makes, as
+    ``torch.cuda.set_sync_debug_mode`` reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def compare_hits(flat, ops, b, rows=None):
     """``(max |kernel - plain|, hits, kernel_ms, plain_ms)`` of K2's
     ragged mask (offsets and bytes) over ``rows`` (all if None), both
@@ -205,10 +297,10 @@ def check_found(tri, g, n: int):
 
 
 def device_busy(run):
-    """One ``run()`` under ``torch.profiler``: ``(busy_ms, wall_s,
-    top)``, the summed durations of every CUDA kernel, copy and fill (one
-    stream, so they do not overlap), the profiled wall time, and the five
-    largest by name."""
+    """One ``run()`` under ``torch.profiler``: ``(busy_ms, wall_s, top,
+    per_name_ms)``, the summed durations of every CUDA kernel, copy and
+    fill (one stream, so they do not overlap), the profiled wall time,
+    the five largest by name, and every name's milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -225,7 +317,8 @@ def device_busy(run):
             per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     return (sum(per.values()) / 1e3, wall,
-            [(name[:60], us / 1e3) for name, us in top])
+            [(name[:60], us / 1e3) for name, us in top],
+            {name: us / 1e3 for name, us in per.items()})
 
 
 def bucket_operands(g, levels, plan):
@@ -267,6 +360,157 @@ def compare(flat, levels, ops, b, rows=None):
               int((k2 - r2).abs().max().item()) if len(k2) else 0)
     return (err, int(k1.sum().item()), int(k2.sum().item()),
             start.elapsed_time(stop))
+
+
+#: updates per timed apply of the stream phase: the default
+#: ``TCOptions.stream_buffer``, so each apply is one internal batch
+STREAM_BATCH = 4096
+
+
+def stream_phase(eng, edges, n, main_path):
+    """Phase 5: the stream route at full size on ``(edges, n)``.  Every
+    run is checked (launch counters, a fresh count of the session's edge
+    set); returns the summary of the phase."""
+    from repro_torch.api import TCOptions
+    from repro_torch.core.sequential import StageClock
+
+    dev = eng.device
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def only(got, name, tag):
+        if got[name] == 0 or any(v for k, v in got.items() if k != name):
+            raise SystemExit(f"stream {tag}: launched {got}, expected "
+                             f"{name} alone")
+
+    def timed_applies(sess, tag, count, k):
+        """``count`` applies of ``k`` fresh mixed updates each, each
+        timed with a stage clock; the batches are drawn from the live
+        edges before each timer starts."""
+        runs = []
+        for i in range(count):
+            batch = mutation_batch(rng, sess.state.edges(), n, k)
+            clock = StageClock(dev)
+            b0 = sess.batches
+            t0 = time.perf_counter()
+            up = sess.apply(batch, clock=clock)
+            dt = time.perf_counter() - t0
+            if not up.exact or up.refreshed or up.delta_triangles is None:
+                raise SystemExit(f"stream {tag}: apply {i} left the exact "
+                                 f"lane: {up.exact}, {up.refreshed}")
+            runs.append(dict(seconds=dt, updates=k,
+                             updates_per_second=k / dt,
+                             internal_batches=sess.batches - b0,
+                             applied=up.applied,
+                             delta_triangles=up.delta_triangles,
+                             stages=clock.seconds))
+            log("stream_apply", session=tag, run=i, **runs[-1])
+        return runs
+
+    def check_fresh(sess, tag, per_vertex=False):
+        """The session's totals against a fresh count of its edge set
+        (K1; K2 with credit): ``(report, seconds, bfs_sweeps)``."""
+        cur = sess.state.edges()
+        o = TCOptions(per_vertex=per_vertex)
+        clock = StageClock(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = eng.count((cur, n), options=o, clock=clock)
+        dt = time.perf_counter() - t0
+        ok = fresh.triangles == sess.triangles
+        if per_vertex:
+            ok &= (np.array_equal(fresh.per_vertex, sess.per_vertex)
+                   and int(sess.per_vertex.sum()) == 3 * sess.triangles)
+        log("stream_check", session=tag, triangles=sess.triangles,
+            fresh_triangles=fresh.triangles, num_edges=sess.num_edges,
+            recount_seconds=dt, recount_stages=clock.seconds,
+            recount_bfs_sweeps=clock.counts.get("bfs_sweeps"), equal=ok)
+        if not ok:
+            raise SystemExit(f"stream {tag}: the session's totals differ "
+                             f"from a fresh count")
+        return fresh, dt, clock.counts.get("bfs_sweeps")
+
+    # 5a. the session without credit: the opening refresh (K1 alone),
+    # one warm-up, then the timed applies (K3 alone)
+    opts = TCOptions(stream_staleness=1e9)
+    sess, open_s, _, got, mem = main_path(
+        lambda c: eng.stream((edges, n), options=opts))
+    only(got, "intersect_levels", "open")
+    m0 = sess.num_edges
+    log("stream_open", session="count", seconds=open_s, launches=got,
+        triangles=sess.triangles, num_edges=m0, memory=mem)
+    timed_applies(sess, "warm-up", 1, STREAM_BATCH)
+    runs, _, _, got, mem = main_path(
+        lambda c: timed_applies(sess, "count", 8, STREAM_BATCH))
+    only(got, "intersect_count", "timed applies")
+    out["launches"] = got
+    out["timed"] = dict(
+        updates_per_second=[r["updates_per_second"] for r in runs],
+        median_updates_per_second=statistics.median(
+            r["updates_per_second"] for r in runs),
+        median_seconds=statistics.median(r["seconds"] for r in runs),
+        memory=mem)
+    # one apply profiled (K3's device time per batch, the busy share) and
+    # one under sync debug mode (host syncs per batch)
+    batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
+    busy_ms, wall_s, top, per = device_busy(lambda: sess.apply(batch))
+    k3 = {k: v for k, v in per.items() if "intersect_count" in k}
+    batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
+    syncs = host_syncs(lambda: sess.apply(batch))
+    out["k3_ms_per_batch"] = sum(k3.values())
+    out["host_syncs_per_batch"] = syncs
+    log("stream_profile", busy_ms=busy_ms, profiled_seconds=wall_s,
+        top_device_ms=top, k3_ms=k3, k3_ms_per_batch=sum(k3.values()),
+        host_syncs_per_batch=syncs)
+    check_fresh(sess, "count")
+
+    # 5b. a second session with per-vertex credit: its opening count and
+    # its timed applies go through K2 alone
+    pv_opts = TCOptions(per_vertex=True, stream_staleness=1e9)
+    sess_pv, open_pv_s, _, got, mem = main_path(
+        lambda c: eng.stream((edges, n), options=pv_opts))
+    only(got, "intersect_hits", "per-vertex open")
+    log("stream_open", session="per_vertex", seconds=open_pv_s,
+        launches=got, memory=mem)
+    timed_applies(sess_pv, "per_vertex warm-up", 1, STREAM_BATCH)
+    runs, _, _, got, mem = main_path(
+        lambda c: timed_applies(sess_pv, "per_vertex", 4, STREAM_BATCH))
+    only(got, "intersect_hits", "per-vertex applies")
+    out["per_vertex"] = dict(
+        launches=got, memory=mem,
+        median_updates_per_second=statistics.median(
+            r["updates_per_second"] for r in runs))
+    check_fresh(sess_pv, "per_vertex", per_vertex=True)
+    del sess_pv
+    torch.cuda.empty_cache()
+
+    # 5c. one apply of 1 % of the edges (K3 alone), then a fresh count of
+    # the same final graph, then a forced refresh (K1 alone)
+    k_big = m0 // 100
+    runs, _, _, got, mem = main_path(
+        lambda c: timed_applies(sess, "one_percent", 1, k_big))
+    only(got, "intersect_count", "1 % apply")
+    fresh, recount_s, sweeps = check_fresh(sess, "one_percent")
+    out["one_percent"] = dict(runs[0], launches=got, memory=mem,
+                              recount_seconds=recount_s,
+                              recount_bfs_sweeps=sweeps)
+    up, refresh_s, _, got, _ = main_path(
+        lambda c: sess.apply([], refresh=True))
+    only(got, "intersect_levels", "refresh")
+    rep = sess.count()
+    same = ((rep.triangles, rep.c1, rep.c2, rep.k, rep.num_horizontal)
+            == (fresh.triangles, fresh.c1, fresh.c2, fresh.k,
+                fresh.num_horizontal) and up.refreshed)
+    log("stream_refresh", seconds=refresh_s, launches=got,
+        c1=rep.c1, c2=rep.c2, k=rep.k, num_horizontal=rep.num_horizontal,
+        equal_fresh_count=same)
+    if not same:
+        raise SystemExit("stream refresh: c1/c2/k/num_horizontal differ "
+                         "from the fresh count")
+    out["refresh_seconds"] = refresh_s
+    out["open_seconds"] = open_s
+    log("stream_summary", **out)
+    return out
 
 
 def main() -> int:
@@ -358,6 +602,7 @@ def main() -> int:
     eng = TriangleEngine(device=dev)
     max_err = 0
     max_err_hits = 0
+    max_err_count = 0
 
     # ----------------------------- 2. kernels vs plain, rmat(16) every row
     e16, n16 = gen.rmat(16, 16, seed=0)
@@ -368,17 +613,22 @@ def main() -> int:
     for b, ops in buckets:
         err, s1, s2, _ = compare(flat, res16.levels, ops, b)
         err_h, hits, _, _ = compare_hits(flat, ops, b)
+        err_c, err_c12, hits_c, _ = compare_count(flat, res16.levels, ops, b)
         max_err = max(max_err, err)
         max_err_hits = max(max_err_hits, err_h)
+        max_err_count = max(max_err_count, err_c, err_c12)
         log("kernel_vs_plain", graph="rmat16", rows=b.rows, d_cand=b.d_cand,
             d_targ=b.d_targ, max_abs_err=err, c1=s1, c2=s2,
-            hits_max_abs_err=err_h, hits=hits)
-        if hits != s1 + s2:
-            raise SystemExit(f"rmat16: K2 found {hits} hits, K1 {s1 + s2}")
+            hits_max_abs_err=err_h, hits=hits, count_max_abs_err=err_c,
+            count_vs_c1_c2_max_abs_err=err_c12, count_hits=hits_c)
+        if hits != s1 + s2 or hits_c != s1 + s2:
+            raise SystemExit(f"rmat16: K2 found {hits} hits, K3 {hits_c}, "
+                             f"K1 {s1 + s2}")
     if any(launches[k] <= before[k] for k in launches) or max(
-            max_err, max_err_hits):
+            max_err, max_err_hits, max_err_count):
         raise SystemExit(f"rmat16 kernel check failed: err={max_err}, "
-                         f"{max_err_hits}, launches {before} -> {launches}")
+                         f"{max_err_hits}, {max_err_count}, launches "
+                         f"{before} -> {launches}")
 
     # ----------------------------------------------- 3. small graphs
     small = [("karate", gen.karate(), (45, None))]
@@ -395,7 +645,7 @@ def main() -> int:
         if (r.triangles != tri or (nh is not None and r.num_horizontal != nh)
                 or r.backend != "cuda" or r.overflow
                 or launches["intersect_levels"] == 0
-                or launches["intersect_hits"]):
+                or launches["intersect_hits"] or launches["intersect_count"]):
             raise SystemExit(f"{name}: wrong count or path: {r}")
     # the card's per-vertex credit and found list at rmat12 against the
     # port's CPU path, array for array
@@ -420,6 +670,37 @@ def main() -> int:
     if not same12:
         raise SystemExit("rmat12: the card's per-vertex credit or found "
                          "list differs from the CPU path")
+    # two rmat12 stream sessions (without and with credit), the same
+    # stream on the card and on the CPU: every StreamUpdate and the final
+    # arrays equal, batch for batch (the 6,000-update apply is two
+    # internal batches)
+    for pv12 in (False, True):
+        o12 = TCOptions(per_vertex=pv12, stream_staleness=1e9)
+        sg = eng.stream((e12, n12), options=o12)
+        sc = cpu.stream((e12, n12), options=o12)
+        rng12 = np.random.default_rng(12)
+        for k12 in (2000, 6000, 4096):
+            batch = mutation_batch(rng12, sc.state.edges(), n12, k12)
+            ug, uc = sg.apply(batch), sc.apply(batch)
+            if ug != uc:
+                raise SystemExit(f"rmat12 stream (per_vertex={pv12}): the "
+                                 f"card's update differs from the CPU's")
+        ug, uc = sg.apply([], refresh=True), sc.apply([], refresh=True)
+        rg, rc = sg.count(), sc.count()
+        same = (ug == uc and np.array_equal(sg.state.edges(),
+                                            sc.state.edges())
+                and np.array_equal(sg.state.deg, sc.state.deg)
+                and (rg.triangles, rg.c1, rg.c2, rg.k, rg.num_horizontal)
+                == (rc.triangles, rc.c1, rc.c2, rc.k, rc.num_horizontal)
+                and np.array_equal(rg.levels, rc.levels)
+                and (not pv12 or np.array_equal(rg.per_vertex,
+                                                rc.per_vertex)))
+        log("rmat12_stream_gpu_vs_cpu", per_vertex=pv12,
+            triangles=rg.triangles, batches=sg.batches, probes=sg.probes,
+            equal=same)
+        if not same:
+            raise SystemExit(f"rmat12 stream (per_vertex={pv12}): the "
+                             f"card's session differs from the CPU's")
 
     # -------------------------------------------------- 4. full size
     scale = args.scale
@@ -443,6 +724,7 @@ def main() -> int:
         stages=clock.seconds, counts=clock.counts)
     if (count_launches["intersect_levels"] == 0
             or count_launches["intersect_hits"]
+            or count_launches["intersect_count"]
             or report.backend != "cuda"):
         raise SystemExit(f"the count did not go through K1 alone: "
                          f"{count_launches}")
@@ -467,7 +749,8 @@ def main() -> int:
         top_k=pv.top_k(5).tolist(), transitivity=pv.transitivity(),
         launches=pv_launches, seconds=warm_s, stages=clock.seconds,
         counts=clock.counts)
-    if pv_launches["intersect_hits"] == 0 or pv_launches["intersect_levels"]:
+    if (pv_launches["intersect_hits"] == 0 or pv_launches["intersect_levels"]
+            or pv_launches["intersect_count"]):
         raise SystemExit(f"the per-vertex count did not go through K2 "
                          f"alone: {pv_launches}")
     if ((pv.triangles, pv.c1, pv.c2) != (report.triangles, report.c1,
@@ -498,8 +781,9 @@ def main() -> int:
         per_vertex_equals_bincount=pv_found, launches=find_launches,
         seconds=warm_s, stages=clock.seconds, counts=clock.counts,
         check_seconds=time.perf_counter() - t0)
-    if find_launches["intersect_hits"] == 0 or find_launches[
-            "intersect_levels"]:
+    if (find_launches["intersect_hits"] == 0
+            or find_launches["intersect_levels"]
+            or find_launches["intersect_count"]):
         raise SystemExit(f"find did not go through K2 alone: "
                          f"{find_launches}")
     if (int(cnt) != n_tri or not (unique and closed and pv_found)
@@ -519,7 +803,7 @@ def main() -> int:
         ("per_vertex", lambda: eng.count((edges, n), options=pv_opts)),
         ("find", lambda: eng.find((edges, n), max_triangles=n_tri)),
     ):
-        busy_ms, wall_s, top = device_busy(run)
+        busy_ms, wall_s, top, _ = device_busy(run)
         med = e2e[tag]["median_seconds"]
         e2e[tag]["device_busy_ms"] = busy_ms
         log("device_busy", path=tag, busy_ms=busy_ms,
@@ -540,7 +824,8 @@ def main() -> int:
     tot_h = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
                  sample_ms=0.0, sample_plain_ms=0.0, sample_rows=0,
                  launches=0)
-    bound_by, bound_by_h = [], []
+    tot_c = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0)
+    bound_by, bound_by_h, bound_by_c = [], [], []
     top_sample = None
     for b, ops in buckets:
         kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
@@ -605,6 +890,29 @@ def main() -> int:
         if n_hits != s1 + s2:
             raise SystemExit(f"rmat{scale}: K2 found {n_hits} hits in a "
                              f"bucket, K1 {s1 + s2}")
+
+        # K3 at full width: the count's plan run level-free, one launch
+        # per bucket, every row against its plain version and against
+        # K1's c1 + c2 (each row's entries are unique)
+        ms_c = cuda_ms(lambda: kmod.intersect_count(flat, *ops[:4], **kw))
+        err_c, err_c12, hits_c, p_ms_c = compare_count(flat, levels, ops, b)
+        max_err_count = max(max_err_count, err_c, err_c12)
+        bound_c, by_c, nbytes_c, nops_c, row_ms_c = count_bound(
+            flat, ops, b.d_cand, b.d_targ)
+        for key, v in (("ms", ms_c), ("plain_ms", p_ms_c),
+                       ("bound_ms", bound_c),
+                       ("row_bytes_bound_ms", row_ms_c)):
+            tot_c[key] += v
+        bound_by_c.append((bound_c, by_c))
+        log("bucket", kernel="intersect_count", graph=f"rmat{scale}",
+            count=b.count, rows=b.rows, d_cand=b.d_cand, d_targ=b.d_targ,
+            hits=hits_c, kernel_ms=ms_c, bound_ms=bound_c, bound_by=by_c,
+            bytes=nbytes_c, ops=nops_c, row_bytes_bound_ms=row_ms_c,
+            plain_ms=p_ms_c, max_abs_err_all_rows=err_c,
+            max_abs_err_vs_c1_c2=err_c12, library_ms=None)
+        if hits_c != s1 + s2:
+            raise SystemExit(f"rmat{scale}: K3 found {hits_c} hits in a "
+                             f"bucket, K1 {s1 + s2}")
     # the plain version of K1 on the top bucket's sample, beside the kernel
     b, sops = top_sample
     kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
@@ -614,14 +922,27 @@ def main() -> int:
     log("top_bucket_sample", rows=len(sops[0]), d_cand=b.d_cand,
         d_targ=b.d_targ, kernel_ms=s_kernel, plain_ms=s_plain,
         library_ms=None)
-    if max_err or max_err_hits:
+    if max_err or max_err_hits or max_err_count:
         raise SystemExit(f"a kernel disagrees with its plain version: "
-                         f"K1 {max_err}, K2 {max_err_hits}")
+                         f"K1 {max_err}, K2 {max_err_hits}, K3 "
+                         f"{max_err_count}")
+    n_buckets, k1_sample_rows = len(buckets), len(sops[0])
+    del flat, buckets, top_sample, sops, scall, levels, g
+    torch.cuda.empty_cache()
 
-    # ---------------------------------------------------------- 5. summary
+    # --------------------------------------------------------- 5. stream
+    stream = stream_phase(eng, edges, n, main_path)
+
+    # ---------------------------------------------------------- 6. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
-        memory=memory, seconds=time.perf_counter() - t_all)
+        memory=memory, stream_updates_per_second={
+            "batch_4096": stream["timed"]["median_updates_per_second"],
+            "one_percent": stream["one_percent"]["updates_per_second"],
+            "per_vertex_4096":
+                stream["per_vertex"]["median_updates_per_second"]},
+        stream_recount_seconds=stream["one_percent"]["recount_seconds"],
+        seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     kernels = [{
         "name": "intersect_levels",
@@ -635,14 +956,14 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
-        "sample_rows": len(sops[0]),
+        "sample_rows": k1_sample_rows,
         "sample_ms": s_kernel,
         "sample_plain_ms": s_plain,
         "bound_ms": tot["bound_ms"],
         "bound_by": max(bound_by)[1],
         "row_bytes_bound_ms": tot["row_bytes_bound_ms"],
         "library_ms": None,
-        "shape": f"rmat{scale} plan, {len(buckets)} buckets",
+        "shape": f"rmat{scale} plan, {n_buckets} buckets",
     }, {
         "name": "intersect_hits",
         "route": "cuda",
@@ -665,9 +986,31 @@ def main() -> int:
         "bound_by": max(bound_by_h)[1],
         "row_bytes_bound_ms": tot_h["row_bytes_bound_ms"],
         "library_ms": None,
-        "shape": f"rmat{scale} plan, {len(buckets)} buckets, "
+        "shape": f"rmat{scale} plan, {n_buckets} buckets, "
                  f"{tot_h['launches']} launches at the main path's chunk "
                  f"shapes",
+    }, {
+        "name": "intersect_count",
+        "route": "cuda",
+        "source": src,
+        "replaces": "src/repro/kernels/intersect/intersect.py:148",
+        "replaces_function":
+            "repro.kernels.intersect.intersect.intersect_pallas_count",
+        "launches": stream["launches"]["intersect_count"],
+        "launches_one_percent":
+            stream["one_percent"]["launches"]["intersect_count"],
+        "matches_plain": max_err_count == 0,
+        "max_abs_err": max_err_count,
+        "ms": tot_c["ms"],
+        "plain_ms": tot_c["plain_ms"],
+        "bound_ms": tot_c["bound_ms"],
+        "bound_by": max(bound_by_c)[1],
+        "row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
+        "library_ms": None,
+        "stream_ms_per_batch": stream["k3_ms_per_batch"],
+        "shape": f"rmat{scale} count plan run level-free, {n_buckets} "
+                 f"buckets, one launch each; launches from the stream "
+                 f"path's 8 timed applies of {STREAM_BATCH} updates",
     }]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

@@ -2,13 +2,14 @@
 
 Counterpart of ``repro.api`` for the routes ported so far: the exact
 single-graph count on the local route (Algorithm 1), with per-vertex
-credit, and triangle finding.
+credit, triangle finding, and the stream route (live counts under edge
+mutation streams).
 
 * :class:`TCOptions` — the local route's knobs, validated as in the
   reference.
-* :class:`TriangleEngine` — ``count`` on the local route and ``find``,
-  on the engine's device (``"cuda"`` unless the caller asks for
-  ``"cpu"``).
+* :class:`TriangleEngine` — ``count`` on the local and stream routes,
+  ``find`` and ``stream``, on the engine's device (``"cuda"`` unless the
+  caller asks for ``"cpu"``).
 * :class:`TriangleReport` — the result contract: ``triangles``, ``k``,
   ``c1``/``c2``, the normalized :class:`Overflow` flags, provenance and,
   with ``per_vertex``, each vertex's triangle count and degree.
@@ -21,9 +22,12 @@ credit, and triangle finding.
     rep = engine.count((edges, n_nodes), options=TCOptions(per_vertex=True))
     print(rep.top_k(10), rep.transitivity())
     tri, count = engine.find((edges, n_nodes), max_triangles=1000)
+    session = engine.stream((edges, n_nodes))
+    update = session.apply([(+1, 0, 5), (-1, 2, 3)])
+    print(update.delta_triangles, session.count().triangles)
 
-The other routes of the reference (batch, distributed, approx, stream)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+The other routes of the reference (batch, distributed, approx) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sequential as _seq
+from repro_torch.core.approx import ApproxEstimate
 from repro_torch.core.intersect import (
     BACKENDS,
     DEFAULT_BUCKET_WIDTHS,
@@ -41,6 +46,7 @@ from repro_torch.core.intersect import (
 )
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import Graph, from_edges
+from repro_torch.stream.session import StreamSession, StreamStats
 
 __all__ = [
     "ROUTES",
@@ -50,15 +56,15 @@ __all__ = [
     "TriangleReport",
 ]
 
-#: The reference's dispatch targets.  The port answers ``auto`` and
-#: ``local``; every other route names the ROADMAP item that ports it.
+#: The reference's dispatch targets.  The port answers ``auto``,
+#: ``local`` and ``stream``; every other route names the ROADMAP item
+#: that ports it.
 ROUTES = ("auto", "local", "batch", "distributed", "approx", "stream")
 
 _UNPORTED_ROUTES = {
     "batch": "ROADMAP Queue 1 item 5 (batch lanes and the serving path)",
     "distributed": "ROADMAP Queue 1 item 10 (distributed Algorithm 2)",
     "approx": "ROADMAP Queue 1 item 8 (approx route)",
-    "stream": "ROADMAP Queue 1 item 9 (streaming)",
 }
 
 #: edge-list input: ``(edges int[any, 2], n_nodes)``
@@ -77,7 +83,7 @@ def _check_route(route: str) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class TCOptions:
-    """The local route's execution knobs, frozen and hashable.
+    """The execution knobs of the ported routes, frozen and hashable.
 
       backend:        ``"auto" | "torch" | "cuda"`` intersection backend
                       (``auto`` = the Hopper kernel on a CUDA device, the
@@ -95,7 +101,24 @@ class TCOptions:
       root:           BFS root.
       compact:        ``False`` = the dense seed reference path.
       route:          default dispatch of ``TriangleEngine.count``:
-                      ``"auto"`` or ``"local"``.
+                      ``"auto"``, ``"local"`` or ``"stream"``.
+
+    Stream route knobs (``repro_torch.stream``):
+      stream_buffer:  mutation buffer capacity — an ``apply`` stream
+                      longer than this is split into batches of this
+                      many updates, each applied and delta-probed on its
+                      own.
+      stream_staleness: the touched-vertex fraction past which a session
+                      re-derives BFS levels and the cover classification
+                      with one full count (in between it answers exactly
+                      in the level-free regime: ``c1``/``c2`` ``None``).
+      stream_exact_edges: per-batch exact budget — a batch changing more
+                      edges than this skips the delta probes and the
+                      session answers through the reservoir-sampled
+                      approximate lane until the next refresh (``None`` =
+                      always exact).
+      stream_approx_rate: the approximate lane's edge-reservoir sampling
+                      rate (capacity ≈ rate × initial edge count, min 64).
     """
 
     backend: str = "auto"
@@ -108,6 +131,10 @@ class TCOptions:
     root: int = 0
     compact: bool = True
     route: str = "auto"
+    stream_buffer: int = 4096
+    stream_staleness: float = 0.25
+    stream_exact_edges: Optional[int] = None
+    stream_approx_rate: float = 0.05
 
     def __post_init__(self):
         object.__setattr__(
@@ -129,6 +156,26 @@ class TCOptions:
             )
         if self.row_mult <= 0:
             raise ValueError(f"row_mult must be positive; got {self.row_mult}")
+        if self.stream_buffer <= 0:
+            raise ValueError(
+                f"stream_buffer must be positive; got {self.stream_buffer}"
+            )
+        if self.stream_staleness <= 0:
+            raise ValueError(
+                f"stream_staleness must be positive; "
+                f"got {self.stream_staleness}"
+            )
+        if (self.stream_exact_edges is not None
+                and int(self.stream_exact_edges) <= 0):
+            raise ValueError(
+                f"stream_exact_edges must be positive; "
+                f"got {self.stream_exact_edges}"
+            )
+        if not 0.0 < self.stream_approx_rate <= 1.0:
+            raise ValueError(
+                f"stream_approx_rate must lie in (0, 1]; "
+                f"got {self.stream_approx_rate}"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,10 +206,18 @@ class TriangleReport:
     ``levels`` as a host array.
 
     With ``TCOptions(per_vertex=True)`` it also carries ``per_vertex``
-    (int32[n_nodes], each vertex's triangle count — ``sum(per_vertex) ==
-    3 * triangles``) and ``degrees`` (int32[n_nodes]), from which
+    (int[n_nodes], each vertex's triangle count — ``sum(per_vertex) ==
+    3 * triangles``) and ``degrees`` (int[n_nodes]), from which
     :meth:`local_clustering`, :meth:`transitivity` and :meth:`top_k`
-    derive."""
+    derive.
+
+    Stream-route reports (``route="stream"``) always carry ``stream``
+    (the session's :class:`~repro_torch.stream.session.StreamStats`).  A
+    freshly refreshed session reports the full cover-edge payload; one
+    with pending mutations answers exactly in the level-free regime
+    (``c1``/``c2`` ``None``, ``k`` ``NaN``); an over-budget session
+    answers the estimate (``approx`` payload, no attribution) until its
+    next refresh."""
 
     triangles: int
     k: float
@@ -175,8 +230,10 @@ class TriangleReport:
     plan_id: str
     options: TCOptions
     levels: Optional[np.ndarray] = None
+    approx: Optional[ApproxEstimate] = None
     per_vertex: Optional[np.ndarray] = None
     degrees: Optional[np.ndarray] = None
+    stream: Optional[StreamStats] = None
 
     def _require_per_vertex(self) -> None:
         if self.per_vertex is None or self.degrees is None:
@@ -213,6 +270,16 @@ class TriangleReport:
         pv = self.per_vertex.astype(np.int64)
         order = np.lexsort((np.arange(pv.shape[0]), -pv))
         return order[: max(0, min(int(k), pv.shape[0]))]
+
+
+def _host_edges(g: Graph) -> tuple[np.ndarray, int]:
+    """A graph's unique undirected edges as a host ``int64[m, 2]`` array,
+    with its vertex count — how a packed ``Graph`` opens a stream
+    session."""
+    src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
+    keep = (src < dst) & (dst < g.n_nodes)
+    return (np.stack([src[keep], dst[keep]], axis=1).astype(np.int64),
+            g.n_nodes)
 
 
 class TriangleEngine:
@@ -269,18 +336,23 @@ class TriangleEngine:
         clock: Optional[_seq.StageClock] = None,
     ) -> TriangleReport:
         """Count the triangles of one graph — a packed :class:`Graph` or
-        an ``(edges, n_nodes)`` pair — on the local route.
+        an ``(edges, n_nodes)`` pair — on the local route (``"auto"`` or
+        ``"local"``) or the stream route.
 
-        Degenerate n=0 graphs are answered here without running the
-        pipeline.  ``clock`` (a :class:`~repro_torch.core.sequential.
-        StageClock`) records per-stage seconds, each closed by a device
-        synchronize: host CSR build, BFS (and its sweep count),
+        ``route="stream"`` opens a one-shot session (:meth:`stream`),
+        whose opening refresh is the full local count, and answers its
+        report: the same numbers with stream provenance.  Degenerate n=0
+        graphs are answered here without running the pipeline.
+        ``clock`` (a :class:`~repro_torch.core.sequential.StageClock`)
+        records per-stage seconds of the local route, each closed by a
+        device synchronize: CSR build, BFS (and its sweep count),
         horizontal compaction, plan, probe.
         """
         o = options or self.options
         r = route or o.route
         _check_route(r)
-        r = "local"
+        if r != "stream":
+            r = "local"
         backend = resolve_backend(o.backend, self.device)
         if isinstance(graph_or_edges, Graph):
             n_nodes = graph_or_edges.n_nodes
@@ -295,6 +367,8 @@ class TriangleEngine:
                 levels=np.zeros((0,), np.int32),
                 per_vertex=empty_pv, degrees=empty_pv,
             )
+        if r == "stream":
+            return self.stream(graph_or_edges, options=o).count()
         g = self._graph(graph_or_edges, clock)
         res = _seq._triangle_count(g, o, clock=clock)
         tri, c1, c2, nh, k, ovf = (
@@ -329,6 +403,29 @@ class TriangleEngine:
         return _seq._find_triangles(
             self._graph(graph_or_edges, clock), options or self.options,
             max_triangles=int(max_triangles), clock=clock,
+        )
+
+    def stream(
+        self,
+        graph_or_edges: Union[Graph, EdgeList],
+        *,
+        options: Optional[TCOptions] = None,
+        seed: int = 0,
+    ) -> StreamSession:
+        """Open a live :class:`~repro_torch.stream.session.StreamSession`
+        on this engine's device.
+
+        The session ingests edge mutation streams in batches of
+        ``stream_buffer`` updates, keeps the exact triangle total (and
+        per-vertex credit, with ``per_vertex=True``) current by the batch
+        delta rule, and re-derives the cover-edge state once staleness
+        passes ``stream_staleness``.  Batches whose net change exceeds
+        ``stream_exact_edges`` flip the session to the reservoir-sampled
+        approximate lane until its next refresh.  ``seed`` drives only
+        that lane's reservoir."""
+        return StreamSession(
+            self, graph_or_edges, options=options or self.options,
+            seed=seed,
         )
 
     #: the reference's ``find_raw`` returns device arrays where its

@@ -23,9 +23,14 @@ per-vertex credit and triangle finding:
   The two agree on every exact plan: ``plan_buckets`` sizes ``d_targ``
   to at least every large degree of its bucket.
 
+* **Level-free probes.**  Without ``level`` (the stream route's batch
+  deltas) every hit counts once: ``c1`` is the raw hit total and ``c2``
+  is 0.  The ``cuda`` backend counts with K3, the Hopper port of
+  ``intersect_pallas_count``.
+
 * **Hits.**  Per-vertex credit and finding need the membership mask
   itself, not its counts, so there the ``cuda`` backend switches from K1
-  to K2 (the ragged hit mask), as the reference switches from
+  or K3 to K2 (the ragged hit mask), as the reference switches from
   ``intersect_pallas`` to ``intersect_pallas_hits``.  The mask is
   ragged — only each row's real candidates — and is turned into a hit
   list ``(row, candidate id)`` chunk by chunk, each chunk at most
@@ -42,11 +47,13 @@ import torch
 from repro_torch.graph.csr import Graph, _ceil_to, _next_pow2, gather_rows
 from repro_torch.graph.segment import segment_sum
 from repro_torch.kernels.intersect.intersect import (
+    intersect_count,
     intersect_hits,
     intersect_levels,
 )
 from repro_torch.kernels.intersect.ref import (
     CAND_PAD,
+    found_counts,
     probe_hits,
     search_steps,
     split_counts,
@@ -250,16 +257,19 @@ def _width_overflow(l_s, l_l, *, d_cand, d_targ) -> torch.Tensor:
 
 
 def probe_operands(adj: CsrAdjacency, qu, qw, bounds, base: int, count: int,
-                   level: torch.Tensor):
+                   level: Optional[torch.Tensor]):
     """The kernel operands of one slice of bucket rows: ``(s_s, l_s, s_l,
     l_l, lev_u)``.  ``base`` is the slice's offset within its bucket
     (rows at or past ``count`` are masked), ``bounds`` the slice's
-    ``(su, lu, sw, lw)`` endpoint bounds."""
+    ``(su, lu, sw, lw)`` endpoint bounds; ``lev_u`` is None without
+    ``level``."""
     n = adj.n_nodes
     pos = base + torch.arange(qu.shape[0], dtype=torch.int32,
                               device=qu.device)
     row_ok = (pos < count) & (qu < n) & (qw < n)
     s_s, l_s, s_l, l_l = _swapped_bounds(*bounds, row_ok)
+    if level is None:
+        return s_s, l_s, s_l, l_l, None
     lev_ext = torch.cat([
         level, torch.full((1,), -9, dtype=torch.int32, device=level.device)
     ])
@@ -361,12 +371,14 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
     """Summed ``(c1, c2, overflow, credit)`` for one slice of bucket
     rows; ``credit`` is int32[n + 1] with ``per_vertex``, else None.
 
-    Without ``per_vertex`` the ``cuda`` backend counts with K1 and the
-    ``torch`` backend with the jnp probe's counts.  With it, both go
-    through the hit mask (K2 on the card) and c1/c2 are derived from the
-    mask: a hit is same-level (c2) when its apex's level equals the
-    edge's, else diff-level (c1).  A ``clock`` records the per-vertex
-    path's ``probe``, ``hit_list`` and ``credit`` stages."""
+    Without ``per_vertex`` the ``cuda`` backend counts with K1 (K3 when
+    ``level`` is None) and the ``torch`` backend with the jnp probe's
+    counts.  With it, both go through the hit mask (K2 on the card) and
+    c1/c2 are derived from the mask: a hit is same-level (c2) when its
+    apex's level equals the edge's, else diff-level (c1).  Without
+    ``level`` every hit is c1 and credits its apex and both edge
+    endpoints (Algorithm 2's N-hat regime).  A ``clock`` records the
+    per-vertex path's ``probe``, ``hit_list`` and ``credit`` stages."""
     s_s, l_s, s_l, l_l, lev_u = probe_operands(
         adj, qu, qw, bounds, base, count, level
     )
@@ -379,18 +391,29 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
         for row, cand in hit_chunks(adj, (s_s, l_s, s_l, l_l),
                                     d_cand=d_cand, d_targ=d_targ,
                                     backend=backend, clock=clock):
-            diff = level[cand] != lev_u[row]
-            n_diff = diff.sum(dtype=torch.int32)
-            c1 = c1 + n_diff
-            c2 = c2 + (cand.shape[0] - n_diff)
-            diff_rows = segment_sum(
-                torch.ones_like(cand, dtype=torch.int32)[diff], row[diff],
-                qu.shape[0],
-            )
+            ones = torch.ones_like(cand, dtype=torch.int32)
+            if level is None:
+                c1 = c1 + cand.shape[0]
+                diff_rows = segment_sum(ones, row, qu.shape[0])
+            else:
+                diff = level[cand] != lev_u[row]
+                n_diff = diff.sum(dtype=torch.int32)
+                c1 = c1 + n_diff
+                c2 = c2 + (cand.shape[0] - n_diff)
+                diff_rows = segment_sum(ones[diff], row[diff], qu.shape[0])
             credit += _chunk_credit(n, cand, diff_rows, qu, qw)
             if clock is not None:
                 clock.lap("credit")
         return c1, c2, overflow, credit
+    if level is None:
+        if backend == "cuda":
+            cnt = intersect_count(adj.flat, s_s, l_s, s_l, l_l,
+                                  d_cand=d_cand, d_targ=d_targ)
+        else:
+            cnt = found_counts(adj.flat, s_s, l_s, s_l, l_l, d_cand=d_cand,
+                               num_steps=search_steps(d_targ))
+        zero = torch.zeros((), dtype=torch.int32, device=qu.device)
+        return cnt.sum(dtype=torch.int32), zero, overflow, None
     if backend == "cuda":
         c1, c2 = intersect_levels(
             adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
@@ -437,7 +460,7 @@ def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
 
 
 def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
-             level: torch.Tensor, per_vertex: bool = False,
+             level: Optional[torch.Tensor], per_vertex: bool = False,
              clock=None) -> EngineCounts:
     """Execute a bucket plan against an adjacency view.
 
@@ -445,13 +468,16 @@ def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
     sentinels and never counted).  Coverage is the planner's contract:
     rows beyond ``plan.total_rows`` are not probed (that is how the
     sequential pipeline skips the non-horizontal tail and how ``cap_h``
-    truncates).  Hits are split into the paper's ``(c1, c2)`` by apex
-    level.  Sums are int32, as in the reference.
+    truncates).  With ``level``, hits are split into the paper's ``(c1,
+    c2)`` by apex level; with ``level=None`` every hit counts once into
+    ``c1`` and ``c2`` is 0 (the stream route's level-free probes).  Sums
+    are int32, as in the reference.
 
     With ``per_vertex=True`` the same probe pass also returns triangle
     credit (:func:`_chunk_credit`), int32[n + 1]: slot ``n`` absorbs
     sentinel-row credit and is dropped by the caller, and
-    ``sum(per_vertex[:n]) == 3 * triangles`` exactly.  A ``clock``
+    ``sum(per_vertex[:n]) == 3 * triangles`` exactly (with ``level``;
+    without it every hit credits all three corners).  A ``clock``
     (``core.sequential.StageClock``) splits that path's stages.
     """
     dev = qu.device

@@ -119,7 +119,8 @@ def from_edges(
     """Build a ``Graph`` from an undirected edge array ``int[any, 2]``
     (numpy or a tensor).
 
-    The edges move to ``device`` once, as int64, and are deduplicated,
+    The edges move to ``device`` once, as int64 — a tensor already there
+    is used as it is, with no host round trip — and are deduplicated,
     stripped of self-loops, symmetrized and CSR-sorted there (see
     ``_normalize_edges``).  ``num_slots`` pads the directed edge list to
     a fixed budget (>= 2m).  Vertex ids are bounded by the sentinel
@@ -129,7 +130,10 @@ def from_edges(
     dev = resolve_device(device)
     n_nodes = int(n_nodes)
     torch_index_dtype(n_nodes, site="csr.from_edges vertex ids")
-    e = torch.as_tensor(np.asarray(edges, dtype=np.int64)).to(dev)
+    if isinstance(edges, torch.Tensor):
+        e = edges.to(dev, torch.int64)
+    else:
+        e = torch.as_tensor(np.asarray(edges, dtype=np.int64)).to(dev)
     s, d = _normalize_edges(e, n_nodes)
     m2 = s.shape[0]
     slots = int(num_slots) if num_slots is not None else m2

@@ -1,10 +1,12 @@
-// K1 and K2 for Hopper: sorted-list intersection over CSR bounds, with
-// two epilogues on one row walk.
+// K1, K2 and K3 for Hopper: sorted-list intersection over CSR bounds,
+// with three epilogues on one row walk.
 //
 // K1 (intersect_levels_launch) replaces
 // repro/kernels/intersect/intersect.py:intersect_pallas (its Pallas body
 // _kernel).  K2 (intersect_hits_launch) replaces intersect_pallas_hits
-// (its body _hits_kernel).  Both read, per query row r,
+// (its body _hits_kernel).  K3 (intersect_count_launch) replaces
+// intersect_pallas_count (its body _count_kernel).  All three read, per
+// query row r,
 //
 //   cand = flat[s_s[r] : s_s[r] + min(l_s[r], d_cand)]   (sorted)
 //   targ = flat[s_l[r] : s_l[r] + min(l_l[r], d_targ)]   (sorted)
@@ -20,23 +22,29 @@
 // hits[offsets[r] + j] to 1 (found) or 0, where offsets (int64[Q + 1],
 // from the wrapper) is the running sum of min(l_s, d_cand).  That is
 // intersect_pallas_hits' bool[Q, d_cand] with the padding cells left
-// out.
+// out.  K3 counts the hits with no level split,
+//
+//   cnt[r] = #{c in cand : c in targ}  (= K1's c1[r] + c2[r])
+//
+// the level-free probe of the stream route's batch deltas and of
+// Algorithm 2's hedge rounds; it reads no level and writes no mask.
 //
 // The TPU form (a tiled all-pairs equality cube over the dense blocks)
 // does not carry over: at Graph500 scale 18-20 the dense blocks alone
-// would be 0.15-1.1 TB, and K2's dense mask at scale 20 ~97 GB.  These
-// kernels read the adjacency straight from the CSR array instead; each
-// row walks its real candidate list and binary-searches the target
-// slice, so the work is sum(l_s * log2(l_l)) and nothing of size
-// [Q, d_cand] exists.
+// would be 0.15-1.1 TB, K2's dense mask at scale 20 ~97 GB, and one
+// stream-delta probe at scale 20 (2,048 rows against targets 65,536
+// wide) ~0.5 GB.  These kernels read the adjacency straight from the
+// CSR array instead; each row walks its real candidate list and
+// binary-searches the target slice, so the work is sum(l_s * log2(l_l))
+// and nothing of size [Q, d_cand] exists.
 //
 // What bounds them on this card: memory.  The bytes a row must move are
 // its candidates (and, for K1, their levels) and its target list, plus
-// five int32 operands in and two int32 out (K1), or four int32 operands
-// and an int64 offset in and one byte out per candidate (K2); the
-// operations are a few integer compares per
-// binary-search step, far below the card's integer rate.  The design
-// does the simple thing about it:
+// five int32 operands in and two int32 out (K1), four int32 operands
+// and an int64 offset in and one byte out per candidate (K2), or four
+// int32 operands in and one int32 out (K3); the operations are a few
+// integer compares per binary-search step, far below the card's integer
+// rate.  The design does the simple thing about it:
 //
 //   * narrow buckets (d_cand <= 256): one warp per row, lanes stride over
 //     the candidates, each lane binary-searches the target slice in
@@ -46,9 +54,9 @@
 //     searched in global memory.  A larger stage leaves fewer blocks per
 //     SM and measured slower on the card (PERF.md).
 //
-// K1 writes each row's c1/c2, K2 each candidate's byte: no atomics,
-// deterministic.  Sentinel and masked rows carry l_s = l_l = 0 and
-// touch nothing.  Index math within the adjacency is int32: offsets
+// K1 and K3 write each row's counts, K2 each candidate's byte: no
+// atomics, deterministic.  Sentinel and masked rows carry l_s = l_l = 0
+// and touch nothing.  Index math within the adjacency is int32: offsets
 // into flat stay below the slot count (< 2**31, enforced when the graph
 // is built).  K2's output index is int64: one bucket's mask at scale 20
 // holds 3.45e9 cells.
@@ -249,6 +257,51 @@ intersect_hits_block(const int* __restrict__ flat,
              [&](int j, int, bool found) { out[j] = found; });
 }
 
+// ------------------------------------------------------------------ K3
+
+__global__ void __launch_bounds__(kWarp * kRowsPerWarpBlock)
+intersect_count_warp(const int* __restrict__ flat,
+                     const int* __restrict__ s_s,
+                     const int* __restrict__ l_s,
+                     const int* __restrict__ s_l,
+                     const int* __restrict__ l_l, int q, int d_cand,
+                     int d_targ, int* __restrict__ cnt) {
+  const int row = blockIdx.x * kRowsPerWarpBlock + (threadIdx.x / kWarp);
+  const int lane = threadIdx.x % kWarp;
+  if (row >= q) return;  // uniform across the warp
+  int a = 0;
+  warp_walk(flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+            min(l_l[row], d_targ), lane,
+            [&](int, int, bool found) { a += found; });
+  a = warp_sum(a);
+  if (lane == 0) cnt[row] = a;
+}
+
+__global__ void __launch_bounds__(kBlockThreads)
+intersect_count_block(const int* __restrict__ flat,
+                      const int* __restrict__ s_s,
+                      const int* __restrict__ l_s,
+                      const int* __restrict__ s_l,
+                      const int* __restrict__ l_l, int d_cand, int d_targ,
+                      int* __restrict__ cnt) {
+  __shared__ int stage[kStageCap];
+  __shared__ int red[kBlockThreads / kWarp];
+  const int row = blockIdx.x;
+  int a = 0;
+  block_walk(stage, flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
+             min(l_l[row], d_targ),
+             [&](int, int, bool found) { a += found; });
+  a = warp_sum(a);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  if (lane == 0) red[warp] = a;
+  __syncthreads();
+  if (warp == 0) {
+    a = warp_sum(lane < kBlockThreads / kWarp ? red[lane] : 0);
+    if (lane == 0) cnt[row] = a;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -290,6 +343,24 @@ int intersect_hits_launch(const int* flat, const int* s_s, const int* l_s,
   }
   intersect_hits_block<<<q, kBlockThreads, 0, st>>>(
       flat, s_s, l_s, s_l, l_l, offsets, d_cand, d_targ, hits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch K3 over q rows into cnt[0 : q].  Returns a cudaError_t (0 =
+// launched).
+int intersect_count_launch(const int* flat, const int* s_s, const int* l_s,
+                           const int* s_l, const int* l_l, int q, int d_cand,
+                           int d_targ, int* cnt, void* stream) {
+  if (q <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d_cand <= kWarpMaxCand) {
+    const int blocks = (q + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
+    intersect_count_warp<<<blocks, kWarp * kRowsPerWarpBlock, 0, st>>>(
+        flat, s_s, l_s, s_l, l_l, q, d_cand, d_targ, cnt);
+    return static_cast<int>(cudaGetLastError());
+  }
+  intersect_count_block<<<q, kBlockThreads, 0, st>>>(
+      flat, s_s, l_s, s_l, l_l, d_cand, d_targ, cnt);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,16 @@
-"""Wrappers of K1 and K2 (``csrc/intersect.cu``), the Hopper ports of
-``repro.kernels.intersect.intersect.intersect_pallas`` and
-``intersect_pallas_hits``.
+"""Wrappers of K1, K2 and K3 (``csrc/intersect.cu``), the Hopper ports of
+``repro.kernels.intersect.intersect.intersect_pallas``,
+``intersect_pallas_hits`` and ``intersect_pallas_count``.
 
-:func:`intersect_levels` and :func:`intersect_hits` have the signatures
-of their plain versions (:func:`~repro_torch.kernels.intersect.ref.
-intersect_levels_ref`, :func:`~repro_torch.kernels.intersect.ref.
-intersect_hits_ref`).  On CPU tensors they run that plain version; on
-CUDA tensors they launch the kernel on the current stream or raise —
-they never fall back.  ``LAUNCHES`` counts each kernel's launches (and
-nothing else), so a run can show which kernel its path went through.
+:func:`intersect_levels`, :func:`intersect_hits` and
+:func:`intersect_count` have the signatures of their plain versions
+(:func:`~repro_torch.kernels.intersect.ref.intersect_levels_ref`,
+:func:`~repro_torch.kernels.intersect.ref.intersect_hits_ref`,
+:func:`~repro_torch.kernels.intersect.ref.intersect_count_ref`).  On
+CPU tensors they run that plain version; on CUDA tensors they launch
+the kernel on the current stream or raise — they never fall back.
+``LAUNCHES`` counts each kernel's launches (and nothing else), so a run
+can show which kernel its path went through.
 """
 from __future__ import annotations
 
@@ -18,18 +20,20 @@ import torch
 
 from repro_torch.kernels.intersect.ref import (
     hit_offsets,
+    intersect_count_ref,
     intersect_hits_ref,
     intersect_levels_ref,
 )
 
 #: kernel name -> number of times it was launched in this process
-LAUNCHES = {"intersect_levels": 0, "intersect_hits": 0}
+LAUNCHES = {"intersect_levels": 0, "intersect_hits": 0, "intersect_count": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "intersect_levels": [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
                          _P],
     "intersect_hits": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "intersect_count": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 _FNS: dict = {}
 
@@ -156,3 +160,31 @@ def intersect_hits(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int):
               f"cells={hits.shape[0]}",
     )
     return offsets, hits
+
+
+def intersect_count(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int):
+    """Per-row hit count int32[Q]: how many of the candidates
+    ``flat[s_s : s_s + min(l_s, d_cand)]`` are found in the sorted target
+    ``flat[s_l : s_l + min(l_l, d_targ)]`` — K1's ``c1 + c2`` without the
+    level split.
+
+    Every operand is a 1-D int32 tensor on one device."""
+    dev = _check(d_cand, d_targ, ("l_s", "s_l", "l_l"),
+                 flat=flat, s_s=s_s, l_s=l_s, s_l=s_l, l_l=l_l)
+    if dev.type == "cpu":
+        return intersect_count_ref(flat, s_s, l_s, s_l, l_l,
+                                   d_cand=d_cand, d_targ=d_targ)
+    flat, s_s, l_s, s_l, l_l = (
+        t.contiguous() for t in (flat, s_s, l_s, s_l, l_l)
+    )
+    q = s_s.shape[0]
+    cnt = torch.empty(q, dtype=torch.int32, device=dev)
+    if q == 0:
+        return cnt
+    _launch(
+        "intersect_count", dev,
+        flat.data_ptr(), s_s.data_ptr(), l_s.data_ptr(), s_l.data_ptr(),
+        l_l.data_ptr(), int(q), int(d_cand), int(d_targ), cnt.data_ptr(),
+        shape=f"q={q}, d_cand={d_cand}, d_targ={d_targ}",
+    )
+    return cnt

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the intersect kernels K1 and K2.
+"""Plain PyTorch versions of the intersect kernels K1, K2 and K3.
 
 K1, the level-split intersection, in two forms of one function:
 
@@ -28,6 +28,11 @@ dense blocks (counterpart of ``intersect_pallas_hits``'s body), and
 :func:`intersect_hits_ref` on CSR bounds, which returns the mask
 *ragged* — only each row's real (clamped) candidates, row after row —
 because the dense ``bool[Q, Dc]`` does not fit at Graph500 scale 20.
+
+K3, the level-free count ``|cand ∩ targ|`` per row, in the same two
+forms: :func:`count_ref` on the dense blocks (the function of
+``intersect_pallas_count``) and :func:`intersect_count_ref` on CSR
+bounds.
 """
 from __future__ import annotations
 
@@ -111,6 +116,21 @@ def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
     return c1, c2
 
 
+def found_counts(flat, s_s, l_s, s_l, l_search, *, d_cand: int,
+                 num_steps: int):
+    """Per-row hit count int32[Q]: the row sums of :func:`_found_chunks`
+    (no level split) — the reference's jnp probe without ``level``."""
+    q = s_s.shape[0]
+    cnt = torch.zeros(q, dtype=torch.int32, device=s_s.device)
+    if q == 0 or d_cand <= 0:
+        return cnt
+    for r0, r1, _, _, found in _found_chunks(
+        flat, s_s, l_s, s_l, l_search, d_cand=d_cand, num_steps=num_steps
+    ):
+        cnt[r0:r1] = found.sum(dim=1, dtype=torch.int32)
+    return cnt
+
+
 def intersect_levels_ref(flat, s_s, l_s, s_l, l_l, level, lev_u, *,
                          d_cand: int, d_targ: int):
     """CSR-bounds form of K1: ``(c1, c2)`` int32[Q] for candidate lists
@@ -174,6 +194,30 @@ def intersect_hits_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
     ``[Q, d_cand]`` it equals :func:`hits_ref` on the dense blocks the
     reference's ``_gather_cand_targ`` builds from the same bounds."""
     return probe_hits(
+        flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
+        d_cand=d_cand, num_steps=search_steps(d_targ),
+    )
+
+
+# --------------------------------------------------------------- K3
+
+
+def count_ref(cand, targ):
+    """Dense form of K3: ``int32[Q]``, the number of candidates of each
+    row (not pads) found in its target row — the function of
+    ``intersect_pallas_count`` (each row's entries unique)."""
+    return hits_ref(cand, targ).sum(dim=1, dtype=torch.int32)
+
+
+def intersect_count_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
+                        d_targ: int):
+    """CSR-bounds form of K3: ``int32[Q]``, how many of the candidates
+    ``flat[s_s : s_s + min(l_s, d_cand)]`` are found in the sorted target
+    ``flat[s_l : s_l + min(l_l, d_targ)]``, by the search-depth rule of
+    :func:`intersect_levels_ref` — so it is K1's ``c1 + c2`` row for row,
+    and :func:`count_ref` on the dense blocks the reference's
+    ``_gather_cand_targ`` builds from the same bounds."""
+    return found_counts(
         flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
         d_cand=d_cand, num_steps=search_steps(d_targ),
     )

@@ -1,6 +1,7 @@
-"""Tests that need the card: the Hopper kernels K1 and K2 against their
-plain versions on CUDA tensors, and the count, find and per-vertex paths
-at RMAT scale 16 going through them.
+"""Tests that need the card: the Hopper kernels K1, K2 and K3 against
+their plain versions on CUDA tensors, the count, find and per-vertex
+paths at RMAT scale 16 going through them, and stream sessions whose
+delta probes go through K3 (K2 with credit).
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -20,6 +21,7 @@ from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import from_edges
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.kernels.intersect.ref import (
+    intersect_count_ref,
     intersect_hits_ref,
     intersect_levels_ref,
 )
@@ -94,10 +96,11 @@ def test_count_rmat16_goes_through_the_kernel(cuda_device):
     edges, n = gen.rmat(16, 16, seed=0)
     before = dict(tkern.LAUNCHES)
     r = TriangleEngine(device=cuda_device).count((edges, n))
-    # one K1 launch per bucket of the exact plan, and no K2
+    # one K1 launch per bucket of the exact plan, and no K2 or K3
     assert tkern.LAUNCHES == {"intersect_levels":
                               before["intersect_levels"] + 3,
-                              "intersect_hits": before["intersect_hits"]}
+                              "intersect_hits": before["intersect_hits"],
+                              "intersect_count": before["intersect_count"]}
     assert r.backend == "cuda" and r.plan_id == "exact/cuda"
     assert (r.triangles, r.num_horizontal) == (15673932, 528985)
     assert not r.overflow
@@ -180,3 +183,94 @@ def test_find_and_per_vertex_rmat16_go_through_k2(cuda_device):
     np.testing.assert_array_equal(plain.per_vertex, r.per_vertex)
     found = np.bincount(tri.cpu().numpy().reshape(-1), minlength=n)
     np.testing.assert_array_equal(found, r.per_vertex)
+
+
+# K3 takes K1's two mappings too: the same cases reach the warp kernel,
+# the staged and the global-memory branch of the block kernel, and clamps.
+@pytest.mark.parametrize("d_cand,d_targ,d_list", [
+    (32, 1024, 1200),      # warp kernel
+    (256, 300, 1200),      # warp kernel, clamped targets
+    (1024, 1024, 1200),    # block kernel, staged targets
+    (16384, 16384, 10000),  # block kernel, staged and global-memory search
+    (512, 100, 1200),      # block kernel, clamped lists
+])
+def test_count_kernel_matches_plain_on_random_operands(cuda_device, d_cand,
+                                                       d_targ, d_list):
+    rng = np.random.default_rng(d_cand + d_targ + 2)
+    ops = [torch.from_numpy(x).to(cuda_device)
+           for x in _random_operands(rng, 3000, d_list)]
+    before = tkern.LAUNCHES["intersect_count"]
+    k = tkern.intersect_count(*ops[:5], d_cand=d_cand, d_targ=d_targ)
+    torch.cuda.synchronize()
+    assert tkern.LAUNCHES["intersect_count"] == before + 1
+    assert torch.equal(k, intersect_count_ref(*ops[:5], d_cand=d_cand,
+                                              d_targ=d_targ))
+    c1, c2 = tkern.intersect_levels(*ops, d_cand=d_cand, d_targ=d_targ)
+    assert torch.equal(k, c1 + c2) and bool(k.any())
+
+
+def test_count_kernel_matches_plain_and_k1_on_every_bucket_of_rmat16(
+        cuda_device):
+    edges, n = gen.rmat(16, 16, seed=0)
+    res = TriangleEngine(device=cuda_device).count_raw((edges, n))
+    g = from_edges(edges, n, device=cuda_device)
+    qu, qw, *_ = horizontal_queries(g, res.levels, order="desc")
+    adj = tint.CsrAdjacency.from_graph(g)
+    for b, base, qu_b, qw_b, bounds in tint.bucket_slices(adj, qu, qw,
+                                                          res.plan):
+        ops = tint.probe_operands(adj, qu_b, qw_b, bounds, base, b.count,
+                                  res.levels)
+        kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
+        k = tkern.intersect_count(adj.flat, *ops[:4], **kw)
+        assert torch.equal(k, intersect_count_ref(adj.flat, *ops[:4], **kw))
+        c1, c2 = tkern.intersect_levels(adj.flat, *ops[:4], res.levels,
+                                        ops[4], **kw)
+        assert torch.equal(k, c1 + c2)
+
+
+def test_from_edges_takes_a_cuda_tensor(cuda_device):
+    edges, n = gen.rmat(10, 16, seed=0)
+    e = torch.from_numpy(edges).to(cuda_device)
+    g = from_edges(e, n, num_slots=1 << 15, device=cuda_device)
+    ref = from_edges(edges, n, num_slots=1 << 15, device="cpu")
+    for name in ("src", "dst", "row_offsets", "deg", "n_edges_dir"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(ref, name))
+
+
+@pytest.mark.parametrize("per_vertex", [False, True], ids=["count", "pv"])
+def test_stream_session_goes_through_k3_and_matches_the_cpu(cuda_device,
+                                                            per_vertex):
+    """rmat12 sessions on the card and on the CPU, the same stream: equal
+    updates and arrays after every apply; between refreshes the probes
+    launch K3 alone without credit and K2 alone with it."""
+    edges, n = gen.rmat(12, 16, seed=0)
+    opts = TCOptions(per_vertex=per_vertex, stream_staleness=1e9)
+    gpu = TriangleEngine(opts).stream((edges, n))
+    cpu = TriangleEngine(opts, device="cpu").stream((edges, n))
+    assert gpu.state.keys.device.type == "cuda"
+    rng = np.random.default_rng(1)
+    want = "intersect_hits" if per_vertex else "intersect_count"
+    for _ in range(3):
+        cur = cpu.state.edges()
+        dels = cur[rng.choice(cur.shape[0], 300, replace=False)]
+        ins = rng.integers(0, n, size=(300, 2))
+        ops = np.r_[-np.ones(300, np.int8), np.ones(300, np.int8)]
+        batch = (ops, np.r_[dels, ins])
+        before = dict(tkern.LAUNCHES)
+        up = gpu.apply(batch)
+        got = {k: tkern.LAUNCHES[k] - before[k] for k in before}
+        assert got[want] > 0 and sum(got.values()) == got[want], got
+        assert up == cpu.apply(batch)
+        assert gpu.triangles == cpu.triangles
+        if per_vertex:
+            np.testing.assert_array_equal(gpu.per_vertex, cpu.per_vertex)
+    fresh = TriangleEngine().count((gpu.state.edges(), n),
+                                   options=TCOptions(per_vertex=per_vertex))
+    assert fresh.triangles == gpu.triangles
+    if per_vertex:
+        np.testing.assert_array_equal(fresh.per_vertex, gpu.per_vertex)
+    before = dict(tkern.LAUNCHES)
+    gpu.apply([], refresh=True)
+    got = {k: tkern.LAUNCHES[k] - before[k] for k in before}
+    assert got["intersect_count"] == 0
+    assert gpu.count().c1 == fresh.c1 and gpu.count().k == fresh.k

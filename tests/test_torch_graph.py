@@ -113,6 +113,26 @@ def test_from_edges_num_slots_padding_matches(extra):
     _assert_graph_equal(*_pair(edges, n, num_slots=m2 + extra))
 
 
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+@pytest.mark.parametrize("case", ["karate", "self_loops", "empty_edges",
+                                  "rmat8"])
+def test_from_edges_takes_a_tensor(case, dtype, monkeypatch):
+    """An edge tensor already on the device packs there, with no numpy
+    round trip, into the same arrays; ``num_slots`` pads as before."""
+    edges, n = _edge_cases()[case]
+    e = torch.from_numpy(np.asarray(edges, dtype=np.int64)).to(dtype)
+    jg = jcsr.from_edges(edges, n, num_slots=2 * len(edges) + 5)
+
+    def no_host_copy(*_a, **_k):
+        raise AssertionError("from_edges took the numpy path")
+
+    monkeypatch.setattr(tcsr.np, "asarray", no_host_copy)
+    tg = tcsr.from_edges(e, n, num_slots=2 * len(edges) + 5, device=CPU)
+    monkeypatch.undo()
+    _assert_graph_equal(jg, tg)
+    assert bool((tg.src[int(tg.n_edges_dir):] == n).all())
+
+
 def test_from_edges_rejects_short_slot_budget():
     edges, n = tgen.karate()
     with pytest.raises(ValueError, match="num_slots"):

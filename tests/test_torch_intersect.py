@@ -15,7 +15,10 @@ from repro.core import bfs as jbfs
 from repro.core import edges as jedges
 from repro.core import intersect as jint
 from repro.graph import csr as jcsr
-from repro.kernels.intersect.intersect import intersect_pallas
+from repro.kernels.intersect.intersect import (
+    intersect_pallas,
+    intersect_pallas_count,
+)
 from repro.kernels.intersect.ref import intersect_ref as j_intersect_ref
 from repro_torch.core import bfs as tbfs
 from repro_torch.core import edges as tedges
@@ -24,6 +27,9 @@ from repro_torch.graph import csr as tcsr
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.kernels.intersect.ref import (
+    count_ref,
+    found_counts,
+    intersect_count_ref,
     intersect_levels_ref,
     intersect_ref,
     search_steps,
@@ -211,6 +217,68 @@ def test_wrapper_rejects_operands_the_kernel_does_not_take():
     assert tkern.LAUNCHES == before  # the plain path is not a launch
 
 
+# ------------------------------------------- K3 plain versions (level-free)
+
+@pytest.mark.parametrize("q,d,bq,bd", SWEEP)
+def test_count_ref_matches_pallas_count(q, d, bq, bd):
+    rng = np.random.default_rng(q * 7 + d)
+    cand = _random_sorted_lists(rng, q, d, 400)
+    targ = _random_sorted_lists(rng, q, d, 400)
+    targ = np.where(targ < 0, -2, targ)
+    cp = intersect_pallas_count(jnp.asarray(cand), jnp.asarray(targ),
+                                block_q=bq, block_d=bd, interpret=True)
+    ct = count_ref(_t(cand), _t(targ))
+    assert ct.dtype == torch.int32
+    np.testing.assert_array_equal(_np(ct), np.asarray(cp))
+
+
+def _pallas_count_on_dense(ops, *, d_cand, d_targ, bq, bd):
+    """The reference's count kernel on the dense blocks its engine
+    gathers from the same bounds."""
+    flat, s_s, l_s, s_l, l_l = map(jnp.asarray, ops[:5])
+    cand, targ, _ = jint._gather_cand_targ(
+        flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ,
+        need_targ=True)
+    return intersect_pallas_count(cand, targ, block_q=bq, block_d=bd,
+                                  interpret=True)
+
+
+@pytest.mark.parametrize("q,d,bq,bd", SWEEP + [(40, 100, 16, 128)])
+@pytest.mark.parametrize("targ_scale", [1, 2, 0.5],
+                         ids=["dt_eq", "dt_wide", "dt_clamped"])
+def test_intersect_count_ref_matches_pallas_count(q, d, bq, bd, targ_scale):
+    rng = np.random.default_rng(q + 3 * d)
+    ops = _csr_operands(rng, q, d)
+    d_targ = max(1, int(int(ops[4].max()) * targ_scale))
+    cp = _pallas_count_on_dense(ops, d_cand=d, d_targ=d_targ, bq=bq, bd=bd)
+    ct = intersect_count_ref(*map(_t, ops[:5]), d_cand=d, d_targ=d_targ)
+    np.testing.assert_array_equal(_np(ct), np.asarray(cp))
+    # K1's c1 + c2 on the same rows, and the wrapper's plain path
+    c1, c2 = intersect_levels_ref(*map(_t, ops), d_cand=d, d_targ=d_targ)
+    np.testing.assert_array_equal(_np(ct), _np(c1 + c2))
+    before = dict(tkern.LAUNCHES)
+    cw = tkern.intersect_count(*map(_t, ops[:5]), d_cand=d, d_targ=d_targ)
+    assert tkern.LAUNCHES == before  # the plain path is not a launch
+    np.testing.assert_array_equal(_np(cw), _np(ct))
+
+
+def test_found_counts_under_searches_like_the_reference():
+    # a target longer than the search depth covers: the jnp probe's rule
+    rng = np.random.default_rng(11)
+    ops = _csr_operands(rng, 64, 100, n=300)
+    flat, s_s, l_s, s_l, l_l = map(_t, ops[:5])
+    d_targ = 16
+    assert int(l_l.max()) > 2 ** search_steps(d_targ) - 1
+    got = found_counts(flat, s_s, l_s, s_l, l_l, d_cand=128,
+                       num_steps=search_steps(d_targ))
+    c1, c2 = split_counts(flat, s_s, l_s, s_l, l_l, _t(ops[5]), _t(ops[6]),
+                          d_cand=128, num_steps=search_steps(d_targ))
+    np.testing.assert_array_equal(_np(got), _np(c1 + c2))
+    with pytest.raises(ValueError, match="rows"):
+        tkern.intersect_count(flat, s_s, l_s[:3], s_l, l_l, d_cand=8,
+                              d_targ=8)
+
+
 # ---------------------------------------------------------- engine level
 
 def _engine_inputs(edges, n):
@@ -261,6 +329,33 @@ def test_run_plan_flags_a_clamped_candidate_width():
                        level=tl)
     assert (int(te.c1), int(te.c2)) == (int(je.c1), int(je.c2))
     assert bool(te.overflow) and bool(je.overflow)
+
+
+@pytest.mark.parametrize("per_vertex", [False, True], ids=["count", "pv"])
+@pytest.mark.parametrize("query_chunk", [None, 64])
+@pytest.mark.parametrize("case", sorted(GRAPHS))
+def test_level_free_run_plan_matches_reference(case, query_chunk,
+                                               per_vertex):
+    """``level=None``: every hit counts once into c1 (c2 == 0) and, with
+    credit, credits its apex and both edge endpoints."""
+    jg, tg, jl, tl, jq, tq = _engine_inputs(*GRAPHS[case])
+    h = int(jq[4])
+    ds, dl = np.asarray(jq[2])[:h], np.asarray(jq[3])[:h]
+    kw = dict(layout="desc", query_chunk=query_chunk,
+              row_mult=query_chunk or 64)
+    jp = jint.plan_buckets(ds, dl, backend="jnp", **kw)
+    tp = tint.plan_buckets(ds, dl, backend="torch", **kw)
+    je = jint.run_plan(jint.CsrAdjacency.from_graph(jg), jq[0], jq[1], jp,
+                       level=None, per_vertex=per_vertex)
+    te = tint.run_plan(tint.CsrAdjacency.from_graph(tg), tq[0], tq[1], tp,
+                       level=None, per_vertex=per_vertex)
+    assert (int(te.c1), int(te.c2)) == (int(je.c1), int(je.c2))
+    assert int(te.c2) == 0 and int(te.c1) > 0
+    assert bool(te.overflow) == bool(je.overflow) is False
+    if per_vertex:
+        np.testing.assert_array_equal(_np(te.per_vertex),
+                                      np.asarray(je.per_vertex))
+        assert int(te.per_vertex.sum()) == 3 * int(te.c1)
 
 
 @pytest.mark.parametrize("query_chunk", [None, 32])
