@@ -37,7 +37,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
   5. stream  — stream sessions on the same graph (``stream_staleness``
                1e9, so the timed path is pure delta maintenance): the
                session's opening count, one warm-up and 8 timed applies
-               of 4,096 mixed updates (K3), 4 timed applies with
+               of 4,096 mixed updates (K3); K3 at the probes' own
+               launch shapes (the launches of 8 further applies,
+               recorded, each timed beside its bound and held against
+               its plain version on every row); 4 timed applies with
                per-vertex credit in a second session (K2), one apply of
                1 % of the edges, and a forced refresh (K1); each checked
                against a fresh count, with updates per second, stage
@@ -166,20 +169,40 @@ def hits_bound(flat, ops, d_cand: int, d_targ: int):
     return max(t_bytes, t_ops), by, once, nops, row_ms, cells
 
 
+def covered_slots(n_slots: int, ranges) -> int:
+    """How many of the ``n_slots`` flat entries the ``(starts, lengths)``
+    int32 ranges cover, each entry counted once (a difference array)."""
+    dev = ranges[0][0].device
+    d = torch.zeros(n_slots + 1, dtype=torch.int32, device=dev)
+    for starts, lens in ranges:
+        live = lens > 0
+        s0 = starts[live].to(torch.int64)
+        one = torch.ones_like(s0, dtype=torch.int32)
+        d.index_add_(0, s0, one)
+        d.index_add_(0, s0 + lens[live].to(torch.int64), -one)
+    return int((d.cumsum(0)[:n_slots] > 0).sum().item())
+
+
 def count_bound(flat, ops, d_cand: int, d_targ: int):
-    """K3's least time on the card for one bucket's call, from this run's
+    """K3's least time on the card for one call, from this run's
     operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms)``.
 
-    Bytes: the flat adjacency (every candidate and target list), four
-    int32 operands (s_s, l_s, s_l, l_l) in and one int32 count out per
-    row, over 3.35 TB/s.  Operations: K1's (:func:`bucket_bound`).
+    Bytes: every flat entry that some row's clamped candidate list, or
+    the clamped target list of a row with candidates, covers, read once (the union over the rows: all of the
+    adjacency at most, a sliver of it for a stream probe), four int32
+    operands (s_s, l_s, s_l, l_l) in and one int32 count out per row,
+    over 3.35 TB/s.  Operations: K1's (:func:`bucket_bound`).
     ``row_bytes_ms``: each row's clamped candidates and clamped target
     list, (l_s + l_l) int32, plus its operands and output."""
     s_s, l_s, s_l, l_l = ops[:4]
-    ls = l_s.clamp(max=d_cand).to(torch.int64)
-    ll = l_l.clamp(max=d_targ).to(torch.int64)
+    ls = l_s.clamp(max=d_cand)
+    ll = l_l.clamp(max=d_targ)
     q = s_s.shape[0]
-    once = flat.numel() * 4 + q * 5 * 4
+    # a row without candidates needs no target list
+    lt = torch.where(ls > 0, ll, torch.zeros_like(ll))
+    once = (covered_slots(flat.numel(), ((s_s, ls), (s_l, lt))) * 4
+            + q * 5 * 4)
+    ls, ll = ls.to(torch.int64), ll.to(torch.int64)
     rows = int(((ls + ll) * 4).sum().item()) + q * 5 * 4
     steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
     nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
@@ -190,10 +213,11 @@ def count_bound(flat, ops, d_cand: int, d_targ: int):
     return max(t_bytes, t_ops), by, once, nops, row_ms
 
 
-def compare_count(flat, levels, ops, b):
+def compare_count(flat, ops, kw, levels=None):
     """``(max |K3 - plain|, max |K3 - (c1 + c2)|, hits, plain_ms)`` over
-    every row: K3 against its plain version (timed with CUDA events) and
-    against K1's per-row c1 + c2 on the same rows; these launches are
+    every row: K3 against its plain version (timed with CUDA events)
+    and, given ``levels`` (``ops[4]`` K1's ``lev_u``), against K1's
+    per-row c1 + c2 on the same rows (0 without); these launches are
     comparisons, not the main path."""
     from repro_torch.kernels.intersect.intersect import (
         intersect_count,
@@ -201,9 +225,7 @@ def compare_count(flat, levels, ops, b):
     )
     from repro_torch.kernels.intersect.ref import intersect_count_ref
 
-    kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
     k = intersect_count(flat, *ops[:4], **kw)
-    c1, c2 = intersect_levels(flat, *ops[:4], levels, ops[4], **kw)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -212,9 +234,63 @@ def compare_count(flat, levels, ops, b):
     torch.cuda.synchronize()
     if not len(k):
         return 0, 0, 0, start.elapsed_time(stop)
-    return (int((k - r).abs().max().item()),
-            int((k - c1 - c2).abs().max().item()), int(k.sum().item()),
+    err12 = 0
+    if levels is not None:
+        c1, c2 = intersect_levels(flat, *ops[:4], levels, ops[4], **kw)
+        err12 = int((k - c1 - c2).abs().max().item())
+    return (int((k - r).abs().max().item()), err12, int(k.sum().item()),
             start.elapsed_time(stop))
+
+
+def capture_counts(run):
+    """``run()`` with every K3 call of the probe engine recorded:
+    ``(result, [(flat, (s_s, l_s, s_l, l_l), d_cand, d_targ)])`` in
+    launch order.  Each call still launches K3 as it would."""
+    from repro_torch.core import intersect as tint
+
+    real, calls = tint.intersect_count, []
+
+    def record(flat, s_s, l_s, s_l, l_l, *, d_cand, d_targ):
+        calls.append((flat, (s_s, l_s, s_l, l_l), d_cand, d_targ))
+        return real(flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ)
+
+    tint.intersect_count = record
+    try:
+        res = run()
+    finally:
+        tint.intersect_count = real
+    return res, calls
+
+
+def time_count_calls(calls) -> dict:
+    """K3 on each recorded call (:func:`capture_counts`): its wrapper's
+    milliseconds from CUDA events (mean of 10 after a warm-up), every row
+    against its plain version (timed), and its bound; one log line per
+    launch and the sums over the launches."""
+    from repro_torch.kernels.intersect.intersect import intersect_count
+
+    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
+              max_abs_err=0, launches=len(calls), rows=0, hits=0)
+    by_bound = []
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        ms = cuda_ms(lambda: intersect_count(flat, *ops, **kw), reps=10)
+        err, _, hits, p_ms = compare_count(flat, ops, kw)
+        bound, by, nbytes, nops, row_ms = count_bound(flat, ops, d_cand,
+                                                      d_targ)
+        for key, v in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bound),
+                       ("row_bytes_bound_ms", row_ms), ("hits", hits),
+                       ("rows", len(ops[0]))):
+            k3[key] += v
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        by_bound.append((bound, by))
+        log("stream_k3_launch", launch=i, rows=len(ops[0]), d_cand=d_cand,
+            d_targ=d_targ, flat_slots=flat.numel(), hits=hits,
+            kernel_ms=ms, bound_ms=bound, bound_by=by, bytes=nbytes,
+            ops=nops, row_bytes_bound_ms=row_ms, plain_ms=p_ms,
+            max_abs_err_all_rows=err)
+    k3["bound_by"] = max(by_bound)[1] if by_bound else None
+    return k3
 
 
 def mutation_batch(rng, edges: np.ndarray, n: int, k: int):
@@ -450,18 +526,30 @@ def stream_phase(eng, edges, n, main_path):
             r["updates_per_second"] for r in runs),
         median_seconds=statistics.median(r["seconds"] for r in runs),
         memory=mem)
+    # K3 at the stream path's own launch shapes: the probes of as many
+    # further applies as were timed, recorded as they launch; then each
+    # launch timed with CUDA events, held against its plain version row
+    # for row, and bounded from its operands
+    _, calls = capture_counts(
+        lambda: timed_applies(sess, "k3_capture", 8, STREAM_BATCH))
+    k3 = time_count_calls(calls)
+    del calls
+    log("stream_k3", **k3)
+    if not k3["launches"] or k3["max_abs_err"]:
+        raise SystemExit(f"stream: K3 at the probes' shapes: {k3}")
+    out["k3"] = k3
     # one apply profiled (K3's device time per batch, the busy share) and
     # one under sync debug mode (host syncs per batch)
     batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
     busy_ms, wall_s, top, per = device_busy(lambda: sess.apply(batch))
-    k3 = {k: v for k, v in per.items() if "intersect_count" in k}
+    k3_dev = {k: v for k, v in per.items() if "intersect_count" in k}
     batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
     syncs = host_syncs(lambda: sess.apply(batch))
-    out["k3_ms_per_batch"] = sum(k3.values())
+    out["k3_ms_per_batch"] = sum(k3_dev.values())
     out["host_syncs_per_batch"] = syncs
     log("stream_profile", busy_ms=busy_ms, profiled_seconds=wall_s,
-        top_device_ms=top, k3_ms=k3, k3_ms_per_batch=sum(k3.values()),
-        host_syncs_per_batch=syncs)
+        top_device_ms=top, k3_ms=k3_dev,
+        k3_ms_per_batch=sum(k3_dev.values()), host_syncs_per_batch=syncs)
     check_fresh(sess, "count")
 
     # 5b. a second session with per-vertex credit: its opening count and
@@ -613,7 +701,8 @@ def main() -> int:
     for b, ops in buckets:
         err, s1, s2, _ = compare(flat, res16.levels, ops, b)
         err_h, hits, _, _ = compare_hits(flat, ops, b)
-        err_c, err_c12, hits_c, _ = compare_count(flat, res16.levels, ops, b)
+        err_c, err_c12, hits_c, _ = compare_count(
+            flat, ops, dict(d_cand=b.d_cand, d_targ=b.d_targ), res16.levels)
         max_err = max(max_err, err)
         max_err_hits = max(max_err_hits, err_h)
         max_err_count = max(max_err_count, err_c, err_c12)
@@ -895,7 +984,7 @@ def main() -> int:
         # per bucket, every row against its plain version and against
         # K1's c1 + c2 (each row's entries are unique)
         ms_c = cuda_ms(lambda: kmod.intersect_count(flat, *ops[:4], **kw))
-        err_c, err_c12, hits_c, p_ms_c = compare_count(flat, levels, ops, b)
+        err_c, err_c12, hits_c, p_ms_c = compare_count(flat, ops, kw, levels)
         max_err_count = max(max_err_count, err_c, err_c12)
         bound_c, by_c, nbytes_c, nops_c, row_ms_c = count_bound(
             flat, ops, b.d_cand, b.d_targ)
@@ -999,18 +1088,30 @@ def main() -> int:
         "launches": stream["launches"]["intersect_count"],
         "launches_one_percent":
             stream["one_percent"]["launches"]["intersect_count"],
-        "matches_plain": max_err_count == 0,
-        "max_abs_err": max_err_count,
-        "ms": tot_c["ms"],
-        "plain_ms": tot_c["plain_ms"],
-        "bound_ms": tot_c["bound_ms"],
-        "bound_by": max(bound_by_c)[1],
-        "row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
+        "matches_plain": max(max_err_count, stream["k3"]["max_abs_err"]) == 0,
+        "max_abs_err": max(max_err_count, stream["k3"]["max_abs_err"]),
+        "ms": stream["k3"]["ms"],
+        "plain_ms": stream["k3"]["plain_ms"],
+        "bound_ms": stream["k3"]["bound_ms"],
+        "bound_by": stream["k3"]["bound_by"],
+        "row_bytes_bound_ms": stream["k3"]["row_bytes_bound_ms"],
         "library_ms": None,
-        "stream_ms_per_batch": stream["k3_ms_per_batch"],
-        "shape": f"rmat{scale} count plan run level-free, {n_buckets} "
-                 f"buckets, one launch each; launches from the stream "
-                 f"path's 8 timed applies of {STREAM_BATCH} updates",
+        "timed_launches": stream["k3"]["launches"],
+        "timed_rows": stream["k3"]["rows"],
+        "stream_device_ms_per_batch": stream["k3_ms_per_batch"],
+        "full_width_launches": n_buckets,
+        "full_width_ms": tot_c["ms"],
+        "full_width_plain_ms": tot_c["plain_ms"],
+        "full_width_bound_ms": tot_c["bound_ms"],
+        "full_width_bound_by": max(bound_by_c)[1],
+        "full_width_row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
+        "full_width_max_abs_err": max_err_count,
+        "shape": f"rmat{scale} stream probes: the "
+                 f"{stream['k3']['launches']} launches of 8 applies of "
+                 f"{STREAM_BATCH} mixed updates (launches: the main "
+                 f"path's 8 timed applies), each timed and compared on "
+                 f"every row; full_width_*: the count's plan run "
+                 f"level-free, {n_buckets} buckets, one launch each",
     }]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

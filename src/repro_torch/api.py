@@ -272,13 +272,12 @@ class TriangleReport:
         return order[: max(0, min(int(k), pv.shape[0]))]
 
 
-def _host_edges(g: Graph) -> tuple[np.ndarray, int]:
-    """A graph's unique undirected edges as a host ``int64[m, 2]`` array,
-    with its vertex count — how a packed ``Graph`` opens a stream
-    session."""
-    src, dst = g.src.cpu().numpy(), g.dst.cpu().numpy()
-    keep = (src < dst) & (dst < g.n_nodes)
-    return (np.stack([src[keep], dst[keep]], axis=1).astype(np.int64),
+def _graph_edges(g: Graph) -> tuple[torch.Tensor, int]:
+    """A graph's unique undirected edges as an ``int64[m, 2]`` tensor on
+    the graph's device, with its vertex count — how a packed ``Graph``
+    opens a stream session without a host round trip."""
+    keep = (g.src < g.dst) & (g.dst < g.n_nodes)
+    return (torch.stack([g.src[keep], g.dst[keep]], dim=1).to(torch.int64),
             g.n_nodes)
 
 

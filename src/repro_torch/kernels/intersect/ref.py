@@ -29,10 +29,9 @@ dense blocks (counterpart of ``intersect_pallas_hits``'s body), and
 *ragged* — only each row's real (clamped) candidates, row after row —
 because the dense ``bool[Q, Dc]`` does not fit at Graph500 scale 20.
 
-K3, the level-free count ``|cand ∩ targ|`` per row, in the same two
-forms: :func:`count_ref` on the dense blocks (the function of
-``intersect_pallas_count``) and :func:`intersect_count_ref` on CSR
-bounds.
+K3, the level-free count ``|cand ∩ targ|`` per row, on CSR bounds:
+:func:`intersect_count_ref` (on the dense blocks it is the row sum of
+:func:`hits_ref`).
 """
 from __future__ import annotations
 
@@ -202,21 +201,14 @@ def intersect_hits_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
 # --------------------------------------------------------------- K3
 
 
-def count_ref(cand, targ):
-    """Dense form of K3: ``int32[Q]``, the number of candidates of each
-    row (not pads) found in its target row — the function of
-    ``intersect_pallas_count`` (each row's entries unique)."""
-    return hits_ref(cand, targ).sum(dim=1, dtype=torch.int32)
-
-
 def intersect_count_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
                         d_targ: int):
     """CSR-bounds form of K3: ``int32[Q]``, how many of the candidates
     ``flat[s_s : s_s + min(l_s, d_cand)]`` are found in the sorted target
     ``flat[s_l : s_l + min(l_l, d_targ)]``, by the search-depth rule of
     :func:`intersect_levels_ref` — so it is K1's ``c1 + c2`` row for row,
-    and :func:`count_ref` on the dense blocks the reference's
-    ``_gather_cand_targ`` builds from the same bounds."""
+    and the row sum of :func:`hits_ref` on the dense blocks the
+    reference's ``_gather_cand_targ`` builds from the same bounds."""
     return found_counts(
         flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
         d_cand=d_cand, num_steps=search_steps(d_targ),

@@ -97,7 +97,7 @@ class StreamSession:
 
     def __init__(self, engine, graph_or_edges, *,
                  options=None, seed: int = 0):
-        from repro_torch.api import TCOptions, _host_edges
+        from repro_torch.api import TCOptions, _graph_edges
 
         o = options or engine.options
         if not isinstance(o, TCOptions):
@@ -113,7 +113,7 @@ class StreamSession:
         self.engine = engine
         self.options = o
         if isinstance(graph_or_edges, Graph):
-            edges, n_nodes = _host_edges(graph_or_edges)
+            edges, n_nodes = _graph_edges(graph_or_edges)
         else:
             edges, n_nodes = graph_or_edges
             n_nodes = int(n_nodes)

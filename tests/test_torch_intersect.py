@@ -27,8 +27,8 @@ from repro_torch.graph import csr as tcsr
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.kernels.intersect.ref import (
-    count_ref,
     found_counts,
+    hits_ref,
     intersect_count_ref,
     intersect_levels_ref,
     intersect_ref,
@@ -227,7 +227,7 @@ def test_count_ref_matches_pallas_count(q, d, bq, bd):
     targ = np.where(targ < 0, -2, targ)
     cp = intersect_pallas_count(jnp.asarray(cand), jnp.asarray(targ),
                                 block_q=bq, block_d=bd, interpret=True)
-    ct = count_ref(_t(cand), _t(targ))
+    ct = hits_ref(_t(cand), _t(targ)).sum(dim=1, dtype=torch.int32)
     assert ct.dtype == torch.int32
     np.testing.assert_array_equal(_np(ct), np.asarray(cp))
 

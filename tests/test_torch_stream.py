@@ -317,8 +317,11 @@ def test_count_route_stream_matches_reference(name):
         eng = tapi.TriangleEngine(tapi.TCOptions(per_vertex=pv),
                                   device=CPU)
         _assert_report_equal(eng.count((edges, n), route="stream"), jr)
-        # a packed Graph opens the same session
+        # a packed Graph opens the same session, padded slots or not
         g = tcsr.from_edges(edges, n, device=CPU)
+        _assert_report_equal(eng.count(g, route="stream"), jr)
+        g = tdelta.padded_graph(torch.from_numpy(np.asarray(edges)), n,
+                                device=CPU)
         _assert_report_equal(eng.count(g, route="stream"), jr)
 
 
