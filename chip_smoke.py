@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
-1), triangle finding, per-vertex credit and the stream route (exact
-batch deltas) end to end on one NVIDIA H100, through the hand-written
-Hopper kernels K1, K2 and K3.
+1), triangle finding, per-vertex credit, the stream route (exact batch
+deltas) and LM serving (smollm-135m prefill and KV-cache decode) end to
+end on one NVIDIA H100, through the hand-written Hopper kernels K1, K2,
+K3 and K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -45,7 +46,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                1 % of the edges, and a forced refresh (K1); each checked
                against a fresh count, with updates per second, stage
                split, host syncs, K3's device time and peak memory.
-  6. summary — one JSON line per kernel, the card's name and power
+  6. lm      — K5 against its plain version over the reference's sweep
+               and the models' shapes (smollm-135m prefill and decode,
+               gemma3-1b's D 256 with a window of 512, bf16, the smoke
+               widths); then smollm-135m at full width (random weights,
+               seed 0) serves two requests — the server's default
+               (batch 4, prompt 32, 16 generated) and a long one (batch
+               8, prompt 1,920, 128 generated, 2,048 positions): a
+               warm-up and 3 timed serves each (prefill ms, decode ms per
+               step, tokens per second, peak memory; the first with the
+               launch counters set to 0 just before and read just
+               after: K5 alone, 30 launches per step), one profiled
+               (busy share), and one with every K5 launch recorded and
+               timed with CUDA events beside its bound, its plain
+               version (compared) and SDPA's time.  Last, the default
+               request on the CPU through the plain path with the same
+               weights and ids, and the card fed the CPU's ids (teacher
+               forcing): logits within SERVE_TOL and the greedy ids
+               equal wherever the CPU's top-2 margin exceeds it.
+  7. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -376,13 +395,15 @@ def device_busy(run):
     """One ``run()`` under ``torch.profiler``: ``(busy_ms, wall_s, top,
     per_name_ms)``, the summed durations of every CUDA kernel, copy and
     fill (one stream, so they do not overlap), the profiled wall time,
-    the five largest by name, and every name's milliseconds."""
+    the five largest by name, and every name's milliseconds.  Only the
+    device is traced: host events add nothing to these sums, and a run
+    of many small ops (a long serve) took ~90 s to post-process with
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -601,6 +622,352 @@ def stream_phase(eng, edges, n, main_path):
     return out
 
 
+# ---------------------------------------------------------------------- LM
+
+#: float32 rate of one H100 SXM outside the tensor cores at the 700 W
+#: limit (NVIDIA's H100 data sheet: 67 TFLOP/s)
+FP32_FLOPS_PER_S = 67e12
+
+#: the LM phase's requests to smollm-135m at full width: (batch, prompt
+#: length, generated tokens).  "default" is the server's default;
+#: "long" fills SmolLM-135M's 2,048 positions.
+LM_REQUESTS = {"default": (4, 32, 16), "long": (8, 1920, 128)}
+
+#: K5 against its plain version: the reference kernel tests' tolerances
+#: (float32 sums in another order; one bf16 rounding of the output),
+#: |kernel - plain| <= tol * (1 + |plain|)
+K5_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+#: the card's teacher-forced logits against the CPU's, |card - cpu| <=
+#: tol * (1 + |cpu|): float32 matmuls and softmax sums in other orders
+#: through 30 layers
+SERVE_TOL = 1e-3
+
+#: K5 against its plain version before the serves: (b, hq, hkv, s, t, d,
+#: causal, window, kv_offset, dtype).  The reference's sweep
+#: (tests/test_kernel_flash_attention.py), then the models' own shapes.
+K5_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, 0, torch.float32),
+    (1, 4, 1, 200, 200, 64, True, 96, 0, torch.float32),
+    (1, 2, 2, 128, 384, 32, True, None, 256, torch.float32),
+    (1, 8, 8, 130, 130, 64, False, None, 0, torch.float32),
+    (1, 1, 1, 1, 512, 128, True, None, 511, torch.float32),
+    (1, 3, 3, 64, 64, 128, True, 17, 0, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, None, 0, torch.bfloat16),
+    # smollm-135m: the long request's prefill over its cache, a decode step
+    (8, 9, 3, 1920, 2048, 64, True, None, 0, torch.float32),
+    (8, 9, 3, 1, 2048, 64, True, None, 2046, torch.float32),
+    (8, 9, 3, 1920, 2048, 64, True, None, 0, torch.bfloat16),
+    # gemma3-1b: D 256, a local layer's window of 512, prefill and decode
+    (2, 4, 1, 2048, 2048, 256, True, 512, 0, torch.float32),
+    (2, 4, 1, 1, 2048, 256, True, 512, 2000, torch.float32),
+    (2, 4, 1, 2048, 2048, 256, True, 512, 0, torch.bfloat16),
+    # the smoke configs' head widths (smollm 32, gemma3-1b 48)
+    (4, 3, 1, 32, 48, 32, True, None, 0, torch.float32),
+    (4, 2, 1, 32, 48, 48, True, 16, 0, torch.float32),
+]
+
+
+def attention_bound(q, k, kw):
+    """K5's least time on the card for one call, from its operands:
+    ``(bound_ms, bound_by, bytes, flops)``, the larger of (a) q and the
+    output once each and the keys and values that some query row sees
+    (the live key range, per batch and kv head) once each, over HBM's
+    3.35 TB/s, and (b) 4 D float32 operations (the q.k and p.v
+    multiply-adds) per live (query row, key) pair, over 67 TFLOP/s."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    pos = np.arange(s, dtype=np.int64) + kw["kv_offset"]
+    hi = np.minimum(pos, t - 1) if kw["causal"] else np.full(s, t - 1)
+    lo = (np.maximum(pos - kw["window"] + 1, 0) if kw["window"]
+          else np.zeros(s, np.int64))
+    live = np.clip(hi - lo + 1, 0, None)
+    flops = 4 * d * b * hq * int(live.sum())
+    keys = int(hi.max() - lo.min() + 1) if live.any() else 0
+    nbytes = q.element_size() * (2 * b * hq * s * d + 2 * b * hkv * keys * d)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def within(got, want, tol: float):
+    """``(max |got - want|, every element within tol * (1 + |want|))``."""
+    diff = (got.float() - want.float()).abs()
+    ok = bool((diff <= tol * (1 + want.float().abs())).all().item())
+    return float(diff.max().item()), ok
+
+
+def sdpa_call(q, k, v, kw):
+    """The yardstick: one ``scaled_dot_product_attention`` call with the
+    same boolean mask and GQA, on the same operands (never called by the
+    port)."""
+    import torch.nn.functional as F
+
+    s, t = q.shape[2], k.shape[2]
+    qpos = torch.arange(s, device=q.device)[:, None] + kw["kv_offset"]
+    kpos = torch.arange(t, device=q.device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        mask &= kpos <= qpos
+    if kw["window"]:
+        mask &= qpos - kpos < kw["window"]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def time_attention_call(q, k, v, kw) -> dict:
+    """K5 on one call's operands: its milliseconds from CUDA events (mean
+    of 3 after a warm-up), the plain version's and
+    SDPA's on the same operands, each compared with the plain version, and
+    the bound.  These launches are comparisons, not the main path."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention,
+    )
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    ms = cuda_ms(lambda: flash_attention(q, k, v, **kw))
+    got = flash_attention(q, k, v, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = attention_ref(q, k, v, **kw)
+    stop.record()
+    lib = sdpa_call(q, k, v, kw)
+    lib_ms = cuda_ms(lib)
+    err, ok = within(got, want, K5_TOL[q.dtype])
+    lib_err, _ = within(lib(), want, K5_TOL[q.dtype])
+    bound, by, nbytes, flops = attention_bound(q, k, kw)
+    del got, want
+    return dict(s=q.shape[2], t=k.shape[2], kv_offset=kw["kv_offset"],
+                ms=ms, plain_ms=start.elapsed_time(stop), library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                max_abs_err=err, within_tol=ok, library_max_abs_err=lib_err)
+
+
+def record_attention(run, on_call):
+    """``run()`` with ``on_call(q, k, v, kw)`` called after each attention
+    call of the transformer (each still launches K5 as it would), while
+    its operands are as the call saw them."""
+    from repro_torch.kernels.flash_attention import ops
+
+    real = ops.attention
+
+    def hook(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        on_call(q, k, v, kw)
+        return out
+
+    ops.attention = hook
+    try:
+        return run()
+    finally:
+        ops.attention = real
+
+
+def sum_calls(calls) -> dict:
+    """Totals over recorded K5 calls (ms, plain_ms, library_ms, bound_ms,
+    bytes, flops), the largest error, and what bounds the most of them."""
+    out = {key: sum(c[key] for c in calls) for key in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops")}
+    out["launches"] = len(calls)
+    out["max_abs_err"] = max((c["max_abs_err"] for c in calls), default=0.0)
+    out["within_tol"] = all(c["within_tol"] for c in calls)
+    out["library_max_abs_err"] = max(
+        (c["library_max_abs_err"] for c in calls), default=0.0)
+    out["bound_by"] = max(((c["bound_ms"], c["bound_by"]) for c in calls),
+                          default=(0, None))[1]
+    return out
+
+
+def lm_phase(dev, main_path) -> dict:
+    """Phase 6: smollm-135m served at full width through K5 (see the
+    module's docstring); ``main_path`` is ``main``'s.  Returns the
+    phase's summary and K5's entry of the ``kernels`` line."""
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.launch.steps import init_for
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    log("lm_setup", matmul_allow_tf32=tf32,
+        cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+        float32_matmul_precision=torch.get_float32_matmul_precision())
+    if tf32:
+        raise SystemExit("torch.backends.cuda.matmul.allow_tf32 is on: the "
+                         "float32 matmuls would run in TF32")
+
+    # 6a. K5 against its plain version over the sweep and the models' shapes
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    sweep_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, hq, hkv, s, t, d, causal, window, off, dt in K5_CASES:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, hq, s, d), (b, hkv, t, d),
+                                 (b, hkv, t, d)))
+        kw = dict(causal=causal, window=window, kv_offset=off)
+        err, ok = within(fa.flash_attention(q, k, v, **kw),
+                         attention_ref(q, k, v, **kw), K5_TOL[dt])
+        sweep_err[dt] = max(sweep_err[dt], err)
+        log("k5_vs_plain", b=b, hq=hq, hkv=hkv, s=s, t=t, d=d, **kw,
+            dtype=str(dt), max_abs_err=err, tol=K5_TOL[dt], within_tol=ok)
+        if not ok:
+            raise SystemExit(f"K5 disagrees with its plain version at "
+                             f"{(b, hq, hkv, s, t, d)}, {kw}, {dt}: {err}")
+    del q, k, v
+    log("k5_sweep", cases=len(K5_CASES), max_abs_err={
+        str(k): v for k, v in sweep_err.items()},
+        seconds=time.perf_counter() - t_phase)
+
+    # 6b. serve smollm-135m at full width: a warm-up, then 3 timed serves
+    # of each request, the first with the launch counters set to 0 just
+    # before and read just after; one more serve profiled for the device's
+    # busy share, and one with K5's launches recorded (6c)
+    cfg = arch_module("smollm-135m").CONFIG
+    t0 = time.perf_counter()
+    model = init_for("smollm-135m", cfg, 0, dev)
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    out = {"requests": {}, "launches": {}}
+    k5_calls = {}
+    for tag, (b, p, gen) in LM_REQUESTS.items():
+        t_req = time.perf_counter()
+        tokens = prompt_tokens(cfg, b, p, dev)
+        serve(model, tokens, gen)
+        first, _, _, got, mem = main_path(
+            lambda c: serve(model, tokens, gen))
+        want = cfg.n_layers * gen
+        if got["flash_attention"] != want or any(
+                n for key, n in got.items() if key != "flash_attention"):
+            raise SystemExit(f"serve {tag}: launched {got}; expected "
+                             f"flash_attention alone, {want} times")
+        runs = [first] + [serve(model, tokens, gen) for _ in range(2)]
+        for r in runs:
+            err, ok = within(r.logits, first.logits, SERVE_TOL)
+            if (r.ids.shape != (b, gen) or not ok
+                    or not bool(torch.isfinite(r.logits).all())):
+                raise SystemExit(f"serve {tag}: a timed run differs from "
+                                 f"the first ({err}) or is not finite")
+        serve_s = time.perf_counter() - t_req
+        busy_ms, wall_s, top, per = device_busy(
+            lambda: serve(model, tokens, gen))
+        t_rec = time.perf_counter()
+        calls = []
+        record_attention(lambda: serve(model, tokens, gen),
+                         lambda q, k, v, kw: calls.append(
+                             time_attention_call(q, k, v, kw)))
+        k5_calls[tag] = calls
+        record_s = time.perf_counter() - t_rec
+        for i, c in enumerate(calls):
+            if c["s"] > 1:
+                log("k5_launch", request=tag, layer=i, **c)
+        dec_calls = [c for c in calls if c["s"] == 1]
+        log("k5_decode_launches", request=tag, launches=len(dec_calls),
+            **{f"{key}_quantiles": [float(x) for x in np.quantile(
+                [c[key] for c in dec_calls], [0, 0.5, 1])]
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")})
+        pre = sum_calls([c for c in calls if c["s"] > 1])
+        dec = sum_calls([c for c in calls if c["s"] == 1])
+        steps = gen - 1
+        line = dict(
+            request=tag, batch=b, prompt=p, generated=gen,
+            max_len=p + gen, launches=got, memory=mem,
+            kv_cache_bytes=2 * cfg.n_layers * b * (p + gen)
+            * cfg.n_kv_heads * cfg.d_head * 4,
+            prefill_ms=[r.prefill_s * 1e3 for r in runs],
+            median_prefill_ms=statistics.median(r.prefill_s
+                                                for r in runs) * 1e3,
+            decode_ms_per_step=[r.decode_s / steps * 1e3 for r in runs],
+            median_decode_ms_per_step=statistics.median(
+                r.decode_s for r in runs) / steps * 1e3,
+            decode_tokens_per_second=statistics.median(
+                b * steps / r.decode_s for r in runs),
+            device_busy_ms=busy_ms, profiled_seconds=wall_s,
+            busy_share=busy_ms / 1e3 / wall_s,
+            k5_device_ms=sum(ms for name, ms in per.items()
+                             if "flash_attention" in name),
+            top_device_ms=top, k5_prefill=pre, k5_decode=dec,
+            seconds=dict(serves=serve_s, recorded=record_s,
+                         total=time.perf_counter() - t_req))
+        log("lm_serve", **line)
+        if len(calls) != want or not (pre["within_tol"]
+                                      and dec["within_tol"]):
+            raise SystemExit(f"serve {tag}: K5 on the recorded launches: "
+                             f"{len(calls)} calls, prefill {pre}, decode "
+                             f"{dec}")
+        out["requests"][tag] = line
+        out["launches"][tag] = got["flash_attention"]
+        del tokens, first, runs
+
+    # 6d. the same default request on the CPU through the plain path (same
+    # weights, same ids); the card is fed the CPU's ids (teacher forcing)
+    b, p, gen = LM_REQUESTS["default"]
+    cpu_model = init_for("smollm-135m", cfg, 0, "cpu")
+    tokens = prompt_tokens(cfg, b, p, "cpu")
+    cpu, cpu_s, _, got, _ = main_path(
+        lambda c: serve(cpu_model, tokens, gen))
+    if any(got.values()):
+        raise SystemExit(f"the CPU serve launched a kernel: {got}")
+    card = serve(model, tokens.to(dev), gen, forced=cpu.ids)
+    err, ok = within(card.logits.cpu(), cpu.logits, SERVE_TOL)
+    top2 = cpu.logits.topk(2, dim=-1).values              # [gen, B, 2]
+    decided = (top2[..., 0] - top2[..., 1]) > SERVE_TOL   # [gen, B]
+    same = card.ids.cpu().T == cpu.ids.T
+    ids_ok = bool((same | ~decided).all())
+    log("lm_cpu_vs_card", request="default", max_abs_err=err, tol=SERVE_TOL,
+        within_tol=ok, steps=gen, decided=int(decided.sum()),
+        ids_equal=int(same.sum()), ids_equal_where_decided=ids_ok,
+        cpu_seconds=cpu_s, cpu_ids0=cpu.ids[0].tolist())
+    if not (ok and ids_ok):
+        raise SystemExit(f"the card's teacher-forced serve differs from the "
+                         f"CPU's: {err}, ids {ids_ok}")
+    out.update(init_seconds=init_s, weight_bytes=weight_bytes,
+               sweep_max_abs_err={str(k): v for k, v in sweep_err.items()},
+               cpu_vs_card_max_abs_err=err)
+
+    every = k5_calls["default"] + k5_calls["long"]
+    tot = sum_calls(every)
+    splits = {f"{tag}_{part}": sum_calls([c for c in k5_calls[tag]
+                                          if (c["s"] > 1) == (part ==
+                                                              "prefill")])
+              for tag in LM_REQUESTS for part in ("prefill", "decode")}
+    max_err = max(tot["max_abs_err"], sweep_err[torch.float32])
+    out["kernel"] = {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:93",
+        "replaces_function":
+            "repro.kernels.flash_attention.flash_attention.flash_attention",
+        "launches": sum(out["launches"].values()),
+        "launches_default": out["launches"]["default"],
+        "launches_long": out["launches"]["long"],
+        "matches_plain": tot["within_tol"],
+        "max_abs_err": max_err,
+        "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"],
+        "bound_by": tot["bound_by"],
+        "library_ms": tot["library_ms"],
+        "splits": {key: {k: v[k] for k in (
+            "launches", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err")} for key, v in splits.items()},
+        "shape": "smollm-135m at full width (Hq 9, Hkv 3, D 64, float32): "
+                 "every launch of one serve of each request, timed "
+                 "(default: batch 4, prompt 32, 16 generated, T 48; long: "
+                 "batch 8, prompt 1,920, 128 generated, T 2,048), each "
+                 "held against its plain version; library: SDPA with "
+                 "enable_gqa and the same boolean mask",
+    }
+    out["seconds"] = time.perf_counter() - t_phase
+    log("lm_summary", **{k: v for k, v in out.items() if k != "requests"})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -621,6 +988,7 @@ def main() -> int:
     from repro_torch.graph import generators as gen
     from repro_torch.graph.csr import from_edges
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.intersect import intersect as kmod
     from repro_torch.kernels.intersect.ref import intersect_levels_ref
 
@@ -630,8 +998,9 @@ def main() -> int:
     pv_opts = TCOptions(per_vertex=True)
 
     def reset_launches():
-        for k in launches:
-            launches[k] = 0
+        for c in (launches, fa.LAUNCHES):
+            for k in c:
+                c[k] = 0
 
     def main_path(run):
         """``run(clock)`` once with every launch counter set to 0 just
@@ -646,7 +1015,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = run(clock)
         dt = time.perf_counter() - t0
-        got = dict(launches)
+        got = {**launches, **fa.LAUNCHES}
         mem["max_allocated"] = torch.cuda.max_memory_allocated()
         return res, dt, clock, got, mem
 
@@ -682,6 +1051,7 @@ def main() -> int:
         nvidia_smi=card,
         nvcc=sh(build.nvcc_path(), "--version").splitlines()[-1])
     t0 = time.perf_counter()
+    build.build_all()  # one nvcc per source, all at once
     for name in build.SOURCES:
         build.library(name)
     log("build", seconds=time.perf_counter() - t0,
@@ -1022,7 +1392,10 @@ def main() -> int:
     # --------------------------------------------------------- 5. stream
     stream = stream_phase(eng, edges, n, main_path)
 
-    # ---------------------------------------------------------- 6. summary
+    # ------------------------------------------------------------- 6. lm
+    lm = lm_phase(dev, main_path)
+
+    # ---------------------------------------------------------- 7. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -1031,6 +1404,10 @@ def main() -> int:
             "per_vertex_4096":
                 stream["per_vertex"]["median_updates_per_second"]},
         stream_recount_seconds=stream["one_percent"]["recount_seconds"],
+        lm_serve={tag: {k: r[k] for k in (
+            "median_prefill_ms", "median_decode_ms_per_step",
+            "decode_tokens_per_second", "memory", "busy_share")}
+            for tag, r in lm["requests"].items()},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     kernels = [{
@@ -1112,7 +1489,7 @@ def main() -> int:
                  f"path's 8 timed applies), each timed and compared on "
                  f"every row; full_width_*: the count's plan run "
                  f"level-free, {n_buckets} buckets, one launch each",
-    }]
+    }, lm["kernel"]]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"))

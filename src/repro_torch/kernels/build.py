@@ -1,8 +1,8 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each source under ``kernels/*/csrc`` has a plain C interface and is
-compiled on first use into a shared library under ``build/`` at the
-repository root (git-ignored):
+compiled on first use (or by :func:`build_all`, all sources at once) into
+a shared library under ``build/`` at the repository root (git-ignored):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/lib<name>-<hash>.so <source>
@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -27,6 +28,7 @@ BUILD_DIR = _PKG.parents[2] / "build"
 #: name -> CUDA source, relative to this package
 SOURCES = {
     "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
+    "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
 }
 
 NVCC_FLAGS = (
@@ -76,6 +78,17 @@ def _build(name: str, out: Path) -> None:
         )
     os.replace(tmp, out)  # atomic: a concurrent build never loads a stub
     BUILD_LOG[name] = (time.perf_counter() - t0, proc.stderr)
+
+
+def build_all() -> None:
+    """Build every source whose library is missing, one ``nvcc`` per
+    source, all started together; raise if any build fails."""
+    todo = [n for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return
+    with ThreadPoolExecutor(len(todo)) as pool:
+        for fut in [pool.submit(_build, n, _target(n)) for n in todo]:
+            fut.result()
 
 
 def library(name: str) -> ctypes.CDLL:

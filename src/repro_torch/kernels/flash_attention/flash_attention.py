@@ -1,0 +1,145 @@
+"""Wrapper of K5 (``csrc/flash_attention.cu``), the Hopper port of
+``repro.kernels.flash_attention.flash_attention.flash_attention``.
+
+:func:`flash_attention` has the signature of its plain version,
+:func:`~repro_torch.kernels.flash_attention.ref.attention_ref`.  On CPU
+tensors it runs that plain version; on CUDA tensors it launches the kernel
+on the current stream or raises — it never falls back.  ``LAUNCHES``
+counts the kernel's launches (and nothing else), so a run can show that
+its path went through the kernel.
+
+The kernel reads each operand through its batch, head and sequence
+strides, so ``[B, H, S, D]`` views of ``[B, S, H, D]`` tensors (the
+transformer's q and KV cache) are taken as they are.  The output is the
+``[B, Hq, S, D]`` view of a ``[B, S, Hq, D]`` buffer, so the transformer's
+transpose back is free.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+#: kernel name -> number of times it was launched in this process
+LAUNCHES = {"flash_attention": 0}
+
+#: head widths the kernel is instantiated for
+HEAD_DIMS = (32, 48, 64, 128, 256)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = [_P, _P, _P, _P, *([_L] * 12), *([_I] * 10), ctypes.c_float, _P]
+_FN: list = []
+
+
+def _launcher():
+    if not _FN:
+        from repro_torch.kernels.build import library
+
+        fn = library("flash_attention").flash_attention_launch
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _FN.append(fn)
+    return _FN[0]
+
+
+def _check(q, k, v, window) -> None:
+    """Validate what both versions take: ``q`` [B, Hq, S, D] and ``k``,
+    ``v`` [B, Hkv, T, D] of one dtype on one device, Hkv dividing Hq."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D; got shape "
+                             f"{tuple(t.shape)}")
+    b, hq, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k and v must be [{b}, Hkv, T, {d}]; got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.shape[1] == 0 or hq % k.shape[1]:
+        raise ValueError(f"{hq} query heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k, v must share a dtype; got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError(f"q, k, v must share a device; got {q.device}, "
+                         f"{k.device}, {v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1; got {window}")
+
+
+def check_kernel_operands(q, k, v) -> None:
+    """Raise on what the kernel does not take, whatever the device: a head
+    width outside ``HEAD_DIMS``, a dtype other than float32 or bfloat16,
+    or sizes past its int32 grid and row arithmetic."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if d not in HEAD_DIMS:
+        raise ValueError(f"K5 is built for head widths {HEAD_DIMS}; got "
+                         f"{d}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"K5 takes float32 or bfloat16; got {q.dtype}")
+    if b > 65535 or hkv > 65535 or s * hq >= 2**31 or t >= 2**31:
+        raise ValueError(f"K5's grid does not cover B={b}, Hkv={hkv}, "
+                         f"S*Hq={s * hq}, T={t}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when the kernel can read it through its strides (head
+    dim contiguous, the rest and the base aligned to four elements, as its
+    16-byte loads need); otherwise an aligned contiguous copy."""
+    ok = (t.stride(3) == 1
+          and all(t.stride(i) % 4 == 0 for i in range(3))
+          and t.data_ptr() % (4 * t.element_size()) == 0)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, S, D]
+    k: torch.Tensor,  # [B, Hkv, T, D]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    kv_offset: int = 0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Masked softmax attention, [B, Hq, S, D] in q's dtype: query row i
+    sits at position ``i + kv_offset`` and sees key t when ``t <= pos``
+    (``causal``) and ``pos - t < window`` (when given).  ``kv_offset`` and
+    ``window`` are plain run-time ints: a decode step's position changes
+    every step and rebuilds nothing."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             kv_offset=kv_offset, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    check_kernel_operands(q, k, v)
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    out = torch.empty((b, s, hq, d), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if b == 0 or s == 0:
+        return out
+    scale = scale if scale is not None else d ** -0.5
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], b, hq, hkv, s, t, d,
+            int(q.dtype == torch.bfloat16), int(causal),
+            0 if window is None else int(window), int(kv_offset),
+            float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention launch failed: cudaError {err} (B={b}, "
+            f"Hq={hq}, Hkv={hkv}, S={s}, T={t}, D={d}, {q.dtype})")
+    LAUNCHES["flash_attention"] += 1
+    return out

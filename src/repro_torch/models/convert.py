@@ -1,0 +1,61 @@
+"""Weights carried across from the reference.
+
+``repro.models.transformer.init_params`` returns a pytree with stacked
+``[L, ...]`` layer leaves; its leaves as numpy arrays (``jax.tree.map(
+np.asarray, params)``) become the port's :class:`TransformerLM`, one
+``Layer`` per slice.  The KV cache has the same ``[L, B, T, Hkv, D]``
+layout in both packages.  The tests use both to hold the port against the
+reference on the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.transformer import LMConfig, TransformerLM
+
+_LAYER_LEAVES = ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo")
+_MLP_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _copy(dst: torch.Tensor, src, name: str) -> None:
+    src = np.asarray(src)
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: shape {tuple(src.shape)}, the model "
+                         f"expects {tuple(dst.shape)}")
+    dst.copy_(torch.from_numpy(np.array(src)))
+
+
+@torch.no_grad()
+def lm_params_from_numpy(cfg: LMConfig, tree: dict,
+                         device: str | torch.device = "cuda"
+                         ) -> TransformerLM:
+    """The reference's parameter tree of ``cfg`` (numpy leaves: ``embed``,
+    ``ln_final``, optional ``unembed``, and ``layers`` with stacked
+    ``[L, ...]`` leaves) as the port's model on ``device``."""
+    dev = resolve_device(device)
+    model = TransformerLM(cfg)
+    layers = tree["layers"]
+    names = _LAYER_LEAVES + (("q_norm", "k_norm") if cfg.qk_norm else ())
+    for i, lp in enumerate(model.layers):
+        for name in names:
+            _copy(getattr(lp, name), layers[name][i], f"layers.{name}[{i}]")
+        for name in _MLP_LEAVES:
+            _copy(lp.mlp[name], layers["mlp"][name][i],
+                  f"layers.mlp.{name}[{i}]")
+    _copy(model.embed, tree["embed"], "embed")
+    _copy(model.ln_final, tree["ln_final"], "ln_final")
+    if model.unembed is not None:
+        _copy(model.unembed, tree["unembed"], "unembed")
+    elif "unembed" in tree:
+        raise ValueError(f"{cfg.name} ties its embeddings; the tree has an "
+                         f"unembed")
+    return model.to(dev)
+
+
+def cache_from_numpy(cache, device: str | torch.device = "cuda"):
+    """The reference's KV cache ``(k, v)``, numpy ``[L, B, T, Hkv, D]``, as
+    the port's on ``device``."""
+    dev = resolve_device(device)
+    return tuple(torch.from_numpy(np.array(c)).to(dev) for c in cache)

@@ -1,0 +1,87 @@
+"""Building blocks of the port's models, counterparts of
+``repro.models.layers``: initialisers drawn from an explicit
+``torch.Generator``, RMSNorm with its ``(1 + weight)`` scale, rotary
+embeddings (split halves) and the gated MLP.
+
+Weights keep the reference's layout, ``[d_in, d_out]`` applied as
+``x @ w``, so a JAX parameter tree carries across as it is
+(``models/convert.py``).  Initialisers draw on the CPU generator they are
+given; the caller moves the result to its device, so one seed gives the
+same weights on the CPU and on the card.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+# ---------------------------------------------------------------- init utils
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               dtype=torch.float32) -> torch.Tensor:
+    scale = (2.0 / (d_in + d_out)) ** 0.5
+    return torch.randn((d_in, d_out), generator=gen, dtype=dtype) * scale
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int,
+               dtype=torch.float32) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, dtype=dtype) * 0.02
+
+
+# ---------------------------------------------------------------- norms
+
+
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + weight)).to(x.dtype)
+
+
+# ---------------------------------------------------------------- rope
+
+
+def rope_freqs(d_head: int, theta: float, positions: torch.Tensor):
+    """positions int[...]; returns (cos, sin) of shape positions.shape +
+    (d_head/2,), float32."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=positions.device) / d_head
+    inv = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x [..., S, H, D]; cos/sin broadcastable to [..., S, 1, D/2]."""
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- mlp
+
+
+def glu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
+                 dtype=torch.float32) -> dict[str, torch.Tensor]:
+    return {
+        "w_gate": dense_init(gen, d_model, d_ff, dtype),
+        "w_up": dense_init(gen, d_model, d_ff, dtype),
+        "w_down": dense_init(gen, d_ff, d_model, dtype),
+    }
+
+
+def glu_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
+    """``params`` maps ``w_gate``, ``w_up``, ``w_down`` to weights."""
+    gate = x @ params["w_gate"]
+    up = x @ params["w_up"]
+    if act == "silu":
+        gate = F.silu(gate)
+    elif act == "gelu":
+        gate = F.gelu(gate, approximate="tanh")
+    elif act == "relu":
+        gate = F.relu(gate)
+    else:
+        raise ValueError(act)
+    return (gate * up) @ params["w_down"]

@@ -1,7 +1,8 @@
 """Tests that need the card: the Hopper kernels K1, K2 and K3 against
 their plain versions on CUDA tensors, the count, find and per-vertex
 paths at RMAT scale 16 going through them, and stream sessions whose
-delta probes go through K3 (K2 with credit).
+delta probes go through K3 (K2 with credit); K5 against its plain
+attention, and the LM server going through it.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -19,7 +20,12 @@ from repro_torch.core import intersect as tint
 from repro_torch.core.edges import horizontal_queries
 from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import from_edges
+from repro_torch.configs import lm as tlm
+from repro_torch.kernels.flash_attention import flash_attention as tflash
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.intersect import intersect as tkern
+from repro_torch.launch import serve as tserve
+from repro_torch.models import transformer as ttfm
 from repro_torch.kernels.intersect.ref import (
     intersect_count_ref,
     intersect_hits_ref,
@@ -274,3 +280,78 @@ def test_stream_session_goes_through_k3_and_matches_the_cpu(cuda_device,
     got = {k: tkern.LAUNCHES[k] - before[k] for k in before}
     assert got["intersect_count"] == 0
     assert gpu.count().c1 == fresh.c1 and gpu.count().k == fresh.k
+
+
+# ------------------------------------------------------------------- K5
+
+# (b, hq, hkv, s, t, d, causal, window, kv_offset): the reference's sweep
+# (tests/test_kernel_flash_attention.py) and every head width K5 is built
+# for at the models' shapes
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 64, True, None, 0),
+    (1, 4, 1, 200, 200, 64, True, 96, 0),
+    (1, 2, 2, 128, 384, 32, True, None, 256),
+    (1, 8, 8, 130, 130, 64, False, None, 0),
+    (1, 1, 1, 1, 512, 128, True, None, 511),
+    (1, 3, 3, 64, 64, 128, True, 17, 0),
+    (2, 9, 3, 40, 64, 64, True, None, 0),      # smollm prefill over a cache
+    (4, 9, 3, 1, 48, 64, True, None, 37),      # smollm decode
+    (1, 4, 1, 300, 300, 256, True, 128, 0),    # gemma3 local layer
+    (2, 2, 1, 1, 70, 48, True, 16, 69),        # gemma3-1b smoke decode
+    (2, 3, 1, 33, 33, 32, True, None, 0),      # smollm smoke
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_matches_plain(cuda_device, case, dtype):
+    b, hq, hkv, s, t, d, causal, window, kv_offset = case
+    g = torch.Generator(device=cuda_device).manual_seed(s * 7 + t)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((b, hq, s, d), (b, hkv, t, d), (b, hkv, t, d)))
+    kw = dict(causal=causal, window=window, kv_offset=kv_offset)
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 1
+    want = attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_attention_reads_strided_views(cuda_device):
+    """[B, H, S, D] views of [B, S, H, D] tensors, as the transformer
+    passes its q and KV cache, give the contiguous operands' result."""
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((2, 17, 9, 64), generator=g, device=cuda_device)
+    k, v = (torch.randn((2, 40, 3, 64), generator=g, device=cuda_device)
+            for _ in range(2))
+    views = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    got = tflash.flash_attention(*views, kv_offset=5)
+    want = tflash.flash_attention(*(x.contiguous() for x in views),
+                                  kv_offset=5)
+    assert torch.equal(got, want)
+
+
+def test_flash_attention_refuses_unsupported_width(cuda_device):
+    q = torch.zeros((1, 2, 4, 96), device=cuda_device)
+    before = tflash.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="head widths"):
+        tflash.flash_attention(q, q, q)
+    assert tflash.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("cfg", [tlm.SMOLLM_135M_SMOKE, tlm.GEMMA3_1B_SMOKE],
+                         ids=lambda c: c.name)
+def test_serve_goes_through_k5_and_matches_the_cpu(cuda_device, cfg):
+    gpu = ttfm.init_params(cfg, seed=0, device=cuda_device)
+    cpu = ttfm.init_params(cfg, seed=0, device="cpu")
+    tokens = tserve.prompt_tokens(cfg, 3, 24, "cpu")
+    want = tserve.serve(cpu, tokens, 6)
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tserve.serve(gpu, tokens.to(cuda_device), 6, forced=want.ids)
+    assert tflash.LAUNCHES["flash_attention"] - before == 6 * cfg.n_layers
+    torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
+                               atol=1e-4)
