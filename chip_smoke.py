@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
 1), triangle finding, per-vertex credit, the stream route (exact batch
-deltas) and LM serving (smollm-135m prefill and KV-cache decode) end to
-end on one NVIDIA H100, through the hand-written Hopper kernels K1, K2,
-K3 and K5.
+deltas), LM serving (smollm-135m prefill and KV-cache decode) and
+GatedGCN training end to end on one NVIDIA H100, through the
+hand-written Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -64,7 +64,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                weights and ids, and the card fed the CPU's ids (teacher
                forcing): logits within SERVE_TOL and the greedy ids
                equal wherever the CPU's top-2 margin exceeds it.
-  7. summary — one JSON line per kernel, the card's name and power
+  7. gnn     — K4 against its plain version, each case launched twice
+               and equal bit for bit (the reference's sweep, the zipf
+               hub case, bf16, negative and sentinel ids, F = 70); then
+               GatedGCN at full width and depth (16 layers, d_hidden 70,
+               1,433 features, 16 classes, float32, AdamW, random weights
+               from seed 0) trained through ``launch/train.py``'s pieces
+               at two sizes: run A (Cora's 2,708 nodes and 10,556 edges;
+               first the first step's loss and gradients against the
+               CPU's plain path) and run B (169,984 nodes, 84,480 edges:
+               the registry's minibatch_lg block).  Each: a warm-up step,
+               one step with the launch counters set to 0 just before
+               and read just after (K4 alone, 2 x 16 launches), timed
+               steps (20 and 10; ms, steps/s, the loss falling, peak
+               memory), one profiled (busy share, top kernels), and one
+               with every K4 launch recorded and timed beside its bound,
+               its plain version (compared) and ``index_add_``.
+  8. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -968,6 +984,389 @@ def lm_phase(dev, main_path) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- GNN
+
+#: K4 against its plain version, |kernel - plain| <= tol * (1 + S) with
+#: S the segment's sum of |msgs| (the scale of a float32 sum's rounding:
+#: the plain version adds in another order, on the card with atomics, and
+#: a hub's ~10^3 terms cancel); bf16 messages summed in float32 by both
+K4_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+#: the K4 sweep: (E, N, F, dtype, ids).  ids: (lo, hi) for uniform ids in
+#: [lo, hi) (below 0 and from N up are dropped), or "zipf" for the
+#: reference's skewed hub case.  The reference kernel tests' shapes
+#: (tests/test_kernel_segsum.py), then bf16, negative and sentinel ids,
+#: and GatedGCN's F = 70 at run A's and run B's slot counts.
+K4_CASES = [
+    (1000, 300, 64, torch.float32, (-1, 300)),
+    (64, 5, 8, torch.float32, (-1, 5)),
+    (4096, 700, 128, torch.float32, (-1, 700)),
+    (513, 129, 32, torch.float32, (-1, 129)),
+    (2048, 64, 256, torch.float32, (-1, 64)),
+    (5000, 257, 16, torch.float32, "zipf"),
+    (512, 100, 64, torch.bfloat16, (0, 100)),
+    (168960, 169984, 70, torch.bfloat16, (-1, 169985)),
+    (3000, 1000, 70, torch.float32, (-5, 1010)),
+    (21112, 2708, 70, torch.float32, (0, 2709)),
+    (168960, 169984, 70, torch.float32, (0, 169985)),
+]
+
+#: GatedGCN at full width and depth through the trainer:
+#: (run, --gnn-nodes, --gnn-edges, timed steps after one warm-up).
+#: A: Cora's node and edge counts (the registry's full_graph_sm); B: the
+#: node and edge-slot count of the registry's minibatch_lg block (1,024
+#: seeds x (1 + 15 + 150) nodes, 168,960 slots).
+GNN_RUNS = [("A", 2708, 10556, 20), ("B", 169984, 84480, 10)]
+
+#: the card's first-step loss and gradients against the CPU's,
+#: |card - cpu| <= tol * (1 + |cpu|): float32 matmuls and sums in other
+#: orders, and atomics in the gathers' backward, through 16 layers
+GNN_TOL = 1e-4
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up, from CUDA events, with the host's enqueue hidden: the card
+    spins (``torch.cuda._sleep``, ~10 ms) before the start event while
+    the host queues every run.  A run that syncs inside waits for the
+    spin and counts its host time all the same."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def k4_within(got, msgs, seg, n: int, tol: float):
+    """``(max |got - plain|, max |got - plain| / (1 + S), ok)``: K4's
+    output against its plain version on the same operands, S the
+    segment's sum of |msgs| (``K4_TOL``)."""
+    from repro_torch.kernels.segsum.ref import segment_sum_ref
+
+    diff = (got - segment_sum_ref(msgs, seg, n)).abs()
+    scaled = diff / (1 + segment_sum_ref(msgs.abs(), seg, n))
+    worst = float(scaled.max().item()) if scaled.numel() else 0.0
+    return (float(diff.max().item()) if diff.numel() else 0.0, worst,
+            worst <= tol)
+
+
+def segsum_ids(g, e: int, n: int, ids, dev):
+    if ids == "zipf":
+        rng = np.random.default_rng(0)
+        return torch.from_numpy((rng.zipf(1.3, size=e) % n).astype(
+            np.int32)).to(dev)
+    lo, hi = ids
+    return torch.randint(lo, hi, (e,), generator=g, device=dev,
+                         dtype=torch.int32)
+
+
+def segsum_bound(msgs, lay):
+    """K4's least time on the card for one call: ``(bound_ms, bound_by,
+    bytes, flops)``, the larger of (a) the valid edges' message rows,
+    their perm entries, the offsets and the output once each, over HBM's
+    3.35 TB/s, and (b) one float32 add per message element read, over
+    67 TFLOP/s."""
+    n, f = lay.num_segments, msgs.shape[1]
+    valid = int(lay.offsets[-1].item())
+    nbytes = valid * (f * msgs.element_size() + 4) + (n + 1) * 4 + n * f * 4
+    flops = valid * f
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def time_segsum_call(msgs, lay, segment_sum_cuda) -> dict:
+    """K4 (the wrapper ``segment_sum_cuda``) on one call's operands: its
+    device milliseconds (``device_ms``), its host-paced milliseconds
+    (``cuda_ms``: back-to-back calls of the wrapper), the plain version's
+    (which syncs on its boolean mask) and the library yardstick's,
+    ``torch.zeros(N, F).index_add_`` over the valid edges (never called
+    by the port), each against the plain version, and the bound.  These
+    launches are comparisons, not the main path."""
+    from repro_torch.kernels.segsum.ref import segment_sum_ref
+
+    n, f = lay.num_segments, msgs.shape[1]
+    ms = device_ms(lambda: segment_sum_cuda(msgs, lay))
+    host_ms = cuda_ms(lambda: segment_sum_cuda(msgs, lay))
+    plain_ms = device_ms(lambda: segment_sum_ref(msgs, lay.seg, n), reps=3)
+    got = segment_sum_cuda(msgs, lay)
+    seg_v = lay.seg[lay.valid].long()
+    msgs_v = msgs[lay.valid].float()
+
+    def lib():
+        return torch.zeros((n, f), device=msgs.device).index_add_(
+            0, seg_v, msgs_v)
+
+    lib_ms = device_ms(lib)
+    tol = K4_TOL[msgs.dtype]
+    err, scaled, ok = k4_within(got, msgs, lay.seg, n, tol)
+    lib_err, lib_scaled, _ = k4_within(lib(), msgs, lay.seg, n, tol)
+    bound, by, nbytes, flops = segsum_bound(msgs, lay)
+    return dict(e=msgs.shape[0], n=n, f=f, ms=ms, host_paced_ms=host_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+                max_abs_err=err, max_scaled_err=scaled, within_tol=ok,
+                bit_identical=bool(torch.equal(got, segment_sum_cuda(
+                    msgs, lay))),
+                library_max_abs_err=lib_err,
+                library_max_scaled_err=lib_scaled)
+
+
+def record_segsum(run, on_call):
+    """``run()`` with ``on_call(msgs, layout, kernel)`` called after each
+    K4 launch of the model (each still launches K4 as it would);
+    ``kernel`` is the wrapper itself."""
+    from repro_torch.kernels.segsum import segsum
+
+    real = segsum.segment_sum_cuda
+
+    def hook(msgs, layout):
+        out = real(msgs, layout)
+        on_call(msgs, layout, real)
+        return out
+
+    segsum.segment_sum_cuda = hook
+    try:
+        return run()
+    finally:
+        segsum.segment_sum_cuda = real
+
+
+def sum_segsum_calls(calls) -> dict:
+    out = {key: sum(c[key] for c in calls) for key in (
+        "ms", "host_paced_ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+        "flops")}
+    out["launches"] = len(calls)
+    for key in ("max_abs_err", "max_scaled_err", "library_max_scaled_err"):
+        out[key] = max((c[key] for c in calls), default=0.0)
+    out["within_tol"] = all(c["within_tol"] for c in calls)
+    out["bit_identical"] = all(c["bit_identical"] for c in calls)
+    out["bound_by"] = max(((c["bound_ms"], c["bound_by"]) for c in calls),
+                          default=(0, None))[1]
+    return out
+
+
+def gnn_cpu_check(cfg, model, loss_fn, batch, dev) -> dict:
+    """The first step's loss and every gradient on the card against the
+    port's CPU plain path, on the same weights and batch; raises past
+    GNN_TOL.  The card's launches here are a comparison, not the main
+    path; the gradients are cleared after."""
+    from repro_torch.launch.steps import init_for
+
+    cpu_model = init_for("gatedgcn", cfg, 0, "cpu")
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu_loss = loss_fn(cpu_model, batch.to("cpu"))
+    cpu_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    loss = loss_fn(model, batch)
+    loss.backward()
+    errs, worst_rel, ok = {}, 0.0, True
+    cpu_params = dict(cpu_model.named_parameters())
+    for k, p in model.named_parameters():
+        err, good = within(p.grad.cpu(), cpu_params[k].grad, GNN_TOL)
+        errs[k] = err
+        ok &= good
+        p.grad = None
+    loss_err, loss_ok = within(loss.detach().cpu(), cpu_loss.detach(),
+                               GNN_TOL)
+    worst = max(errs, key=errs.get)
+    out = dict(loss_card=loss.item(), loss_cpu=cpu_loss.item(),
+               loss_abs_err=loss_err, grad_max_abs_err=errs[worst],
+               grad_worst_param=worst, tol=GNN_TOL,
+               within_tol=bool(ok and loss_ok), cpu_seconds=cpu_s)
+    log("gnn_cpu_vs_card", run="A", **out)
+    if not out["within_tol"]:
+        raise SystemExit(f"gnn: the card's first step differs from the "
+                         f"CPU's: {out}")
+    return out
+
+
+def gnn_phase(dev, main_path) -> dict:
+    """Phase 7: GatedGCN trained at full width and depth through K4 (see
+    the module's docstring); ``main_path`` is ``main``'s.  Returns the
+    phase's summary and K4's entry of the ``kernels`` line."""
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.kernels.segsum import ops as segops
+    from repro_torch.kernels.segsum.segsum import segment_sum_cuda
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.steps import init_for
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise SystemExit("torch.backends.cuda.matmul.allow_tf32 is on: the "
+                         "float32 matmuls would run in TF32")
+
+    # 7a. K4 against its plain version, each case launched twice
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    sweep_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for e, n, f, dt, ids in K4_CASES:
+        seg = segsum_ids(g, e, n, ids, dev)
+        msgs = torch.randn((e, f), generator=g, device=dev).to(dt)
+        lay = segops.build_layout(seg, n)
+        got = segops.segment_sum(msgs, seg, n, layout=lay)
+        again = segops.segment_sum(msgs, seg, n, layout=lay)
+        err, scaled, ok = k4_within(got, msgs, seg, n, K4_TOL[dt])
+        same = bool(torch.equal(got, again))
+        longest = int((lay.offsets[1:] - lay.offsets[:-1]).max().item())
+        sweep_err[dt] = max(sweep_err[dt], err)
+        log("k4_vs_plain", e=e, n=n, f=f, dtype=str(dt), ids=str(ids),
+            longest_segment=longest, max_abs_err=err,
+            max_scaled_err=scaled, tol=K4_TOL[dt], within_tol=ok,
+            bit_identical=same)
+        if not (ok and same):
+            raise SystemExit(f"K4 at {(e, n, f, dt, ids)}: error {err}, "
+                             f"bit-identical {same}")
+    del seg, msgs, lay, got, again
+    log("k4_sweep", cases=len(K4_CASES), max_abs_err={
+        str(k): v for k, v in sweep_err.items()},
+        seconds=time.perf_counter() - t_phase)
+
+    # 7b. GatedGCN through launch/train.py's own pieces at two sizes
+    mod = arch_module("gatedgcn")
+    cfg = mod.CONFIG
+    out = {"runs": {}, "launches": {}, "k4": {}}
+    for tag, nodes, edges, timed in GNN_RUNS:
+        t_run = time.perf_counter()
+        args = ltrain.parse_args([
+            "--arch", "gatedgcn", "--gnn-nodes", str(nodes), "--gnn-edges",
+            str(edges), "--steps", str(timed + 4), "--device", "cuda"])
+        model = init_for("gatedgcn", cfg, args.seed, dev)
+        loss_fn, stream = ltrain.build_gnn_pieces("gatedgcn", cfg, args)
+        batch = stream.batch
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t_run
+        n = batch.n_nodes
+        real = batch.dst < n
+        deg = torch.bincount(batch.dst[real].long(), minlength=n)
+        data = dict(nodes=n, slots=batch.n_edges,
+                    real_edges=int(real.sum().item()),
+                    isolated_nodes=int((deg == 0).sum().item()),
+                    longest_segment=int(deg.max().item()),
+                    feature_bytes=batch.node_feat.numel() * 4)
+        log("gnn_data", run=tag, setup_seconds=setup_s, **data)
+        if tag == "A":
+            out["cpu_vs_card"] = gnn_cpu_check(cfg, model, loss_fn, batch,
+                                               dev)
+        opt = OptConfig(kind=args.opt, lr=args.lr, warmup=10,
+                        total_steps=args.steps)
+        trainer = Trainer(loss_fn, model, opt, cfg=cfg, log_every=10**9)
+        first = trainer.fit(stream, 1)                        # warm-up
+        rep, _, _, got, mem = main_path(lambda c: trainer.fit(stream, 1))
+        want = 2 * cfg.n_layers
+        if got["segment_sum"] != want or any(
+                v for k, v in got.items() if k != "segment_sum"):
+            raise SystemExit(f"gnn run {tag}: launched {got}; expected "
+                             f"segment_sum alone, {want} times")
+        timed_rep = trainer.fit(stream, timed)
+        steps_ms = [s * 1e3 for s in timed_rep["step_seconds"]]
+        history = first["history"] + rep["history"] + timed_rep["history"]
+        if not (np.isfinite(history).all() and history[-1] < history[0]):
+            raise SystemExit(f"gnn run {tag}: the loss did not fall: "
+                             f"{history}")
+        med = statistics.median(steps_ms)
+        busy_ms, wall_s, top, per = device_busy(
+            lambda: trainer.fit(stream, 1))
+        # every K4 launch of one step, recorded and timed
+        calls, layouts = [], []
+        record_segsum(lambda: trainer.fit(stream, 1),
+                      lambda m, lay, k: (calls.append(time_segsum_call(
+                          m, lay, k)), layouts.append(lay)))
+        lay = layouts[0]
+        longest = int((lay.offsets[1:] - lay.offsets[:-1]).max().item())
+        del layouts
+        # the cost of the skew: one launch's operands grouped by uniform
+        # ids in place of the RMAT destinations (same E, N, valid count)
+        uni = segops.build_layout(torch.where(
+            lay.valid, torch.randint(0, n, lay.seg.shape, generator=g,
+                                     device=dev, dtype=torch.int32),
+            lay.seg), n)
+        msgs0 = torch.randn((batch.n_edges, cfg.d_hidden), generator=g,
+                            device=dev)
+        skew = dict(rmat_ms=device_ms(lambda: segment_sum_cuda(msgs0, lay)),
+                    uniform_ms=device_ms(lambda: segment_sum_cuda(msgs0,
+                                                                  uni)),
+                    longest_segment=longest,
+                    uniform_longest_segment=int(
+                        (uni.offsets[1:] - uni.offsets[:-1]).max().item()))
+        del uni, msgs0, lay
+        if tag == "B":
+            for i, c in enumerate(calls):
+                log("k4_launch", run=tag, launch=i, **c)
+        tot = sum_segsum_calls(calls)
+        out["k4"][tag] = tot
+        line = dict(
+            run=tag, gnn_nodes=nodes, gnn_edges=edges, **data,
+            launches=got, memory=mem, step_ms=steps_ms,
+            median_step_ms=med, steps_per_second=1e3 / med,
+            loss_first=history[0], loss_last=history[-1],
+            steps=len(history), device_busy_ms=busy_ms,
+            profiled_seconds=wall_s, busy_share=busy_ms / 1e3 / wall_s,
+            busy_share_of_median_step=busy_ms / med,
+            k4_device_ms=sum(ms for name, ms in per.items()
+                             if "segsum" in name),
+            top_device_ms=top, k4_step=tot, k4_skew=skew,
+            seconds=time.perf_counter() - t_run)
+        log("gnn_train", **line)
+        if len(calls) != want or not (tot["within_tol"]
+                                      and tot["bit_identical"]):
+            raise SystemExit(f"gnn run {tag}: K4 on the recorded launches: "
+                             f"{len(calls)} calls, {tot}")
+        out["runs"][tag] = line
+        out["launches"][tag] = got["segment_sum"]
+        del model, trainer, stream, batch, loss_fn, calls
+        torch.cuda.empty_cache()
+
+    b = out["k4"]["B"]
+    max_err = max(b["max_abs_err"], out["k4"]["A"]["max_abs_err"],
+                  sweep_err[torch.float32])
+    out["kernel"] = {
+        "name": "segment_sum",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/segsum/csrc/segsum.cu",
+        "replaces": "src/repro/kernels/segsum/segsum.py:125",
+        "replaces_function":
+            "repro.kernels.segsum.segsum.segment_sum_pallas",
+        "launches": out["launches"]["B"],
+        "launches_run_a": out["launches"]["A"],
+        "matches_plain": b["within_tol"] and out["k4"]["A"]["within_tol"],
+        "bit_identical": b["bit_identical"],
+        "max_abs_err": max_err,
+        "max_scaled_err": max(b["max_scaled_err"],
+                              out["k4"]["A"]["max_scaled_err"]),
+        "ms": b["ms"],
+        "host_paced_ms": b["host_paced_ms"],
+        "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": b["library_ms"],
+        "run_a": {k: out["k4"]["A"][k] for k in (
+            "launches", "ms", "host_paced_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err", "max_scaled_err")},
+        "shape": "GatedGCN at full width (F 70, float32): the 32 launches "
+                 "of one training step of run B (169,984 nodes, 168,960 "
+                 "slots), each timed and held against its plain version; "
+                 "run_a: the same for run A (2,708 nodes, 21,112 slots); "
+                 "library: torch.zeros(N, F).index_add_ over the valid "
+                 "edges",
+    }
+    out["sweep_max_abs_err"] = {str(k): v for k, v in sweep_err.items()}
+    out["seconds"] = time.perf_counter() - t_phase
+    log("gnn_summary", **{k: v for k, v in out.items() if k != "runs"})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -991,6 +1390,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.intersect import intersect as kmod
     from repro_torch.kernels.intersect.ref import intersect_levels_ref
+    from repro_torch.kernels.segsum import segsum as k4
 
     dev = torch.device("cuda")
     t_all = time.perf_counter()
@@ -998,7 +1398,7 @@ def main() -> int:
     pv_opts = TCOptions(per_vertex=True)
 
     def reset_launches():
-        for c in (launches, fa.LAUNCHES):
+        for c in (launches, fa.LAUNCHES, k4.LAUNCHES):
             for k in c:
                 c[k] = 0
 
@@ -1015,7 +1415,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res = run(clock)
         dt = time.perf_counter() - t0
-        got = {**launches, **fa.LAUNCHES}
+        got = {**launches, **fa.LAUNCHES, **k4.LAUNCHES}
         mem["max_allocated"] = torch.cuda.max_memory_allocated()
         return res, dt, clock, got, mem
 
@@ -1395,7 +1795,10 @@ def main() -> int:
     # ------------------------------------------------------------- 6. lm
     lm = lm_phase(dev, main_path)
 
-    # ---------------------------------------------------------- 7. summary
+    # ------------------------------------------------------------ 7. gnn
+    gnn = gnn_phase(dev, main_path)
+
+    # ---------------------------------------------------------- 8. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -1408,6 +1811,9 @@ def main() -> int:
             "median_prefill_ms", "median_decode_ms_per_step",
             "decode_tokens_per_second", "memory", "busy_share")}
             for tag, r in lm["requests"].items()},
+        gnn_train={tag: {k: r[k] for k in (
+            "median_step_ms", "steps_per_second", "loss_first", "loss_last",
+            "memory", "busy_share")} for tag, r in gnn["runs"].items()},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     kernels = [{
@@ -1489,7 +1895,7 @@ def main() -> int:
                  f"path's 8 timed applies), each timed and compared on "
                  f"every row; full_width_*: the count's plan run "
                  f"level-free, {n_buckets} buckets, one launch each",
-    }, lm["kernel"]]
+    }, gnn["kernel"], lm["kernel"]]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"))

@@ -1,8 +1,9 @@
 """The architectures the port runs, by ``--arch`` name: the counterpart of
 ``repro.configs.registry``'s ``ARCH_MODULES`` and ``arch_module``.
 
-The port serves the dense LMs.  Every other architecture of the reference
-raises and names the ROADMAP item that brings it.
+The port serves the dense LMs and trains GatedGCN.  Every other
+architecture of the reference raises and names the ROADMAP item that
+brings it.
 """
 from __future__ import annotations
 
@@ -12,16 +13,16 @@ ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "gatedgcn": "repro_torch.configs.gatedgcn",
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
     "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 13 (MoE)",
     "phi3.5-moe-42b-a6.6b": "ROADMAP Queue 1 item 13 (MoE)",
-    "gatedgcn": "ROADMAP Queue 1 item 13 (GNNs, with K4)",
-    "gat-cora": "ROADMAP Queue 1 item 13 (GNNs, with K4)",
-    "dimenet": "ROADMAP Queue 1 item 13 (GNNs, with K4)",
-    "schnet": "ROADMAP Queue 1 item 13 (GNNs, with K4)",
+    "gat-cora": "ROADMAP Queue 1 item 13 (GAT, with segment_softmax)",
+    "dimenet": "ROADMAP Queue 1 item 13 (DimeNet, with edge_vectors)",
+    "schnet": "ROADMAP Queue 1 item 13 (SchNet, with edge_vectors)",
     "bst": "ROADMAP Queue 1 item 13 (recsys BST)",
     "cover-edge-tc": "ROADMAP Queue 1 item 13 (configs; the engine itself "
                      "is repro_torch.api.TriangleEngine)",

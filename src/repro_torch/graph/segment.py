@@ -1,9 +1,10 @@
 """Segment sum with the framework-wide sentinel convention.
 
-Counterpart of ``repro.graph.segment.segment_sum``, the one segment op
-the triangle engine uses (the per-vertex credit scatters).  The other
-segment ops of the reference serve the model zoo and are ported with
-it.
+Counterpart of ``repro.graph.segment.segment_sum`` for the triangle
+engine's integer per-vertex credit scatters.  The GNNs' float
+aggregation goes through ``kernels/segsum/ops.py`` (K4 on the card).
+``segment_max``, ``segment_mean``, ``segment_softmax`` and
+``embedding_bag`` wait for GAT and BST (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 

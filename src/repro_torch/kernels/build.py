@@ -29,6 +29,7 @@ BUILD_DIR = _PKG.parents[2] / "build"
 SOURCES = {
     "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "segsum": _PKG / "segsum" / "csrc" / "segsum.cu",
 }
 
 NVCC_FLAGS = (

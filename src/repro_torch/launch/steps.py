@@ -1,23 +1,52 @@
-"""Step builders of the LM serving path, the counterparts of the LM part
-of ``repro.launch.steps``: ``init_for``, ``lm_prefill_step`` and
-``lm_decode_step``."""
+"""Step builders, the counterparts of ``repro.launch.steps``: the
+training step (``make_train_step``, ``gnn_train_step``), the LM serving
+steps (``lm_prefill_step``, ``lm_decode_step``) and ``init_for``.
+
+A training step is the forward, ``loss.backward()`` and ``opt_update``,
+in place on the model and the optimizer state.  The reference's
+gradient accumulation (``accum``) serves its dry-run compiler, which the
+port does not have; LM training and BST wait for ROADMAP Queue 1 item
+13.
+"""
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch import nn
 
 from repro_torch.configs.registry import arch_module
 from repro_torch.models import transformer as tfm
+from repro_torch.models.gnn import gatedgcn as gatedgcn_m
+from repro_torch.train.optimizer import OptConfig, opt_update
+
+GNN_MODULES = {
+    "gatedgcn": gatedgcn_m,
+}
 
 
-def init_for(arch: str, cfg: tfm.LMConfig, seed: int = 0,
-             device: str | torch.device = "cuda") -> tfm.TransformerLM:
-    """Random weights of ``cfg`` from ``seed``; ``arch`` must be one the
-    port runs (``configs.registry``)."""
-    mod = arch_module(arch)
-    if mod.FAMILY != "lm":
-        raise NotImplementedError(f"--arch {arch}: the port serves LMs only")
-    return tfm.init_params(cfg, seed, device)
+def make_train_step(loss_fn: Callable, opt_cfg: OptConfig):
+    """``loss_fn(model, *batch) -> scalar``.  Returns ``step(model,
+    opt_state, *batch) -> (opt_state, metrics)``: the gradients of the
+    loss, clipped, then one optimizer update of the model's parameters
+    and ``opt_state`` in place; ``metrics`` holds ``loss`` and
+    ``grad_norm`` as 0-d tensors on the model's device (nothing is read
+    back)."""
 
+    def step(model: nn.Module, opt_state, *batch):
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        loss = loss_fn(model, *batch)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        _, opt_state, gn = opt_update(opt_cfg, grads, opt_state, params)
+        return opt_state, {"loss": loss.detach(), "grad_norm": gn}
+
+    return step
+
+
+# ------------------------------------------------------------------- LM
 
 def lm_prefill_step(cfg: tfm.LMConfig, max_len: int):
     def step(model: tfm.TransformerLM, tokens: torch.Tensor):
@@ -30,3 +59,24 @@ def lm_decode_step(cfg: tfm.LMConfig):
              index: int):
         return model.decode_step(cache, token, index)
     return step
+
+
+# ------------------------------------------------------------------- GNN
+
+def gnn_train_step(arch: str, cfg, opt_cfg: OptConfig):
+    return make_train_step(GNN_MODULES[arch].loss_fn, opt_cfg)
+
+
+# ------------------------------------------------------------------- init
+
+def init_for(arch: str, cfg, seed: int = 0,
+             device: str | torch.device = "cuda") -> nn.Module:
+    """Random weights of ``cfg`` from ``seed``; ``arch`` must be one the
+    port runs (``configs.registry``)."""
+    mod = arch_module(arch)
+    if arch in GNN_MODULES:
+        return GNN_MODULES[arch].init_params(cfg, seed, device)
+    if mod.FAMILY != "lm":
+        raise NotImplementedError(f"--arch {arch}: family {mod.FAMILY} is "
+                                  f"not ported")
+    return tfm.init_params(cfg, seed, device)

@@ -1,0 +1,121 @@
+"""End-to-end training entry point, the counterpart of
+``repro.launch.train``.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \\
+      --steps 100 --gnn-nodes 2708 --gnn-edges 10556 --ckpt-dir ckpt
+
+It trains on the card unless ``--device cpu`` is given; without a card
+and without ``--device cpu`` it raises.  Every aggregation of the GNN's
+forward goes through K4 on the card.
+
+Fault tolerance: ``--max-restarts N`` wraps the fit loop — on watchdog
+timeout or crash the loop reloads the latest checkpoint and resumes at
+the stored data cursor.  The port trains the GNN family; LM training and
+the recsys BST wait for ROADMAP Queue 1 item 13 and raise.
+"""
+from __future__ import annotations
+
+import argparse
+
+from repro_torch.configs.registry import arch_module
+from repro_torch.device import resolve_device
+from repro_torch.launch import steps as steps_mod
+from repro_torch.train.optimizer import OptConfig
+from repro_torch.train.trainer import Trainer
+
+
+class FixedStream:
+    """The same batch every step; ``cursor`` counts the batches served."""
+
+    def __init__(self, batch):
+        self.batch = batch
+        self.cursor = 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        self.cursor += 1
+        return (self.batch,)
+
+
+def build_gnn_pieces(arch: str, cfg, args):
+    """``(loss_fn(model, batch), stream)`` for a GNN on ``args.device``:
+    one synthetic graph (``configs.data.gnn_batch``) served every step."""
+    from repro_torch.configs.data import gnn_batch
+
+    batch = gnn_batch(
+        arch, cfg, n_nodes=args.gnn_nodes, n_edges_und=args.gnn_edges,
+        d_feat=getattr(cfg, "d_in", 16), seed=args.seed, device=args.device,
+    )
+    return steps_mod.GNN_MODULES[arch].loss_fn, FixedStream(batch)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--gnn-nodes", type=int, default=512)
+    ap.add_argument("--gnn-edges", type=int, default=2048)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--opt", choices=["adamw", "adafactor"], default="adamw")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--max-restarts", type=int, default=2)
+    ap.add_argument("--watchdog-s", type=float, default=600.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu, the plain path")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict | None:
+    """Train ``--arch`` for ``--steps`` steps; returns the last fit's
+    report (``None`` when a checkpoint already holds every step)."""
+    args = parse_args(argv)
+    args.device = resolve_device(args.device)
+    mod = arch_module(args.arch)
+    if mod.FAMILY != "gnn":
+        raise NotImplementedError(
+            f"--arch {args.arch}: training the {mod.FAMILY} family is not "
+            f"ported yet (ROADMAP Queue 1 item 13); the port trains the "
+            f"GNNs")
+    cfg = mod.SMOKE if args.smoke else mod.CONFIG
+    model = steps_mod.init_for(args.arch, cfg, args.seed, args.device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{args.arch}: {n_params/1e6:.2f}M params "
+          f"({'smoke' if args.smoke else 'full'} config) on {args.device}")
+    loss, stream = build_gnn_pieces(args.arch, cfg, args)
+    opt_cfg = OptConfig(kind=args.opt, lr=args.lr, warmup=10,
+                        total_steps=args.steps)
+
+    attempts = 0
+    while True:
+        trainer = Trainer(
+            loss, model, opt_cfg, ckpt_dir=args.ckpt_dir, cfg=cfg,
+            ckpt_every=args.ckpt_every, watchdog_s=args.watchdog_s,
+        )
+        resumed = trainer.maybe_restore()
+        if resumed:
+            print(f"resumed from step {trainer.step_num} "
+                  f"(cursor {trainer.cursor})")
+        remaining = args.steps - trainer.step_num
+        if remaining <= 0:
+            print("nothing to do")
+            return None
+        try:
+            report = trainer.fit(stream, remaining)
+            print(f"done: {report['steps']} steps, "
+                  f"final loss {report['final_loss']:.4f}, "
+                  f"{report['wall_s']:.1f}s")
+            return report
+        except (TimeoutError, RuntimeError) as e:  # relaunch path
+            attempts += 1
+            print(f"step failure: {e} (attempt {attempts})")
+            if attempts > args.max_restarts or args.ckpt_dir is None:
+                raise
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
 """Weights carried across from the reference.
 
-``repro.models.transformer.init_params`` returns a pytree with stacked
-``[L, ...]`` layer leaves; its leaves as numpy arrays (``jax.tree.map(
-np.asarray, params)``) become the port's :class:`TransformerLM`, one
-``Layer`` per slice.  The KV cache has the same ``[L, B, T, Hkv, D]``
+``repro.models.transformer.init_params`` and
+``repro.models.gnn.gatedgcn.init_params`` return pytrees with stacked
+``[L, ...]`` layer leaves; their leaves as numpy arrays (``jax.tree.map(
+np.asarray, params)``) become the port's :class:`TransformerLM` or
+:class:`GatedGCN`, one layer module per slice.  The KV cache has the same ``[L, B, T, Hkv, D]``
 layout in both packages.  The tests use both to hold the port against the
 reference on the same weights.
 """
@@ -13,6 +14,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn.gatedgcn import (
+    LAYER_LEAVES as _GNN_LEAVES,
+    GatedGCN,
+    GatedGCNConfig,
+)
 from repro_torch.models.transformer import LMConfig, TransformerLM
 
 _LAYER_LEAVES = ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo")
@@ -51,6 +57,29 @@ def lm_params_from_numpy(cfg: LMConfig, tree: dict,
     elif "unembed" in tree:
         raise ValueError(f"{cfg.name} ties its embeddings; the tree has an "
                          f"unembed")
+    return model.to(dev)
+
+
+@torch.no_grad()
+def gatedgcn_params_from_numpy(cfg: GatedGCNConfig, tree: dict,
+                               device: str | torch.device = "cuda"
+                               ) -> GatedGCN:
+    """The reference's GatedGCN parameter tree of ``cfg`` (numpy leaves:
+    ``embed_h``, ``embed_e``, ``readout``, and ``layers`` with stacked
+    ``[L, ...]`` leaves ``A B C U V ln_h_w ln_h_b ln_e_w ln_e_b``) as the
+    port's model on ``device``."""
+    dev = resolve_device(device)
+    model = GatedGCN(cfg)
+    layers = tree["layers"]
+    for name in _GNN_LEAVES:
+        if len(layers[name]) != cfg.n_layers:
+            raise ValueError(f"layers.{name}: {len(layers[name])} layers, "
+                             f"the model has {cfg.n_layers}")
+    for i, lp in enumerate(model.layers):
+        for name in _GNN_LEAVES:
+            _copy(getattr(lp, name), layers[name][i], f"layers.{name}[{i}]")
+    for name in ("embed_h", "embed_e", "readout"):
+        _copy(getattr(model, name), tree[name], name)
     return model.to(dev)
 
 

@@ -1,7 +1,8 @@
 """Building blocks of the port's models, counterparts of
 ``repro.models.layers``: initialisers drawn from an explicit
-``torch.Generator``, RMSNorm with its ``(1 + weight)`` scale, rotary
-embeddings (split halves) and the gated MLP.
+``torch.Generator``, RMSNorm with its ``(1 + weight)`` scale, LayerNorm,
+rotary embeddings (split halves), the gated MLP and the masked softmax
+cross-entropy.
 
 Weights keep the reference's layout, ``[d_in, d_out]`` applied as
 ``x @ w``, so a JAX parameter tree carries across as it is
@@ -37,6 +38,15 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, *,
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + weight)).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, its statistics in float32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------- rope
@@ -85,3 +95,23 @@ def glu_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     else:
         raise ValueError(act)
     return (gate * up) @ params["w_down"]
+
+
+# ---------------------------------------------------------------- losses
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean cross-entropy over the kept rows: logits [..., V] (float32
+    upcast), labels int[...] (-1 = ignore), ``mask`` bool[...] also
+    drops rows; 0 when no row is kept."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    idx = labels.long().clamp(0, logits.shape[-1] - 1)[..., None]
+    nll = lse - torch.gather(logits, -1, idx)[..., 0]
+    keep = labels >= 0
+    if mask is not None:
+        keep = keep & mask
+    nll = torch.where(keep, nll, torch.zeros((), dtype=nll.dtype,
+                                             device=nll.device))
+    return nll.sum() / keep.sum().clamp_min(1)

@@ -234,10 +234,13 @@ class TransformerLM(nn.Module):
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
-               dtype=torch.float32, device="cpu"):
+               dtype=torch.float32, device: str | torch.device = "cuda"):
+    """An empty KV cache ``(k, v)``, each [L, batch, max_len, Hkv, D], on
+    ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+    return (torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
 
 
 @torch.no_grad()

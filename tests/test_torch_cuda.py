@@ -2,7 +2,9 @@
 their plain versions on CUDA tensors, the count, find and per-vertex
 paths at RMAT scale 16 going through them, and stream sessions whose
 delta probes go through K3 (K2 with credit); K5 against its plain
-attention, and the LM server going through it.
+attention, and the LM server going through it; K4 against its plain
+segment sum, bit for bit across launches, and a GatedGCN training step
+going through it.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -31,6 +33,14 @@ from repro_torch.kernels.intersect.ref import (
     intersect_hits_ref,
     intersect_levels_ref,
 )
+from repro_torch.configs import data as tdata
+from repro_torch.configs import gnn as tgnn
+from repro_torch.kernels.segsum import ops as tseg
+from repro_torch.kernels.segsum import segsum as tsegk
+from repro_torch.kernels.segsum.ref import segment_sum_ref
+from repro_torch.launch import steps as tsteps
+from repro_torch.models.gnn import gatedgcn as tgat
+from repro_torch.train import optimizer as topt
 
 pytestmark = pytest.mark.cuda
 
@@ -355,3 +365,74 @@ def test_serve_goes_through_k5_and_matches_the_cpu(cuda_device, cfg):
     assert tflash.LAUNCHES["flash_attention"] - before == 6 * cfg.n_layers
     torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
                                atol=1e-4)
+
+
+def test_init_cache_is_on_the_card(cuda_device):
+    k, v = ttfm.init_cache(tlm.SMOLLM_135M_SMOKE, 2, 16)
+    assert k.device.type == v.device.type == "cuda"
+
+
+# K4: (E, N, F, dtype, id range) — the reference's sweep, GatedGCN's
+# F = 70 at both smoke runs' sizes, bf16, negative and sentinel ids
+SEGSUM_CASES = [
+    (1000, 300, 64, torch.float32, (-1, 300)),
+    (64, 5, 8, torch.float32, (-1, 5)),
+    (4096, 700, 128, torch.float32, (-1, 700)),
+    (513, 129, 32, torch.float32, (-1, 129)),
+    (2048, 64, 256, torch.float32, (-1, 64)),
+    (3000, 100, 300, torch.float32, (-3, 110)),
+    (21112, 2708, 70, torch.float32, (0, 2709)),
+    (168960, 169984, 70, torch.float32, (0, 169985)),
+    (5000, 257, 70, torch.bfloat16, (-1, 258)),
+]
+
+
+@pytest.mark.parametrize("case", SEGSUM_CASES,
+                         ids=lambda c: f"{c[0]}x{c[2]}-{c[3]}".replace(
+                             "torch.", ""))
+def test_segsum_kernel_matches_plain_and_repeats_bit_for_bit(cuda_device,
+                                                             case):
+    e, n, f, dtype, (lo, hi) = case
+    g = torch.Generator(device=cuda_device).manual_seed(e + f)
+    seg = torch.randint(lo, hi, (e,), generator=g, device=cuda_device,
+                        dtype=torch.int32)
+    msgs = torch.randn((e, f), generator=g, device=cuda_device).to(dtype)
+    lay = tseg.build_layout(seg, n)
+    before = tsegk.LAUNCHES["segment_sum"]
+    got = tseg.segment_sum(msgs, seg, n, layout=lay)
+    again = tseg.segment_sum(msgs, seg, n, layout=lay)
+    torch.cuda.synchronize()
+    assert tsegk.LAUNCHES["segment_sum"] == before + 2
+    assert got.dtype == torch.float32 and got.shape == (n, f)
+    assert torch.equal(got, again)
+    want = segment_sum_ref(msgs, seg, n)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_segsum_kernel_reads_strided_rows(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    wide = torch.randn((900, 140), generator=g, device=cuda_device)
+    seg = torch.randint(-1, 60, (900,), generator=g, device=cuda_device)
+    for msgs in (wide[:, ::2], wide[:, 3:73], wide.t()[:70].t()):
+        torch.testing.assert_close(tseg.segment_sum(msgs, seg, 60),
+                                   segment_sum_ref(msgs, seg, 60),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_gatedgcn_train_step_goes_through_k4_and_matches_the_cpu(
+        cuda_device):
+    cfg = tgnn.GATEDGCN_SMOKE
+    batch = tdata.gnn_batch("gatedgcn", cfg, n_nodes=300, n_edges_und=1200,
+                            d_feat=cfg.d_in, device="cpu")
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        model = tgat.init_params(cfg, 0, dev)
+        step = tsteps.gnn_train_step("gatedgcn", cfg, topt.OptConfig())
+        state = topt.opt_init(topt.OptConfig(),
+                              dict(model.named_parameters()))
+        before = tsegk.LAUNCHES["segment_sum"]
+        state, metrics = step(model, state, batch.to(dev))
+        losses[str(dev)] = float(metrics["loss"])
+        launched = tsegk.LAUNCHES["segment_sum"] - before
+        assert launched == (0 if dev == "cpu" else 2 * cfg.n_layers)
+    assert abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + losses["cpu"])

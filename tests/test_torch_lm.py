@@ -316,6 +316,17 @@ def test_serve_refuses_cpu_fallback(monkeypatch):
         ttfm.init_params(tlm.SMOLLM_135M_SMOKE)
 
 
+def test_init_cache_is_on_the_card_unless_asked(monkeypatch):
+    cfg = tlm.SMOLLM_135M_SMOKE
+    k, v = ttfm.init_cache(cfg, 1, 8, device="cpu")
+    want = (cfg.n_layers, 1, 8, cfg.n_kv_heads, cfg.d_head)
+    assert k.shape == v.shape == want and k.device.type == "cpu"
+    assert not k.any() and not v.any()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttfm.init_cache(cfg, 1, 8)
+
+
 # ------------------------------------------------------------ configs
 
 
@@ -333,11 +344,13 @@ def test_configs_equal_the_reference(name, which):
 
 
 def test_registry_lists_the_dense_lms():
-    assert set(ARCH_MODULES) == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
+    lms = {a for a in ARCH_MODULES if arch_module(a).FAMILY == "lm"}
+    assert lms == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
+    assert set(ARCH_MODULES) == lms | {"gatedgcn"}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                                  "gatedgcn", "bst"])
+                                  "gat-cora", "bst"])
 def test_unported_archs_raise_naming_the_queue(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         arch_module(arch)
