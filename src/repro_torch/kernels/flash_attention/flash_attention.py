@@ -13,6 +13,15 @@ strides, so ``[B, H, S, D]`` views of ``[B, S, H, D]`` tensors (the
 transformer's q and KV cache) are taken as they are.  The output is the
 ``[B, Hq, S, D]`` view of a ``[B, S, Hq, D]`` buffer, so the transformer's
 transpose back is free.
+
+A prefill (S > 1) is one launch (float32 on the CUDA cores' FMA, bf16 on
+the tensor cores).  A decode step (S = 1) is two: the live keys are cut into splits
+(:func:`decode_splits`, planned here from ``kv_offset`` and ``window``,
+which are host ints), each split's blocks write float32 parts to
+scratch allocated here, and a second launch merges them in order;
+:func:`~repro_torch.kernels.flash_attention.ref.attention_split_ref` is
+that split-then-combine in plain PyTorch.  Either is one call and one
+count in ``LAUNCHES``.
 """
 from __future__ import annotations
 
@@ -28,9 +37,19 @@ LAUNCHES = {"flash_attention": 0}
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (32, 48, 64, 128, 256)
 
+#: the decode kernel's shape (``Decode`` in ``csrc/flash_attention.cu``):
+#: keys per staged tile by head width, query heads and warps per block
+DECODE_TILE_KEYS = {32: 64, 48: 64, 64: 64, 128: 32, 256: 16}
+DECODE_ROWS = 4
+DECODE_WARPS = 2
+
+#: decode blocks the split planner aims at: two per SM of an H100 (132)
+DECODE_TARGET_BLOCKS = 2 * 132
+
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, *([_L] * 12), *([_I] * 10), ctypes.c_float, _P]
+_ARGTYPES = [_P, _P, _P, _P, *([_L] * 12), *([_I] * 10), ctypes.c_float,
+             _I, _I, _I, _P, _P]
 _FN: list = []
 
 
@@ -82,18 +101,48 @@ def check_kernel_operands(q, k, v) -> None:
                          f"{d}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"K5 takes float32 or bfloat16; got {q.dtype}")
-    if b > 65535 or hkv > 65535 or s * hq >= 2**31 or t >= 2**31:
+    row_tiles = -(-(hq // hkv) // DECODE_ROWS)
+    if (b > 65535 or hkv * row_tiles > 65535 or s * hq >= 2**31
+            or t >= 2**31):
         raise ValueError(f"K5's grid does not cover B={b}, Hkv={hkv}, "
                          f"S*Hq={s * hq}, T={t}")
 
 
+def decode_splits(t_len: int, kv_offset: int, *, causal: bool,
+                  window: int | None, units: int, d: int
+                  ) -> tuple[int, int, int]:
+    """How a decode step's live keys are cut: ``(start, length, count)``,
+    split i covering keys ``[start + i * length, start + (i + 1) *
+    length)`` (clipped to the live range by the kernel).
+
+    The live keys of position ``kv_offset`` are ``[lo, hi)``: from the
+    window's edge to the causal frontier.  ``start`` is ``lo`` rounded
+    down to a tile of ``DECODE_TILE_KEYS[d]`` keys, ``length`` a whole
+    number of tiles, and ``count`` the fewest splits of that length that
+    cover the range while ``units * count`` (``units``: the blocks per
+    split, batch x kv heads x head tiles) reaches
+    ``DECODE_TARGET_BLOCKS`` where the range has enough tiles.  An empty
+    range is one split that writes zeros."""
+    tile = DECODE_TILE_KEYS[d]
+    lo = max(0, kv_offset - window + 1) if window else 0
+    hi = min(t_len, kv_offset + 1) if causal else t_len
+    if hi <= lo:
+        return 0, tile, 1
+    start = lo - lo % tile
+    tiles = -(-(hi - start) // tile)
+    want = max(1, -(-DECODE_TARGET_BLOCKS // max(units, 1)))
+    per = -(-tiles // min(tiles, want))
+    return start, per * tile, -(-tiles // per)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` itself when the kernel can read it through its strides (head
-    dim contiguous, the rest and the base aligned to four elements, as its
-    16-byte loads need); otherwise an aligned contiguous copy."""
+    dim contiguous, the rest and the base aligned to 16 bytes, as its
+    16-byte copies need); otherwise an aligned contiguous copy."""
+    per = 16 // t.element_size()
     ok = (t.stride(3) == 1
-          and all(t.stride(i) % 4 == 0 for i in range(3))
-          and t.data_ptr() % (4 * t.element_size()) == 0)
+          and all(t.stride(i) % per == 0 for i in range(3))
+          and t.data_ptr() % 16 == 0)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
@@ -127,6 +176,13 @@ def flash_attention(
     if b == 0 or s == 0:
         return out
     scale = scale if scale is not None else d ** -0.5
+    split, part = (0, 0, 0), None
+    if s == 1:
+        units = b * hkv * -(-(hq // hkv) // DECODE_ROWS)
+        split = decode_splits(t, int(kv_offset), causal=causal,
+                              window=window, units=units, d=d)
+        part = torch.empty((b * hq, split[2] * DECODE_WARPS, d + 2),
+                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _launcher()(
@@ -135,7 +191,8 @@ def flash_attention(
             *out.stride()[:3], b, hq, hkv, s, t, d,
             int(q.dtype == torch.bfloat16), int(causal),
             0 if window is None else int(window), int(kv_offset),
-            float(scale), stream,
+            float(scale), *split, 0 if part is None else part.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(

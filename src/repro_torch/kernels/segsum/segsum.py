@@ -4,12 +4,24 @@
 :class:`SegsumLayout` groups the edges by segment once per topology, on
 the device the ids live on and with no host round trip (E and N are
 known, so nothing reads a size back): ``perm``, the valid edge ids
-stably sorted by segment, and ``offsets`` int32[N + 1].  It replaces the
-reference's host loop over node blocks and its padded tile tables.
+stably sorted by segment, their segments ``sorted_seg``, ``offsets``
+int32[N + 1], and ``kind``, which says for each segment what K4's second
+pass does (``KIND_INSIDE``: its sum was written by the chunk pass;
+``KIND_EMPTY``: zeros; ``KIND_CROSSING``: the sum of its pieces).  It
+replaces the reference's host loop over node blocks and its padded tile
+tables.
+
+K4 cuts the sorted positions into chunks of ``CHUNK`` edges (a warp
+each), so the work per warp does not depend on the skew; a segment that
+crosses a chunk boundary leaves one float32 piece per chunk in scratch,
+and a second launch adds them in chunk order.
+:func:`~repro_torch.kernels.segsum.ref.segment_sum_chunked_ref` is that
+order in plain PyTorch.
 
 :func:`segment_sum_cuda` launches K4 on the current stream or raises; it
-never falls back.  ``LAUNCHES`` counts its launches (and nothing else),
-so a run can show that its path went through the kernel.
+never falls back.  ``LAUNCHES`` counts its launches (one per call: the
+chunk pass and the fix-up together), and nothing else, so a run can
+show that its path went through the kernel.
 :class:`SegmentSum` is the ``torch.autograd.Function`` around either
 version: its backward is the plain gather ``d msgs[e] = d out[seg[e]]``
 (0 for a dropped id), as autodiff of ``jax.ops.segment_sum`` is a gather
@@ -27,8 +39,14 @@ from repro_torch.kernels.segsum.ref import segment_sum_ref
 LAUNCHES = {"segment_sum": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
+#: edges per chunk of K4's first pass (``kChunk`` in ``csrc/segsum.cu``)
+CHUNK = 32
+
+#: ``SegsumLayout.kind``: what K4's second pass does for a segment
+KIND_INSIDE, KIND_EMPTY, KIND_CROSSING = 0, 1, 2
+
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = [_P, _P, _P, _P, _I, _I, _L, _L, _I, _P]
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _P]
 _FN: list = []
 
 
@@ -52,9 +70,13 @@ class SegsumLayout:
     ``[0, N)``), ``gather`` int64[E] (the id, 0 where dropped: the
     backward's gather index), ``perm`` int32[E] (valid edge ids stably
     sorted by segment, then the dropped ones, which no segment owns),
-    ``offsets`` int32[N + 1] (segment n owns ``perm[offsets[n] :
-    offsets[n + 1]]``; ``offsets[N]`` is the valid count), and
-    ``num_segments``, ``n_edges``."""
+    ``sorted_seg`` int32[E] (the segment of each position of ``perm``,
+    N where dropped), ``offsets`` int32[N + 1] (segment n owns
+    ``perm[offsets[n] : offsets[n + 1]]``; ``offsets[N]`` is the valid
+    count), ``kind`` int8[N] (``KIND_EMPTY`` for a segment without
+    edges, ``KIND_CROSSING`` for one whose positions fall in more than
+    one chunk of ``CHUNK``, else ``KIND_INSIDE``), and ``num_segments``,
+    ``n_edges``, ``n_chunks`` (``ceil(E / CHUNK)``)."""
 
     def __init__(self, seg_ids: torch.Tensor, num_segments: int):
         n = int(num_segments)
@@ -73,9 +95,17 @@ class SegsumLayout:
         self.gather = torch.where(self.valid, seg, 0)
         order = torch.sort(key, stable=True)
         self.perm = order.indices.to(torch.int32)
+        self.sorted_seg = order.values
+        self.n_chunks = -(-e // CHUNK)
         bounds = torch.arange(n + 1, dtype=torch.int32, device=key.device)
         self.offsets = torch.searchsorted(order.values, bounds,
                                           out_int32=True)
+        lo, hi = self.offsets[:-1], self.offsets[1:]
+        crossing = torch.div(lo, CHUNK, rounding_mode="floor") != torch.div(
+            hi - 1, CHUNK, rounding_mode="floor")
+        self.kind = torch.where(
+            lo == hi, KIND_EMPTY,
+            torch.where(crossing, KIND_CROSSING, KIND_INSIDE)).to(torch.int8)
 
 
 def _check(msgs: torch.Tensor, layout: SegsumLayout) -> None:
@@ -93,7 +123,8 @@ def segment_sum_cuda(msgs: torch.Tensor,
                      layout: SegsumLayout) -> torch.Tensor:
     """K4: ``out[n] = sum(msgs[e] for e with seg[e] == n)``, float32
     ``[N, F]``, from CUDA ``msgs`` [E, F] (float32 or bfloat16, any
-    strides) grouped by ``layout``."""
+    strides) grouped by ``layout``: the chunk pass and the fix-up, on
+    float32 scratch ``[n_chunks, 2, F]`` allocated here."""
     _check(msgs, layout)
     if msgs.device.type != "cuda":
         raise ValueError(f"K4 runs on CUDA tensors; got {msgs.device}")
@@ -106,12 +137,15 @@ def segment_sum_cuda(msgs: torch.Tensor,
     out = torch.empty((n, f), dtype=torch.float32, device=msgs.device)
     if n == 0 or f == 0:
         return out
+    scratch = torch.empty((layout.n_chunks, 2, f), dtype=torch.float32,
+                          device=msgs.device)
     with torch.cuda.device(msgs.device):
         stream = torch.cuda.current_stream(msgs.device).cuda_stream
         err = _launcher()(
             msgs.data_ptr(), layout.perm.data_ptr(),
-            layout.offsets.data_ptr(), out.data_ptr(), n, f,
-            msgs.stride(0), msgs.stride(1),
+            layout.sorted_seg.data_ptr(), layout.offsets.data_ptr(),
+            layout.kind.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            layout.n_edges, n, f, msgs.stride(0), msgs.stride(1),
             int(msgs.dtype == torch.bfloat16), stream,
         )
     if err != 0:

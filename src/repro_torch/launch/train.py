@@ -10,7 +10,11 @@ forward goes through K4 on the card.
 
 Fault tolerance: ``--max-restarts N`` wraps the fit loop — on watchdog
 timeout or crash the loop reloads the latest checkpoint and resumes at
-the stored data cursor.  The port trains the GNN family; LM training and
+the stored data cursor.  Each attempt starts from the initial weights
+(a copy kept when the model is built), since a step updates them in
+place: a relaunch before the first checkpoint equals a clean run, as in
+the reference, which rebuilds each ``Trainer`` from its untouched
+``params``.  The port trains the GNN family; LM training and
 the recsys BST wait for ROADMAP Queue 1 item 13 and raise.
 """
 from __future__ import annotations
@@ -83,6 +87,7 @@ def main(argv=None) -> dict | None:
             f"GNNs")
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
     model = steps_mod.init_for(args.arch, cfg, args.seed, args.device)
+    initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.arch}: {n_params/1e6:.2f}M params "
           f"({'smoke' if args.smoke else 'full'} config) on {args.device}")
@@ -92,6 +97,7 @@ def main(argv=None) -> dict | None:
 
     attempts = 0
     while True:
+        model.load_state_dict(initial)  # undo a failed attempt's steps
         trainer = Trainer(
             loss, model, opt_cfg, ckpt_dir=args.ckpt_dir, cfg=cfg,
             ckpt_every=args.ckpt_every, watchdog_s=args.watchdog_s,

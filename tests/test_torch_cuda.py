@@ -2,9 +2,11 @@
 their plain versions on CUDA tensors, the count, find and per-vertex
 paths at RMAT scale 16 going through them, and stream sessions whose
 delta probes go through K3 (K2 with credit); K5 against its plain
-attention, and the LM server going through it; K4 against its plain
-segment sum, bit for bit across launches, and a GatedGCN training step
-going through it.
+attention, and the LM server going through it, its split decode launched
+twice and equal bit for bit; K4 against its plain segment sum, bit for
+bit across launches and against its chunk-then-carry order in plain
+PyTorch (RMAT hubs, a segment over more than 30 chunks), and a GatedGCN
+training step going through it.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -24,7 +26,10 @@ from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import from_edges
 from repro_torch.configs import lm as tlm
 from repro_torch.kernels.flash_attention import flash_attention as tflash
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_ref,
+    attention_split_ref,
+)
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as ttfm
@@ -37,7 +42,10 @@ from repro_torch.configs import data as tdata
 from repro_torch.configs import gnn as tgnn
 from repro_torch.kernels.segsum import ops as tseg
 from repro_torch.kernels.segsum import segsum as tsegk
-from repro_torch.kernels.segsum.ref import segment_sum_ref
+from repro_torch.kernels.segsum.ref import (
+    segment_sum_chunked_ref,
+    segment_sum_ref,
+)
 from repro_torch.launch import steps as tsteps
 from repro_torch.models.gnn import gatedgcn as tgat
 from repro_torch.train import optimizer as topt
@@ -367,6 +375,41 @@ def test_serve_goes_through_k5_and_matches_the_cpu(cuda_device, cfg):
                                atol=1e-4)
 
 
+# K5 decode at the models' shapes: (b, hq, hkv, t, d, window, kv_offset)
+DECODE_CASES = [
+    (8, 9, 3, 2048, 64, None, 2046),    # smollm-135m, the long serve's end
+    (8, 9, 3, 2048, 64, None, 1920),    # its first decode step
+    (2, 4, 1, 2048, 256, 512, 2000),    # gemma3-1b, a local layer
+    (2, 4, 1, 2048, 256, None, 2047),   # gemma3-1b, a global layer
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES,
+                         ids=lambda c: f"t{c[3]}-d{c[4]}-w{c[5]}-at{c[6]}")
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_decode_splits_repeat_bit_for_bit(cuda_device, case, dtype):
+    b, hq, hkv, t, d, window, off = case
+    g = torch.Generator(device=cuda_device).manual_seed(t + d + off)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+               for shape in ((b, hq, 1, d), (b, hkv, t, d), (b, hkv, t, d)))
+    kw = dict(causal=True, window=window, kv_offset=off)
+    splits = tflash.decode_splits(t, off, causal=True, window=window,
+                                  units=b * hkv, d=d)
+    assert splits[2] > 1
+    before = tflash.LAUNCHES["flash_attention"]
+    got = tflash.flash_attention(q, k, v, **kw)
+    again = tflash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert tflash.LAUNCHES["flash_attention"] == before + 2
+    assert torch.equal(got, again)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    for want in (attention_ref(q, k, v, **kw),
+                 attention_split_ref(q, k, v, splits=splits, **kw)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+
+
 def test_init_cache_is_on_the_card(cuda_device):
     k, v = ttfm.init_cache(tlm.SMOLLM_135M_SMOKE, 2, 16)
     assert k.device.type == v.device.type == "cuda"
@@ -407,6 +450,42 @@ def test_segsum_kernel_matches_plain_and_repeats_bit_for_bit(cuda_device,
     assert torch.equal(got, again)
     want = segment_sum_ref(msgs, seg, n)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _k4_scaled_err(got, msgs, seg, n):
+    """K4's error against its plain version summed in float64 (the
+    float32 one adds with atomics in a run-dependent order), over 1 + S."""
+    m = msgs.double()
+    diff = (got.double() - segment_sum_ref(m, seg, n)).abs()
+    return float((diff / (1 + segment_sum_ref(m.abs(), seg, n))).max())
+
+
+@pytest.mark.parametrize("ids", ["rmat", "one-segment"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_segsum_kernel_balances_hubs(cuda_device, ids, dtype):
+    """RMAT destinations (a hub of 2,779 edges) and one segment that owns
+    2,000 edges (63 chunks): within 1e-5 (1 + S) of the plain version, the
+    same bits twice, and the bits of its order in plain PyTorch."""
+    if ids == "rmat":
+        edges, n = gen.rmat(14, 8, seed=0)
+        seg = torch.from_numpy(edges[:, 1].astype(np.int32)).to(cuda_device)
+    else:
+        n = 50
+        seg = torch.full((2000,), 17, dtype=torch.int32, device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    msgs = torch.randn((seg.shape[0], 70), generator=g,
+                       device=cuda_device).to(dtype)
+    lay = tseg.build_layout(seg, n)
+    counts = (lay.offsets[1:] - lay.offsets[:-1]).max().item()
+    assert counts > 30 * tsegk.CHUNK
+    got = tsegk.segment_sum_cuda(msgs, lay)
+    again = tsegk.segment_sum_cuda(msgs, lay)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert torch.equal(got, segment_sum_chunked_ref(msgs, lay))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert _k4_scaled_err(got, msgs, seg, n) <= tol
 
 
 def test_segsum_kernel_reads_strided_rows(cuda_device):

@@ -375,3 +375,57 @@ def test_train_main_refuses_what_is_not_ported(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         ttrain.main(["--arch", arch, "--smoke", "--steps", "1", "--device",
                      "cpu"])
+
+
+def _fail_once(monkeypatch, at_step: int) -> dict:
+    """Make the first step that starts at ``step_num == at_step`` run and
+    then raise, as a crash after the step's in-place update would."""
+    state = {"failed": False}
+    real_init = Trainer.__init__
+
+    def init(self, *a, **kw):
+        real_init(self, *a, **kw)
+        step = self._step
+
+        def flaky(*args):
+            out = step(*args)
+            if not state["failed"] and self.step_num == at_step:
+                state["failed"] = True
+                raise RuntimeError("injected step failure")
+            return out
+
+        self._step = flaky
+
+    monkeypatch.setattr(Trainer, "__init__", init)
+    return state
+
+
+def _final_params(ckpt_dir) -> dict:
+    step = ckpt.latest_step(ckpt_dir)
+    with np.load(pathlib.Path(ckpt_dir) / f"step_{step:08d}.npz") as f:
+        return {k: f[k] for k in f.files if k.startswith("params/")}
+
+
+@pytest.mark.parametrize("at_step", [1, 4], ids=["before-ckpt",
+                                                 "after-ckpt"])
+def test_relaunch_after_a_step_failure_equals_a_clean_run(tmp_path,
+                                                          monkeypatch,
+                                                          at_step):
+    """A step fails once (its update already applied); the relaunch
+    restarts from the initial weights when no checkpoint exists yet
+    (step 1; checkpoints every 3 steps) and resumes from the checkpoint
+    when one does (step 4).  Either way the final weights and loss equal
+    a clean run's, bit for bit."""
+    argv = ["--arch", "gatedgcn", "--smoke", "--steps", "6", "--device",
+            "cpu", "--ckpt-every", "3", "--ckpt-dir"]
+    clean = ttrain.main(argv + [str(tmp_path / "clean")])
+    state = _fail_once(monkeypatch, at_step)
+    again = ttrain.main(argv + [str(tmp_path / "relaunched")])
+    assert state["failed"]
+    assert again["steps"] == clean["steps"] == 6
+    assert again["final_loss"] == clean["final_loss"]
+    want = _final_params(tmp_path / "clean")
+    got = _final_params(tmp_path / "relaunched")
+    assert want.keys() == got.keys() and want
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)

@@ -6,12 +6,19 @@ interpret=True)``) and its ``segment_sum_ref``: the reference kernel
 tests' sweep, the zipf-skewed hub case, bf16 messages and empty
 segments; the port's ``SegsumLayout`` invariants; the autograd backward
 against ``torch.autograd.gradcheck`` in float64 and against ``jax.grad``
-of ``segment_sum_ref``; the backend rule.  Inputs are numpy arrays made
-from a seed.
+of ``segment_sum_ref``; the backend rule.  K4's chunked design: the
+layout's chunk tables (every valid edge in exactly one chunk piece, each
+chunk's first segment, the crossing flags) and
+``segment_sum_chunked_ref``, K4's chunk-then-carry order in plain
+PyTorch, against ``segment_sum_ref`` and the Pallas kernel on RMAT and
+zipf hubs, one segment owning every edge, every id dropped and F = 70.
+Inputs are numpy arrays made from a seed.
 
 Tolerances are the reference kernel tests' own: 1e-5 on the sweep,
 1e-4 on the zipf case (sums of up to ~900 terms in another order) and
-2e-2 for bf16 messages against float32 sums."""
+2e-2 for bf16 messages against float32 sums.  The chunked order is held
+to K4's own gate, 1e-5 * (1 + S) with S the segment's sum of |msgs|
+(float32 sums of ~10^3 terms in another order)."""
 from __future__ import annotations
 
 import jax
@@ -24,7 +31,11 @@ from repro.kernels.segsum import ops as jops
 from repro.kernels.segsum.ref import segment_sum_ref as j_ref
 from repro_torch.kernels.segsum import ops as tops
 from repro_torch.kernels.segsum import segsum as tkern
-from repro_torch.kernels.segsum.ref import segment_sum_ref
+from repro_torch.graph import generators as tgen
+from repro_torch.kernels.segsum.ref import (
+    segment_sum_chunked_ref,
+    segment_sum_ref,
+)
 
 torch.set_num_threads(1)
 
@@ -189,3 +200,134 @@ def test_backend_rule_on_the_cpu():
         tops.segment_sum(msgs, seg, 4, layout=tops.build_layout(seg, 3))
     with pytest.raises(ValueError, match="rows"):
         tops.segment_sum(msgs[:3], None, 3, layout=tops.build_layout(seg, 3))
+
+
+# ------------------------------------------------------ K4's chunked order
+
+def _ids(kind: str, e: int, n: int, rng) -> np.ndarray:
+    if kind == "zipf":
+        return (rng.zipf(1.3, size=e) % n).astype(np.int32)
+    if kind == "rmat":  # the destinations of an RMAT graph: hub segments
+        edges, _ = tgen.rmat(10, 16, seed=0)
+        return edges[:e, 1].astype(np.int32) % n
+    if kind == "one":  # a single segment owns every edge
+        return np.full(e, n // 2, np.int32)
+    if kind == "dropped":
+        return rng.choice(np.array([-1, n, n + 7], np.int32), size=e)
+    return rng.integers(-2, n + 2, size=e).astype(np.int32)
+
+
+def _pieces(lay) -> list[tuple[int, int, int, int]]:
+    """K4's chunk pieces from the layout, in numpy: (chunk, segment, first
+    position, end position) for every run of one valid segment inside one
+    chunk."""
+    seg = lay.sorted_seg.numpy()
+    n = lay.num_segments
+    out = []
+    for c in range(lay.n_chunks):
+        p = c * tkern.CHUNK
+        end = min(p + tkern.CHUNK, len(seg))
+        while p < end and seg[p] < n:
+            q = p
+            while q < end and seg[q] == seg[p]:
+                q += 1
+            out.append((c, int(seg[p]), p, q))
+            p = q
+    return out
+
+
+CHUNK_CASES = [("zipf", 5000, 257, 16), ("rmat", 4000, 1024, 70),
+               ("one", 2500, 9, 70), ("dropped", 300, 40, 70),
+               ("uniform", 1000, 300, 64), ("uniform", 97, 1000, 70),
+               ("uniform", 0, 5, 8)]
+
+
+@pytest.mark.parametrize("kind,e,n,f", CHUNK_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CHUNK_CASES])
+def test_chunk_tables(kind, e, n, f):
+    rng = np.random.default_rng(e + n)
+    seg_np = _ids(kind, e, n, rng)
+    lay = tops.build_layout(torch.from_numpy(seg_np), n)
+    offsets = lay.offsets.numpy()
+    perm = lay.perm.numpy()
+    valid = (seg_np >= 0) & (seg_np < n)
+    assert lay.n_chunks == -(-e // tkern.CHUNK)
+    assert lay.sorted_seg.dtype == torch.int32 and lay.kind.dtype == torch.int8
+    np.testing.assert_array_equal(lay.sorted_seg.numpy(),
+                                  np.where(valid, seg_np, n)[perm])
+    # every valid edge lies in exactly one chunk piece, of its segment
+    pieces = _pieces(lay)
+    covered = np.zeros(e, np.int64)
+    for c, s, a, b in pieces:
+        assert a // tkern.CHUNK == (b - 1) // tkern.CHUNK == c
+        assert (seg_np[perm[a:b]] == s).all()
+        covered[perm[a:b]] += 1
+    np.testing.assert_array_equal(covered, valid.astype(np.int64))
+    # each chunk's first segment is a searchsorted of its start in offsets
+    starts = np.arange(lay.n_chunks) * tkern.CHUNK
+    first = np.searchsorted(offsets, starts, side="right") - 1
+    owned = starts < offsets[-1]
+    np.testing.assert_array_equal(lay.sorted_seg.numpy()[starts][owned],
+                                  first[owned])
+    # the crossing flags: a segment with pieces in more than one chunk
+    chunks_of = np.zeros(n, np.int64)
+    for _, s, _, _ in pieces:
+        chunks_of[s] += 1
+    want = np.where(chunks_of == 0, tkern.KIND_EMPTY,
+                    np.where(chunks_of > 1, tkern.KIND_CROSSING,
+                             tkern.KIND_INSIDE))
+    np.testing.assert_array_equal(lay.kind.numpy(), want)
+    # at most two crossing pieces per chunk: its first and its last run
+    for c in range(lay.n_chunks):
+        runs = [p for p in pieces if p[0] == c]
+        assert all(want[s] != tkern.KIND_CROSSING for _, s, _, _ in
+                   runs[1:-1])
+
+
+def _within_scaled(got, want, msgs, seg, n):
+    scale = 1 + np.asarray(j_ref(jnp.asarray(np.abs(msgs)), jnp.asarray(seg),
+                                 n))
+    err = np.abs(got - want)
+    assert (err <= 1e-5 * scale).all(), float((err / scale).max())
+
+
+@pytest.mark.parametrize("kind,e,n,f", CHUNK_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CHUNK_CASES])
+def test_chunked_order_matches_ref_and_pallas(kind, e, n, f):
+    rng = np.random.default_rng(e * 3 + n)
+    seg = _ids(kind, e, n, rng)
+    msgs = rng.standard_normal((e, f)).astype(np.float32)
+    lay = tops.build_layout(torch.from_numpy(seg), n)
+    got = segment_sum_chunked_ref(torch.from_numpy(msgs), lay).numpy()
+    assert got.dtype == np.float32 and got.shape == (n, f)
+    want = segment_sum_ref(torch.from_numpy(msgs), torch.from_numpy(seg),
+                           n).numpy()
+    _within_scaled(got, want, msgs, seg, n)
+    _within_scaled(got, np.asarray(j_ref(jnp.asarray(msgs), jnp.asarray(seg),
+                                         n)), msgs, seg, n)
+    valid = (seg >= 0) & (seg < n)
+    if valid.any():  # with no valid id the Pallas grid has no tile step
+        _within_scaled(got, _pallas(msgs, seg, n), msgs, seg, n)
+    empty = np.bincount(seg[valid], minlength=n) == 0
+    assert not got[empty].any()
+    if kind == "rmat":  # the hub spans many chunks
+        assert np.bincount(seg[valid]).max() > 8 * tkern.CHUNK
+
+
+def test_chunked_order_is_a_fixed_order():
+    """The same operands give the same bits; a segment inside one chunk
+    is summed in position order, exactly as a float32 loop would."""
+    rng = np.random.default_rng(11)
+    seg = _ids("zipf", 3000, 200, rng)
+    msgs = torch.from_numpy(rng.standard_normal((3000, 70)).astype(
+        np.float32))
+    lay = tops.build_layout(torch.from_numpy(seg), 200)
+    got = segment_sum_chunked_ref(msgs, lay)
+    assert torch.equal(got, segment_sum_chunked_ref(msgs, lay))
+    inside = np.flatnonzero(lay.kind.numpy() == tkern.KIND_INSIDE)
+    perm, offsets = lay.perm.numpy(), lay.offsets.numpy()
+    for s in inside[:20]:
+        acc = np.zeros(70, np.float32)
+        for p in range(offsets[s], offsets[s + 1]):
+            acc = acc + msgs.numpy()[perm[p]]
+        np.testing.assert_array_equal(got[s].numpy(), acc)
