@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                the build of every CUDA source with nvcc (timed);
   2. kernel  — K1, K2 and K3 against their plain PyTorch versions on the
                same CUDA tensors: every row of every bucket of RMAT
-               scale 16 (K3 also against K1's c1 + c2), and a seeded
-               sample of 4,096 rows from each bucket at full size;
+               scale 16 (K1 and K2 also with every live row forced onto
+               the bitmap and onto the row walk; K3 also against K1's
+               c1 + c2), and a seeded sample of 4,096 rows from each
+               bucket at full size;
   3. small   — ``TriangleEngine(device="cuda").count`` on karate and RMAT
                scales 10, 12 and 16, each count asserted; the per-vertex
                credit, the found list and two stream sessions (with and
@@ -29,12 +31,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                unique, closed triangles whose corners are the per-vertex
                credit); one profiled run of each for the device's busy
                share.  Per
-               bucket: each kernel's milliseconds from CUDA events at the
-               main path's launch shapes (K1 one launch per bucket, K2
-               one per chunk of the cell budget; K3 one per bucket of
-               the same plan run level-free, equal to K1's c1 + c2 row
-               for row) beside its bound, and the plain version on the
-               same rows, timed and compared.
+               bucket: each kernel's milliseconds at the main path's
+               launch shapes (K1 one launch per bucket, on the device
+               with the host's enqueue hidden, and one call profiled by
+               kernel name; K2 one per chunk of the cell budget, its
+               device time from one profiled call each and its
+               host-paced time from CUDA events, since it reads its
+               output's size back; each wrapper call whole, its layout
+               included; K3 one per bucket of the same plan run
+               level-free, equal to K1's c1 + c2 row for row) beside its
+               bound (bytes once, one test per candidate cell and, for
+               K1, one level compare per hit) and the binary search's
+               bound, and the plain version on the same rows, timed and
+               compared; K1 and K2 also timed with every live row on the
+               bitmap and on the row walk, each equal to the main path's
+               bits and a second launch too; the path each bucket takes,
+               its items, live rows and distinct targets logged.
   5. stream  — stream sessions on the same graph (``stream_staleness``
                1e9, so the timed path is pure delta maintenance): the
                session's opening count, one warm-up and 8 timed applies
@@ -42,8 +54,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                launch shapes (the launches of 8 further applies,
                recorded, each timed beside its bound and held against
                its plain version on every row); 4 timed applies with
-               per-vertex credit in a second session (K2), one apply of
-               1 % of the edges, and a forced refresh (K1); each checked
+               per-vertex credit in a second session (K2), K2 at its
+               probes' shapes (the launches of 2 further applies, each
+               timed by the rule and by each forced path, the same bits),
+               one apply of 1 % of the edges, and a forced refresh (K1); each checked
                against a fresh count, with updates per second, stage
                split, host syncs, K3's device time and peak memory.
   6. lm      — K5 against its plain version over the reference's sweep
@@ -101,6 +115,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -169,63 +184,63 @@ def device_ms(fn, reps: int = 10, spin: int = 20_000_000) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bucket_bound(flat, levels, ops, d_cand: int, d_targ: int):
-    """K1's least time on the card for one bucket's call, from this
-    run's operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms)``.
-
-    ``bound_ms`` is the larger of (a) the bytes of the call with each
-    input read once and each output written once — the flat adjacency,
-    the level array, five int32 operands and two int32 outputs per row —
-    over HBM's 3.35 TB/s, and (b) its integer operations over the card's
-    int32 rate: per clamped candidate, a compare and a select for each of
-    the ``ceil(log2(l_l + 1))`` binary-search steps, and one equality
-    compare at the end.
-    ``row_bytes_ms`` is the per-row gathered volume, each row's clamped
-    candidates, their levels and its clamped target list, (2 l_s + l_l)
-    int32, plus 8 B out per row, over the same 3.35 TB/s: the bytes a
+def _bound(nbytes: int, nops: int, ls, ll, row_bytes: int) -> dict:
+    """A call's least time on the card: ``bound_ms`` is the larger of
+    ``nbytes`` over HBM's 3.35 TB/s and ``nops`` over the card's int32
+    rate (``bound_by`` says which).  ``search_ops`` is what a binary
+    search of each clamped target needs, a compare and a select for each
+    of its ``ceil(log2(l_l + 1))`` steps and one equality compare per
+    clamped candidate (the earlier yardstick), and
+    ``search_bound_ms`` its bound over the same bytes.
+    ``row_bytes_bound_ms`` is ``row_bytes`` over 3.35 TB/s: what a
     kernel that shares nothing between rows moves."""
+    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
+    s_ops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=nbytes, ops=nops, search_ops=s_ops,
+                search_bound_ms=max(t_bytes,
+                                    s_ops / INT32_OPS_PER_S * 1e3),
+                row_bytes_bound_ms=row_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def bucket_bound(flat, levels, ops, d_cand: int, d_targ: int,
+                 hits: int) -> dict:
+    """K1's least time on the card for one bucket's call, from this
+    run's operands (:func:`_bound`).  Bytes: each input read once and
+    each output written once — the flat adjacency, the level array, five
+    int32 operands and two int32 outputs per row.  Operations: what the
+    inputs need, one membership test per clamped candidate cell and one
+    level compare per hit (``hits``).  Row bytes: each row's clamped
+    candidates, their levels and its clamped target list, (2 l_s + l_l)
+    int32, plus 8 B out per row."""
     s_s, l_s, s_l, l_l, lev_u = ops
-    ls = l_s.clamp(max=d_cand).to(torch.int64)
-    ll = l_l.clamp(max=d_targ).to(torch.int64)
+    ls = l_s.clamp(0, d_cand).to(torch.int64)
+    ll = l_l.clamp(0, d_targ).to(torch.int64)
     q = s_s.shape[0]
     once = (flat.numel() + levels.numel()) * 4 + q * 7 * 4
     rows = int(((2 * ls + ll) * 4).sum().item()) + q * 8
-    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
-    nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
-    t_bytes = once / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
-    row_ms = rows / HBM_BYTES_PER_S * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", once, nops, row_ms
-    return t_ops, "operations", once, nops, row_ms
+    return _bound(once, int(ls.sum().item()) + hits, ls, ll, rows)
 
 
-def hits_bound(flat, ops, d_cand: int, d_targ: int):
+def hits_bound(flat, ops, d_cand: int, d_targ: int) -> dict:
     """K2's least time on the card for one bucket's call, from this run's
-    operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms, cells)``.
-
-    Bytes: the flat adjacency, four int32 operands (s_s, l_s, s_l, l_l)
-    and the int64 offset in per row, and one byte out per clamped
-    candidate, over 3.35 TB/s.
-    Operations: as K1's (:func:`bucket_bound`), a compare and a select
-    per binary-search step and one final compare, per clamped candidate,
-    over the int32 rate.  ``row_bytes_ms`` is the per-row gathered
-    volume, each row's clamped candidates and clamped target list,
-    (l_s + l_l) int32, plus its operands, offset and output bytes."""
+    operands (:func:`_bound`), with its ``cells``.  Bytes: the flat
+    adjacency, four int32 operands (s_s, l_s, s_l, l_l) and the int64
+    offset in per row, and one byte out per clamped candidate.
+    Operations: one membership test per clamped candidate cell.  Row
+    bytes: each row's clamped candidates and clamped target list, (l_s +
+    l_l) int32, plus its operands, offset and output bytes."""
     s_s, l_s, s_l, l_l = ops[:4]
-    ls = l_s.clamp(max=d_cand).to(torch.int64)
-    ll = l_l.clamp(max=d_targ).to(torch.int64)
+    ls = l_s.clamp(0, d_cand).to(torch.int64)
+    ll = l_l.clamp(0, d_targ).to(torch.int64)
     q = s_s.shape[0]
     cells = int(ls.sum().item())
     once = flat.numel() * 4 + q * 4 * 4 + (q + 1) * 8 + cells
     rows = int(((ls + ll) * 4).sum().item()) + q * (4 * 4 + 8) + cells
-    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
-    nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
-    t_bytes = once / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
-    row_ms = rows / HBM_BYTES_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, once, nops, row_ms, cells
+    return dict(_bound(once, cells, ls, ll, rows), cells=cells)
 
 
 def covered_slots(n_slots: int, ranges) -> int:
@@ -242,20 +257,19 @@ def covered_slots(n_slots: int, ranges) -> int:
     return int((d.cumsum(0)[:n_slots] > 0).sum().item())
 
 
-def count_bound(flat, ops, d_cand: int, d_targ: int):
+def count_bound(flat, ops, d_cand: int, d_targ: int) -> dict:
     """K3's least time on the card for one call, from this run's
-    operands: ``(bound_ms, bound_by, bytes, ops, row_bytes_ms)``.
-
-    Bytes: every flat entry that some row's clamped candidate list, or
-    the clamped target list of a row with candidates, covers, read once (the union over the rows: all of the
+    operands (:func:`_bound`).  Bytes: every flat entry that some row's
+    clamped candidate list, or the clamped target list of a row with
+    candidates, covers, read once (the union over the rows: all of the
     adjacency at most, a sliver of it for a stream probe), four int32
-    operands (s_s, l_s, s_l, l_l) in and one int32 count out per row,
-    over 3.35 TB/s.  Operations: K1's (:func:`bucket_bound`).
-    ``row_bytes_ms``: each row's clamped candidates and clamped target
-    list, (l_s + l_l) int32, plus its operands and output."""
+    operands (s_s, l_s, s_l, l_l) in and one int32 count out per row.
+    Operations: one membership test per clamped candidate cell.  Row
+    bytes: each row's clamped candidates and clamped target list, (l_s +
+    l_l) int32, plus its operands and output."""
     s_s, l_s, s_l, l_l = ops[:4]
-    ls = l_s.clamp(max=d_cand)
-    ll = l_l.clamp(max=d_targ)
+    ls = l_s.clamp(0, d_cand)
+    ll = l_l.clamp(0, d_targ)
     q = s_s.shape[0]
     # a row without candidates needs no target list
     lt = torch.where(ls > 0, ll, torch.zeros_like(ll))
@@ -263,13 +277,7 @@ def count_bound(flat, ops, d_cand: int, d_targ: int):
             + q * 5 * 4)
     ls, ll = ls.to(torch.int64), ll.to(torch.int64)
     rows = int(((ls + ll) * 4).sum().item()) + q * 5 * 4
-    steps = torch.ceil(torch.log2(ll.to(torch.float64) + 1))
-    nops = int((ls.to(torch.float64) * (2 * steps + 1)).sum().item())
-    t_bytes = once / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
-    row_ms = rows / HBM_BYTES_PER_S * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, once, nops, row_ms
+    return _bound(once, int(ls.sum().item()), ls, ll, rows)
 
 
 def compare_count(flat, ops, kw, levels=None):
@@ -301,24 +309,62 @@ def compare_count(flat, ops, kw, levels=None):
             start.elapsed_time(stop))
 
 
-def capture_counts(run):
-    """``run()`` with every K3 call of the probe engine recorded:
-    ``(result, [(flat, (s_s, l_s, s_l, l_l), d_cand, d_targ)])`` in
-    launch order.  Each call still launches K3 as it would."""
+def capture_counts(run, name: str = "intersect_count"):
+    """``run()`` with every call of the probe engine's ``name`` (K3, or
+    K2 with ``"intersect_hits"``) recorded: ``(result, [(flat, (s_s,
+    l_s, s_l, l_l), d_cand, d_targ)])`` in launch order.  Each call still
+    launches its kernel as it would."""
     from repro_torch.core import intersect as tint
 
-    real, calls = tint.intersect_count, []
+    real, calls = getattr(tint, name), []
 
     def record(flat, s_s, l_s, s_l, l_l, *, d_cand, d_targ):
         calls.append((flat, (s_s, l_s, s_l, l_l), d_cand, d_targ))
         return real(flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ)
 
-    tint.intersect_count = record
+    setattr(tint, name, record)
     try:
         res = run()
     finally:
-        tint.intersect_count = real
+        setattr(tint, name, real)
     return res, calls
+
+
+def time_hits_calls(calls) -> dict:
+    """K2 on each recorded call (:func:`capture_counts`) by the rule by
+    shape and with every row forced onto each path: host-paced
+    milliseconds from CUDA events (mean of 3 after a warm-up; the call
+    reads its size back) and the device milliseconds of one profiled
+    call; each path's output equal to the rule's.  One log line per
+    launch and the sums over the launches."""
+    from repro_torch.kernels.intersect.intersect import intersect_hits
+
+    paths = ("auto",) + PATHS_TIMED
+    k2 = dict(launches=len(calls), rows=0, cells=0, max_abs_err=0,
+              host_paced_ms=dict.fromkeys(paths, 0.0),
+              device_ms=dict.fromkeys(paths, 0.0))
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        want = intersect_hits(flat, *ops, **kw)
+        host, dev = {}, {}
+        for p in paths:
+            host[p] = cuda_ms(lambda: intersect_hits(flat, *ops, path=p,
+                                                     **kw))
+            dev[p] = profiled_ms(lambda: intersect_hits(flat, *ops, path=p,
+                                                        **kw))[0]
+            got = intersect_hits(flat, *ops, path=p, **kw)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                k2["max_abs_err"] = 1
+            k2["host_paced_ms"][p] += host[p]
+            k2["device_ms"][p] += dev[p]
+        cells = int(want[0][-1].item())
+        k2["rows"] += len(ops[0])
+        k2["cells"] += cells
+        log("stream_k2_launch", launch=i, rows=len(ops[0]), cells=cells,
+            d_cand=d_cand, d_targ=d_targ, host_paced_ms=host, device_ms=dev,
+            **layout_stats(ops, SimpleNamespace(d_cand=d_cand,
+                                                d_targ=d_targ)))
+    return k2
 
 
 def time_count_calls(calls) -> dict:
@@ -328,26 +374,26 @@ def time_count_calls(calls) -> dict:
     launch and the sums over the launches."""
     from repro_torch.kernels.intersect.intersect import intersect_count
 
-    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
-              max_abs_err=0, launches=len(calls), rows=0, hits=0)
+    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, search_bound_ms=0.0,
+              row_bytes_bound_ms=0.0, max_abs_err=0, launches=len(calls),
+              rows=0, hits=0)
     by_bound = []
     for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
         kw = dict(d_cand=d_cand, d_targ=d_targ)
         ms = cuda_ms(lambda: intersect_count(flat, *ops, **kw), reps=10)
         err, _, hits, p_ms = compare_count(flat, ops, kw)
-        bound, by, nbytes, nops, row_ms = count_bound(flat, ops, d_cand,
-                                                      d_targ)
-        for key, v in (("ms", ms), ("plain_ms", p_ms), ("bound_ms", bound),
-                       ("row_bytes_bound_ms", row_ms), ("hits", hits),
-                       ("rows", len(ops[0]))):
+        bd = count_bound(flat, ops, d_cand, d_targ)
+        for key, v in (("ms", ms), ("plain_ms", p_ms),
+                       ("bound_ms", bd["bound_ms"]),
+                       ("search_bound_ms", bd["search_bound_ms"]),
+                       ("row_bytes_bound_ms", bd["row_bytes_bound_ms"]),
+                       ("hits", hits), ("rows", len(ops[0]))):
             k3[key] += v
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
-        by_bound.append((bound, by))
+        by_bound.append((bd["bound_ms"], bd["bound_by"]))
         log("stream_k3_launch", launch=i, rows=len(ops[0]), d_cand=d_cand,
             d_targ=d_targ, flat_slots=flat.numel(), hits=hits,
-            kernel_ms=ms, bound_ms=bound, bound_by=by, bytes=nbytes,
-            ops=nops, row_bytes_bound_ms=row_ms, plain_ms=p_ms,
-            max_abs_err_all_rows=err)
+            kernel_ms=ms, plain_ms=p_ms, max_abs_err_all_rows=err, **bd)
     k3["bound_by"] = max(by_bound)[1] if by_bound else None
     return k3
 
@@ -382,11 +428,11 @@ def host_syncs(run) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def compare_hits(flat, ops, b, rows=None):
+def compare_hits(flat, ops, b, rows=None, path="auto"):
     """``(max |kernel - plain|, hits, kernel_ms, plain_ms)`` of K2's
     ragged mask (offsets and bytes) over ``rows`` (all if None), both
-    timed once with CUDA events; these launches are comparisons, not the
-    main path."""
+    timed once with CUDA events, the kernel by ``path``; these launches
+    are comparisons, not the main path."""
     from repro_torch.kernels.intersect.intersect import intersect_hits
     from repro_torch.kernels.intersect.ref import intersect_hits_ref
 
@@ -394,7 +440,7 @@ def compare_hits(flat, ops, b, rows=None):
     kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     ev[0].record()
-    ko, kh = intersect_hits(flat, *ops, **kw)
+    ko, kh = intersect_hits(flat, *ops, path=path, **kw)
     ev[1].record()
     ev[2].record()
     ro, rh = intersect_hits_ref(flat, *ops, **kw)
@@ -473,11 +519,39 @@ def bucket_operands(g, levels, plan):
     return adj.flat, out
 
 
-def compare(flat, levels, ops, b, rows=None):
+#: K1's and K2's forced paths, timed beside the rule by shape ("auto")
+PATHS_TIMED = ("bitmap", "walk")
+
+
+def layout_stats(ops, b) -> dict:
+    """How K1 and K2 serve one bucket (the rule by shape): the path, the
+    live rows and their distinct targets, and the bitmap's item count."""
+    from repro_torch.kernels.intersect.intersect import item_layout
+
+    s_s, l_s, s_l, l_l = ops[:4]
+    live = l_s.clamp(0, b.d_cand) > 0
+    target = (s_l.to(torch.int64) << 32) | l_l.clamp(0, b.d_targ)
+    lay = item_layout(*ops[:4], d_cand=b.d_cand, d_targ=b.d_targ)
+    return dict(path="walk" if lay is None else "bitmap",
+                items=0 if lay is None else int(lay.n_items[0]),
+                live_rows=int(live.sum()),
+                targets=int(torch.unique(target[live]).numel()))
+
+
+def profiled_ms(fn) -> tuple:
+    """One ``fn()`` under ``torch.profiler`` (:func:`device_busy`):
+    ``(device_ms, by_name)``, the summed device time of every kernel,
+    copy and fill it ran, and each name's share (the four largest)."""
+    busy, _, _, per = device_busy(fn)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    return busy, {name[:48]: ms for name, ms in top}
+
+
+def compare(flat, levels, ops, b, rows=None, path="auto"):
     """``(max |kernel - plain|, c1, c2, plain_ms)`` over the per-row
-    c1/c2 of ``rows`` (all if None), the plain version timed with CUDA
-    events; the kernel's launches here are comparisons, not the main
-    path."""
+    c1/c2 of ``rows`` (all if None), the kernel by ``path``, the plain
+    version timed with CUDA events; the kernel's launches here are
+    comparisons, not the main path."""
     from repro_torch.kernels.intersect.intersect import intersect_levels
     from repro_torch.kernels.intersect.ref import intersect_levels_ref
 
@@ -485,7 +559,8 @@ def compare(flat, levels, ops, b, rows=None):
         ops = tuple(x[rows] for x in ops)
     s_s, l_s, s_l, l_l, lev_u = ops
     kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
-    k1, k2 = intersect_levels(flat, s_s, l_s, s_l, l_l, levels, lev_u, **kw)
+    k1, k2 = intersect_levels(flat, s_s, l_s, s_l, l_l, levels, lev_u,
+                              path=path, **kw)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -625,8 +700,18 @@ def stream_phase(eng, edges, n, main_path):
     runs, _, _, got, mem = main_path(
         lambda c: timed_applies(sess_pv, "per_vertex", 4, STREAM_BATCH))
     only(got, "intersect_hits", "per-vertex applies")
+    # K2 at these applies' own launch shapes, by path: two further
+    # applies' probes, recorded as they launch
+    _, calls = capture_counts(
+        lambda: timed_applies(sess_pv, "k2_capture", 2, STREAM_BATCH),
+        "intersect_hits")
+    k2 = time_hits_calls(calls)
+    del calls
+    log("stream_k2", **k2)
+    if not k2["launches"] or k2["max_abs_err"]:
+        raise SystemExit(f"stream: K2 at the probes' shapes: {k2}")
     out["per_vertex"] = dict(
-        launches=got, memory=mem,
+        launches=got, memory=mem, k2=k2,
         median_updates_per_second=statistics.median(
             r["updates_per_second"] for r in runs))
     check_fresh(sess_pv, "per_vertex", per_vertex=True)
@@ -1577,13 +1662,18 @@ def main() -> int:
         err_h, hits, _, _ = compare_hits(flat, ops, b)
         err_c, err_c12, hits_c, _ = compare_count(
             flat, ops, dict(d_cand=b.d_cand, d_targ=b.d_targ), res16.levels)
-        max_err = max(max_err, err)
-        max_err_hits = max(max_err_hits, err_h)
+        # K1 and K2 with every live row on the bitmap, and on the walk
+        err_p = max(max(compare(flat, res16.levels, ops, b, path=p)[0],
+                        compare_hits(flat, ops, b, path=p)[0])
+                    for p in ("bitmap", "walk"))
+        max_err = max(max_err, err, err_p)
+        max_err_hits = max(max_err_hits, err_h, err_p)
         max_err_count = max(max_err_count, err_c, err_c12)
         log("kernel_vs_plain", graph="rmat16", rows=b.rows, d_cand=b.d_cand,
             d_targ=b.d_targ, max_abs_err=err, c1=s1, c2=s2,
             hits_max_abs_err=err_h, hits=hits, count_max_abs_err=err_c,
-            count_vs_c1_c2_max_abs_err=err_c12, count_hits=hits_c)
+            count_vs_c1_c2_max_abs_err=err_c12, count_hits=hits_c,
+            forced_paths_max_abs_err=err_p, **layout_stats(ops, b))
         if hits != s1 + s2 or hits_c != s1 + s2:
             raise SystemExit(f"rmat16: K2 found {hits} hits, K3 {hits_c}, "
                              f"K1 {s1 + s2}")
@@ -1783,73 +1873,116 @@ def main() -> int:
         peak_rows=plan.peak_rows)
     flat, buckets = bucket_operands(g, levels, plan)
     rng = np.random.default_rng(0)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0)
-    tot_h = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0,
+    sums = ("ms", "plain_ms", "bound_ms", "search_bound_ms",
+            "row_bytes_bound_ms")
+    tot = dict.fromkeys(sums, 0.0)
+    tot_h = dict(dict.fromkeys(sums, 0.0), host_paced_ms=0.0,
                  sample_ms=0.0, sample_plain_ms=0.0, sample_rows=0,
                  launches=0)
-    tot_c = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, row_bytes_bound_ms=0.0)
+    tot_c = dict.fromkeys(sums, 0.0)
+    # K1 and K2 with every live row on one path: the same launches,
+    # timed beside the rule by shape
+    tot_p = {k: dict.fromkeys(PATHS_TIMED, 0.0) for k in ("k1", "k2")}
     bound_by, bound_by_h, bound_by_c = [], [], []
     top_sample = None
     for b, ops in buckets:
         kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
         call = (flat, *ops[:4], levels, ops[4])
-        ms = cuda_ms(lambda: kmod.intersect_levels(*call, **kw))
-        bound, by, nbytes, nops, row_ms = bucket_bound(flat, levels, ops,
-                                                       b.d_cand, b.d_targ)
+        # K1: the whole wrapper call (layout included) on the device,
+        # the host's enqueue hidden; one call profiled by kernel name
+        ms = device_ms(lambda: kmod.intersect_levels(*call, **kw))
+        _, k1_by_name = profiled_ms(lambda: kmod.intersect_levels(*call,
+                                                                  **kw))
+        ref1 = kmod.intersect_levels(*call, **kw)
+        path_ms, path_err = {}, max(  # a second launch: same bits
+            int((x - y).abs().max().item()) if len(x) else 0
+            for x, y in zip(kmod.intersect_levels(*call, **kw), ref1))
+        for p in PATHS_TIMED:
+            path_ms[p] = device_ms(
+                lambda: kmod.intersect_levels(*call, path=p, **kw))
+            got = kmod.intersect_levels(*call, path=p, **kw)
+            path_err = max(path_err, *(
+                int((x - y).abs().max().item()) if len(x) else 0
+                for x, y in zip(got, ref1)))
+            tot_p["k1"][p] += path_ms[p]
         err_full, s1, s2, plain_ms = compare(flat, levels, ops, b)
         rows = torch.from_numpy(np.sort(rng.choice(
             b.count, size=min(SAMPLE_ROWS, b.count), replace=False))).to(dev)
         err_sample = compare(flat, levels, ops, b, rows)[0]
-        max_err = max(max_err, err_full, err_sample)
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += bound
-        tot["row_bytes_bound_ms"] += row_ms
-        bound_by.append((bound, by))
+        max_err = max(max_err, err_full, err_sample, path_err)
+        bd = bucket_bound(flat, levels, ops, b.d_cand, b.d_targ, s1 + s2)
+        for key, v in (("ms", ms), ("plain_ms", plain_ms)):
+            tot[key] += v
+        for key in sums[2:]:
+            tot[key] += bd[key]
+        bound_by.append((bd["bound_ms"], bd["bound_by"]))
+        stats = layout_stats(ops, b)
         log("bucket", kernel="intersect_levels", graph=f"rmat{scale}",
             start=b.start, count=b.count, rows=b.rows, d_cand=b.d_cand,
-            d_targ=b.d_targ, kernel_ms=ms, bound_ms=bound, bound_by=by,
-            bytes=nbytes, ops=nops, row_bytes_bound_ms=row_ms,
-            plain_ms=plain_ms,
+            d_targ=b.d_targ, kernel_ms=ms, device_ms_by_name=k1_by_name,
+            path_ms=path_ms, plain_ms=plain_ms,
             max_abs_err_all_rows=err_full, max_abs_err_sample=err_sample,
-            c1=s1, c2=s2)
+            paths_and_repeat_max_abs_err=path_err, c1=s1, c2=s2, **bd,
+            **stats)
         top_sample = (b, tuple(x[rows] for x in ops))
 
         # K2 at the main path's own launch shapes: one call of the
-        # wrapper per chunk of the cell budget (its offsets cumsum and
-        # one sync included), each timed and held against the plain
-        # version on the same rows; the times summed over the chunks
-        ms_h = p_ms_h = 0.0
+        # wrapper per chunk of the cell budget (its offsets cumsum, its
+        # layout and the size's read-back included), each timed, held
+        # against the plain version on the same rows and launched again
+        # by each path (the same bits); the times summed over the
+        # chunks.  The read-back inside the call paces it by the host:
+        # its device time (ms) is one profiled call's summed kernels,
+        # copies and fills, its host-paced time the CUDA events around
+        # the call
+        ms_h = host_h = p_ms_h = 0.0
         n_hits = err_all = 0
+        paths_h = dict.fromkeys(PATHS_TIMED, 0.0)
+        k2_by_name: dict = {}
         chunks = cell_chunks(ops[1], d_cand=b.d_cand)
         for r0, r1 in chunks:
             cops = tuple(x[r0:r1] for x in ops[:4])
-            ms_h += cuda_ms(lambda: kmod.intersect_hits(flat, *cops, **kw))
+            host_h += cuda_ms(lambda: kmod.intersect_hits(flat, *cops, **kw))
+            dev_c, by_name = profiled_ms(
+                lambda: kmod.intersect_hits(flat, *cops, **kw))
+            ms_h += dev_c
+            for name, v in by_name.items():
+                k2_by_name[name] = k2_by_name.get(name, 0.0) + v
             err_c, hits_c, _, p_c = compare_hits(flat, cops, b)
+            ko, kh = kmod.intersect_hits(flat, *cops, **kw)
+            for p in PATHS_TIMED:
+                paths_h[p] += cuda_ms(
+                    lambda: kmod.intersect_hits(flat, *cops, path=p, **kw))
+                po, ph = kmod.intersect_hits(flat, *cops, path=p, **kw)
+                if not (torch.equal(po, ko) and torch.equal(ph, kh)):
+                    err_c = max(err_c, 1)
+            del ko, kh, po, ph
             err_all = max(err_all, err_c)
             n_hits += hits_c
             p_ms_h += p_c
-        bound_h, by_h, nbytes_h, nops_h, row_ms_h, cells = hits_bound(
-            flat, ops, b.d_cand, b.d_targ)
+        for p in PATHS_TIMED:
+            tot_p["k2"][p] += paths_h[p]
+        bd_h = hits_bound(flat, ops, b.d_cand, b.d_targ)
         err_h, _, k_ms, p_ms = compare_hits(flat, ops, b, rows)
         max_err_hits = max(max_err_hits, err_all, err_h)
-        for key, v in (("ms", ms_h), ("plain_ms", p_ms_h),
-                       ("bound_ms", bound_h),
-                       ("row_bytes_bound_ms", row_ms_h),
+        for key, v in (("ms", ms_h), ("host_paced_ms", host_h),
+                       ("plain_ms", p_ms_h),
                        ("sample_ms", k_ms), ("sample_plain_ms", p_ms),
                        ("sample_rows", len(rows)),
                        ("launches", len(chunks))):
             tot_h[key] += v
-        bound_by_h.append((bound_h, by_h))
+        for key in sums[2:]:
+            tot_h[key] += bd_h[key]
+        bound_by_h.append((bd_h["bound_ms"], bd_h["bound_by"]))
         log("bucket", kernel="intersect_hits", graph=f"rmat{scale}",
             count=b.count, rows=b.rows, d_cand=b.d_cand, d_targ=b.d_targ,
-            cells=cells, hits=n_hits, main_path_launches=len(chunks),
-            kernel_ms=ms_h, bound_ms=bound_h, bound_by=by_h,
-            bytes=nbytes_h, ops=nops_h, row_bytes_bound_ms=row_ms_h,
-            plain_ms=p_ms_h, max_abs_err_all_rows=err_all,
+            hits=n_hits, main_path_launches=len(chunks), kernel_ms=ms_h,
+            host_paced_ms=host_h, device_ms_by_name=k2_by_name,
+            host_paced_path_ms=paths_h, plain_ms=p_ms_h,
+            max_abs_err_all_rows_paths_and_repeat=err_all,
             sample_rows=len(rows), sample_kernel_ms=k_ms,
             sample_plain_ms=p_ms, max_abs_err_sample=err_h,
-            library_ms=None)
+            library_ms=None, **bd_h, **stats)
         if n_hits != s1 + s2:
             raise SystemExit(f"rmat{scale}: K2 found {n_hits} hits in a "
                              f"bucket, K1 {s1 + s2}")
@@ -1860,19 +1993,17 @@ def main() -> int:
         ms_c = cuda_ms(lambda: kmod.intersect_count(flat, *ops[:4], **kw))
         err_c, err_c12, hits_c, p_ms_c = compare_count(flat, ops, kw, levels)
         max_err_count = max(max_err_count, err_c, err_c12)
-        bound_c, by_c, nbytes_c, nops_c, row_ms_c = count_bound(
-            flat, ops, b.d_cand, b.d_targ)
-        for key, v in (("ms", ms_c), ("plain_ms", p_ms_c),
-                       ("bound_ms", bound_c),
-                       ("row_bytes_bound_ms", row_ms_c)):
+        bd_c = count_bound(flat, ops, b.d_cand, b.d_targ)
+        for key, v in (("ms", ms_c), ("plain_ms", p_ms_c)):
             tot_c[key] += v
-        bound_by_c.append((bound_c, by_c))
+        for key in sums[2:]:
+            tot_c[key] += bd_c[key]
+        bound_by_c.append((bd_c["bound_ms"], bd_c["bound_by"]))
         log("bucket", kernel="intersect_count", graph=f"rmat{scale}",
             count=b.count, rows=b.rows, d_cand=b.d_cand, d_targ=b.d_targ,
-            hits=hits_c, kernel_ms=ms_c, bound_ms=bound_c, bound_by=by_c,
-            bytes=nbytes_c, ops=nops_c, row_bytes_bound_ms=row_ms_c,
-            plain_ms=p_ms_c, max_abs_err_all_rows=err_c,
-            max_abs_err_vs_c1_c2=err_c12, library_ms=None)
+            hits=hits_c, kernel_ms=ms_c, plain_ms=p_ms_c,
+            max_abs_err_all_rows=err_c, max_abs_err_vs_c1_c2=err_c12,
+            library_ms=None, **bd_c)
         if hits_c != s1 + s2:
             raise SystemExit(f"rmat{scale}: K3 found {hits_c} hits in a "
                              f"bucket, K1 {s1 + s2}")
@@ -1937,8 +2068,10 @@ def main() -> int:
         "sample_plain_ms": s_plain,
         "bound_ms": tot["bound_ms"],
         "bound_by": max(bound_by)[1],
+        "search_bound_ms": tot["search_bound_ms"],
         "row_bytes_bound_ms": tot["row_bytes_bound_ms"],
         "library_ms": None,
+        "path_ms": tot_p["k1"],
         "shape": f"rmat{scale} plan, {n_buckets} buckets",
     }, {
         "name": "intersect_hits",
@@ -1960,8 +2093,11 @@ def main() -> int:
         "sample_plain_ms": tot_h["sample_plain_ms"],
         "bound_ms": tot_h["bound_ms"],
         "bound_by": max(bound_by_h)[1],
+        "search_bound_ms": tot_h["search_bound_ms"],
         "row_bytes_bound_ms": tot_h["row_bytes_bound_ms"],
         "library_ms": None,
+        "host_paced_ms": tot_h["host_paced_ms"],
+        "host_paced_path_ms": tot_p["k2"],
         "shape": f"rmat{scale} plan, {n_buckets} buckets, "
                  f"{tot_h['launches']} launches at the main path's chunk "
                  f"shapes",
@@ -1981,6 +2117,7 @@ def main() -> int:
         "plain_ms": stream["k3"]["plain_ms"],
         "bound_ms": stream["k3"]["bound_ms"],
         "bound_by": stream["k3"]["bound_by"],
+        "search_bound_ms": stream["k3"]["search_bound_ms"],
         "row_bytes_bound_ms": stream["k3"]["row_bytes_bound_ms"],
         "library_ms": None,
         "timed_launches": stream["k3"]["launches"],
@@ -1990,6 +2127,7 @@ def main() -> int:
         "full_width_ms": tot_c["ms"],
         "full_width_plain_ms": tot_c["plain_ms"],
         "full_width_bound_ms": tot_c["bound_ms"],
+        "full_width_search_bound_ms": tot_c["search_bound_ms"],
         "full_width_bound_by": max(bound_by_c)[1],
         "full_width_row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
         "full_width_max_abs_err": max_err_count,

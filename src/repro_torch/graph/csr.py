@@ -196,6 +196,21 @@ def gather_rows(
     return torch.where(ok, flat[idx], pad_t)
 
 
+def gather_neighbors(g: Graph, v: torch.Tensor, *, width: int,
+                     pad: int) -> torch.Tensor:
+    """Dense ``int32[len(v), width]`` adjacency rows for vertices ``v``.
+
+    Rows of sentinel vertices (``v == n``) and slots past each vertex's
+    degree are filled with ``pad``; neighbour order is CSR order, i.e.
+    sorted ascending (``kernels/intersect/ops.py``'s front end)."""
+    n = g.n_nodes
+    deg_ext = torch.cat([g.deg, torch.zeros(1, dtype=torch.int32,
+                                            device=g.deg.device)])
+    vc = v.clamp(0, n)
+    lens = torch.where(v < n, deg_ext[vc], 0)
+    return gather_rows(g.dst, g.row_offsets[vc], lens, width=width, pad=pad)
+
+
 def bounded_binary_search(
     sorted_arr: torch.Tensor,
     starts: torch.Tensor,

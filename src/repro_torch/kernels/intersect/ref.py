@@ -213,3 +213,80 @@ def intersect_count_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
         flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
         d_cand=d_cand, num_steps=search_steps(d_targ),
     )
+
+
+# ---------------------------------------------- K1 and K2's item walk
+
+
+def probe_items_ref(flat, s_s, l_s, s_l, l_l, layout, *, d_cand: int,
+                    d_targ: int, level=None, lev_u=None,
+                    bitmap_words: int | None = None):
+    """K1's and K2's work as the kernels do it, in plain PyTorch:
+    ``(offsets, hits, c1, c2)``, the ragged mask of
+    :func:`intersect_hits_ref` and, given ``level`` and ``lev_u``, the
+    per-row counts of :func:`intersect_levels_ref` (else None).
+
+    ``layout`` is the call's
+    :class:`~repro_torch.kernels.intersect.intersect.ItemLayout`, or None
+    where every row walks (the binary search of :func:`_found_chunks`).
+    Each item's target is set into a bitmap of ``bitmap_words`` 32-bit
+    words (default ``BITMAP_WORDS``) over its span ``[targ[0],
+    targ[-1]]``, in windows where the span is wider; every cell is looked
+    up in the window that holds its id (below the first: the first;
+    above the last: the last), and a hit's level split reads
+    ``level[cand]``."""
+    from repro_torch.kernels.intersect.intersect import BITMAP_WORDS
+
+    win = 32 * (BITMAP_WORDS if bitmap_words is None else int(bitmap_words))
+    dev = s_s.device
+    q = s_s.shape[0]
+    offsets = hit_offsets(l_s, d_cand=d_cand)
+    if layout is None:
+        ops = (s_s, l_s, s_l, l_l.clamp(max=d_targ))
+        steps = search_steps(d_targ)
+        hits = probe_hits(flat, *ops, d_cand=d_cand, num_steps=steps)[1]
+        if level is None:
+            return offsets, hits, None, None
+        return (offsets, hits, *split_counts(flat, *ops, level, lev_u,
+                                             d_cand=d_cand, num_steps=steps))
+    hits = torch.zeros(int(offsets[-1]), dtype=torch.bool, device=dev)
+    c1 = c2 = None
+    if level is not None:
+        c1 = torch.zeros(q, dtype=torch.int32, device=dev)
+        c2 = torch.zeros(q, dtype=torch.int32, device=dev)
+        lev_ext = torch.cat([
+            level, torch.full((1,), -7, dtype=torch.int32, device=dev)
+        ])
+    perm = layout.perm.long()
+    starts = layout.item_start.long()
+    for i in range(int(layout.n_items[0])):
+        rows = perm[int(starts[i]):int(starts[i + 1])]
+        r0 = int(rows[0])
+        ll = max(0, min(int(l_l[r0]), d_targ))
+        targ = flat[int(s_l[r0]):int(s_l[r0]) + ll].long()
+        t_lo, t_hi = (int(targ[0]), int(targ[-1])) if ll else (0, -1)
+        span = t_hi - t_lo + 1
+        n_win = -(-span // win) if span > win else 1
+        ls = l_s[rows].clamp(0, d_cand)
+        cand = gather_rows(flat, s_s[rows], ls, width=int(ls.max()),
+                           pad=CAND_PAD).long()
+        valid = torch.arange(cand.shape[1], device=dev)[None, :] < ls[:, None]
+        found = torch.zeros_like(valid)
+        for w in range(n_win):
+            lo = t_lo + w * win
+            hi = min(lo + win, t_hi + 1)
+            bm = torch.zeros(win + 1, dtype=torch.bool, device=dev)
+            bm[targ[(targ >= 0) & (targ >= lo) & (targ < hi)] - lo] = True
+            own = (valid & ((w == 0) | (cand >= lo))
+                   & ((w == n_win - 1) | (cand < hi)))
+            inside = own & (cand >= 0) & (cand >= lo) & (cand < hi)
+            found |= inside & bm[torch.where(inside, cand - lo, win)]
+        at = offsets[rows][:, None] + torch.arange(cand.shape[1], device=dev)
+        hits[at[valid]] = found[valid]
+        if level is not None:
+            n = level.shape[0]
+            lc = lev_ext[torch.where((cand >= 0) & (cand < n), cand, n)]
+            same = lc == lev_u[rows, None]
+            c1[rows] = (found & ~same).sum(dim=1, dtype=torch.int32)
+            c2[rows] = (found & same).sum(dim=1, dtype=torch.int32)
+    return offsets, hits, c1, c2

@@ -1,6 +1,10 @@
 """Tests that need the card: the Hopper kernels K1, K2 and K3 against
-their plain versions on CUDA tensors, the count, find and per-vertex
-paths at RMAT scale 16 going through them, and stream sessions whose
+their plain versions on CUDA tensors (K1 and K2 by each path: the
+bitmap items, the row walk and the rule by shape; a hub target cut into
+many items, targets past 65,536 entries, a span wider than the bitmap,
+two ``lev_u`` on one target, empty and all-sentinel launches, each
+repeated bit for bit), the count, find and per-vertex paths at RMAT
+scale 16 going through them, ``ops.horizontal_edge_counts``, and stream sessions whose
 delta probes go through K3 (K2 with credit); K5 against its plain
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
@@ -250,6 +254,139 @@ def test_count_kernel_matches_plain_and_k1_on_every_bucket_of_rmat16(
         c1, c2 = tkern.intersect_levels(adj.flat, *ops[:4], res.levels,
                                         ops[4], **kw)
         assert torch.equal(k, c1 + c2)
+
+
+def _bitmap_operands(rng, *, q, n_lists, cand_len, targ_len, id_hi,
+                     hub_rows=0, n_level=None):
+    """Sorted unique lists over ids ``[0, id_hi)`` as the kernels'
+    operands: ``n_lists`` candidate lists of up to ``cand_len`` ids (one
+    led by negative ids), ``n_lists`` target lists of up to ``targ_len``
+    ids and one hub target of ``targ_len``; ``q`` random (candidate,
+    target) rows, the first ``hub_rows`` of them against the hub.  The
+    level array covers ``n_level`` ids (default ``id_hi // 2``), so a
+    found id above it reads the pad -7."""
+    lists = [np.unique(rng.integers(0, id_hi, size=rng.integers(1, cand_len)))
+             for _ in range(n_lists)]
+    lists[0] = np.r_[-5, -1, lists[0]]
+    lists += [np.unique(rng.integers(0, id_hi, size=rng.integers(1, targ_len)))
+              for _ in range(n_lists)]
+    lists.append(np.unique(rng.integers(0, id_hi, size=targ_len)))
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    lens = np.array([len(x) for x in lists], np.int32)
+    u = rng.integers(0, n_lists, size=q)
+    w = rng.integers(n_lists, 2 * n_lists, size=q)
+    w[:hub_rows] = 2 * n_lists
+    n_level = id_hi // 2 if n_level is None else n_level
+    level = rng.integers(0, 3, size=n_level).astype(np.int32)
+    lev_u = rng.integers(0, 3, size=q).astype(np.int32)
+    lev_u[:hub_rows] = 1  # the count's rows: one lev_u per target
+    return (flat, starts[u], lens[u], starts[w], lens[w], level, lev_u)
+
+
+# (q, n_lists, cand_len, targ_len, id_hi, hub_rows, d_cand, d_targ)
+BITMAP_CASES = {
+    # one hub target shared by 3,000 rows: many item cuts (cells, rows)
+    "hub": (3000, 40, 2000, 5000, 20000, 3000, 2048, 5000),
+    # targets past the old 4,096-entry stage and past 65,536 entries
+    "long_targets": (600, 30, 3000, 80000, 1_000_000, 200, 4096, 80000),
+    # a span wider than one window of the bitmap: ids up to ~4 M
+    "wide_span": (800, 30, 3000, 20000, 4_000_000, 300, 4096, 20000),
+    # clamped widths, narrow rows (the walk kernel is a warp per row)
+    "clamped": (4000, 200, 300, 3000, 50000, 500, 64, 1000),
+}
+
+
+@pytest.mark.parametrize("path", ["auto", "bitmap", "walk"])
+@pytest.mark.parametrize("case", sorted(BITMAP_CASES))
+def test_k1_k2_paths_match_plain(cuda_device, case, path):
+    """K1 and K2 through the bitmap items, the row walk or the rule by
+    shape equal their plain versions on the same operands, and each
+    repeats bit for bit."""
+    q, n_lists, cl, tl, id_hi, hub, d_cand, d_targ = BITMAP_CASES[case]
+    rng = np.random.default_rng(len(case))
+    ops = [torch.from_numpy(x).to(cuda_device) for x in _bitmap_operands(
+        rng, q=q, n_lists=n_lists, cand_len=cl, targ_len=tl, id_hi=id_hi,
+        hub_rows=hub)]
+    kw = dict(d_cand=d_cand, d_targ=d_targ)
+    lay = tkern.item_layout(*ops[1:5], path=path, **kw)
+    on_bitmap = path == "bitmap" or (
+        path == "auto" and d_cand > tkern.WALK_MAX_CAND
+        and q >= tkern.BITMAP_MIN_ROWS)
+    assert (lay is not None) == on_bitmap
+    if lay is not None:
+        assert int(lay.item_start[int(lay.n_items[0])]) == q  # all live
+    r1, r2 = intersect_levels_ref(*ops, **kw)
+    ro, rh = intersect_hits_ref(*ops[:5], **kw)
+    assert int(r1.sum()) > 0 and int(r2.sum()) > 0
+    before = dict(tkern.LAUNCHES)
+    for _ in range(2):
+        k1, k2 = tkern.intersect_levels(*ops, path=path, **kw)
+        ko, kh = tkern.intersect_hits(*ops[:5], path=path, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, r1) and torch.equal(k2, r2)
+        assert torch.equal(ko, ro) and torch.equal(kh, rh)
+    assert tkern.LAUNCHES["intersect_levels"] == before[
+        "intersect_levels"] + 2
+    assert tkern.LAUNCHES["intersect_hits"] == before["intersect_hits"] + 2
+
+
+@pytest.mark.parametrize("path", ["bitmap", "walk"])
+def test_k1_level_split_with_two_lev_u_per_target(cuda_device, path):
+    """K1's level split when the rows of one target carry two ``lev_u``
+    (the contract allows any): the plain version's counts on either
+    path."""
+    rng = np.random.default_rng(7)
+    ops = [torch.from_numpy(x).to(cuda_device) for x in _bitmap_operands(
+        rng, q=2000, n_lists=20, cand_len=1500, targ_len=3000, id_hi=30000,
+        hub_rows=1500)]
+    ops[6][:700] = 2  # the hub's rows with two lev_u
+    kw = dict(d_cand=2048, d_targ=3000)
+    k1, k2 = tkern.intersect_levels(*ops, path=path, **kw)
+    r1, r2 = intersect_levels_ref(*ops, **kw)
+    assert torch.equal(k1, r1) and torch.equal(k2, r2)
+
+
+@pytest.mark.parametrize("q", [0, 5000])
+def test_k1_k2_empty_and_all_sentinel_launches(cuda_device, q):
+    """No rows, or rows that are all sentinels (l_s = l_l = 0): zeros
+    and an empty mask, one launch each."""
+    z = torch.zeros(q, dtype=torch.int32, device=cuda_device)
+    flat = torch.arange(10, dtype=torch.int32, device=cuda_device)
+    level = torch.zeros(10, dtype=torch.int32, device=cuda_device)
+    for path in ("auto", "bitmap"):
+        c1, c2 = tkern.intersect_levels(flat, z, z, z, z, level, z,
+                                        d_cand=64, d_targ=64, path=path)
+        off, hits = tkern.intersect_hits(flat, z, z, z, z, d_cand=64,
+                                         d_targ=64, path=path)
+        torch.cuda.synchronize()
+        assert c1.shape == c2.shape == (q,) and not c1.any() and not c2.any()
+        assert hits.numel() == 0 and off.shape == (q + 1,) and not off.any()
+
+
+def test_ops_horizontal_edge_counts_on_the_card(cuda_device):
+    """``kernels/intersect/ops.py`` on a CUDA graph goes through K1 and
+    equals its CPU path (the dense plain version) edge for edge."""
+    from repro_torch.core.bfs import bfs_levels
+    from repro_torch.core.edges import horizontal_mask
+    from repro_torch.graph.csr import max_degree, undirected_edges
+    from repro_torch.kernels.intersect.ops import horizontal_edge_counts
+
+    edges, n = gen.rmat(10, 16, seed=0)
+    got = []
+    for dev in (cuda_device, torch.device("cpu")):
+        g = from_edges(edges, n, device=dev)
+        level = bfs_levels(g.src, g.dst, n, row_offsets=g.row_offsets)
+        eu, ew, und = undirected_edges(g)
+        use = und & horizontal_mask(g.src, g.dst, level, n)
+        before = tkern.LAUNCHES["intersect_levels"]
+        got.append([x.cpu() for x in horizontal_edge_counts(
+            g, torch.where(use, eu, n), torch.where(use, ew, n), level,
+            d_max=max_degree(g))])
+        assert tkern.LAUNCHES["intersect_levels"] == before + (
+            dev.type == "cuda")
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    assert int(got[0][0].sum() + got[0][1].sum() // 3) == 75682
 
 
 def test_from_edges_takes_a_cuda_tensor(cuda_device):

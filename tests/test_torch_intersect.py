@@ -3,7 +3,13 @@ package: ``plan_buckets`` field for field, the plain versions of K1
 (dense ``intersect_ref`` and CSR-bounds ``intersect_levels_ref``)
 against ``intersect_pallas`` in interpret mode and the reference's
 ``intersect_ref``, and ``run_plan`` / ``count_common_neighbors`` with and
-without ``query_chunk``.  Inputs are numpy arrays made from a seed."""
+without ``query_chunk``.  K1's and K2's work layout (``ItemLayout``)
+holds its properties, and their item walk in plain PyTorch
+(``probe_items_ref``: bitmaps, windows) equals the plain
+versions row for row and ``intersect_pallas`` / ``intersect_pallas_hits``
+in interpret mode.  ``kernels/intersect/ops.py``'s end-to-end karate
+count is held against the reference's.  Inputs are numpy arrays made
+from a seed."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -18,6 +24,7 @@ from repro.graph import csr as jcsr
 from repro.kernels.intersect.intersect import (
     intersect_pallas,
     intersect_pallas_count,
+    intersect_pallas_hits,
 )
 from repro.kernels.intersect.ref import intersect_ref as j_intersect_ref
 from repro_torch.core import bfs as tbfs
@@ -30,8 +37,10 @@ from repro_torch.kernels.intersect.ref import (
     found_counts,
     hits_ref,
     intersect_count_ref,
+    intersect_hits_ref,
     intersect_levels_ref,
     intersect_ref,
+    probe_items_ref,
     search_steps,
     split_counts,
 )
@@ -413,3 +422,279 @@ def test_resolve_backend_refusals():
         tint.resolve_backend("cuda", "cpu")
     with pytest.raises(ValueError, match="intersect_backend must be"):
         tint.resolve_backend("pallas", "cpu")
+
+
+# --------------------------------------- K1 and K2's work layout and walk
+
+
+def _item_operands(rng, *, q, n_lists, cand_len, targ_len, id_hi, hubs,
+                   n_level=None):
+    """Sorted unique id lists as the kernels' operands: ``n_lists``
+    candidate lists (the first led by negative ids, the second holding
+    sentinel ids past ``level``), ``n_lists`` target lists and ``hubs``
+    long ones; ``q`` rows, a third of them against the hubs."""
+    n_level = id_hi // 2 if n_level is None else n_level
+    lists = [np.unique(rng.integers(0, id_hi, size=rng.integers(1, cand_len)))
+             for _ in range(n_lists)]
+    lists[0] = np.r_[-7, -1, lists[0]]
+    lists[1] = np.unique(np.r_[lists[1], n_level, n_level + 3])
+    lists += [np.unique(rng.integers(0, id_hi, size=rng.integers(0, targ_len)))
+              for _ in range(n_lists)]
+    lists += [np.unique(np.r_[rng.integers(0, id_hi, size=4 * targ_len),
+                              n_level])
+              for _ in range(hubs)]
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    lens = np.array([len(x) for x in lists], np.int32)
+    u = rng.integers(0, n_lists, size=q)
+    w = rng.integers(n_lists, 2 * n_lists, size=q)
+    w[: q // 3] = rng.integers(2 * n_lists, 2 * n_lists + hubs, size=q // 3)
+    level = rng.integers(0, 3, size=n_level).astype(np.int32)
+    lev_u = rng.integers(0, 3, size=q).astype(np.int32)
+    ls, ll = lens[u], lens[w]
+    ls[rng.random(q) < 0.05] = 0  # sentinel rows
+    return [_t(x) for x in (flat, starts[u], ls, starts[w], ll, level,
+                            lev_u)]
+
+
+ITEM_CASES = {
+    # (q, n_lists, cand_len, targ_len, id_hi, hubs, d_cand, d_targ)
+    "small_ids": (300, 40, 60, 80, 400, 2, 64, 400),
+    "clamped": (400, 40, 120, 200, 3000, 3, 48, 150),
+    "wide_rows": (120, 20, 900, 600, 20000, 2, 1024, 5000),
+}
+
+
+@pytest.mark.parametrize("align", [0, 3])
+@pytest.mark.parametrize("item_cells", [64, 256, 4096])
+@pytest.mark.parametrize("case", sorted(ITEM_CASES))
+def test_item_layout_properties(case, item_cells, align, monkeypatch):
+    """Each live row lies in exactly one item, the dead rows last; an
+    item has one target, at most ``ITEM_CELLS`` cells unless it is one
+    row, at most ``ITEM_ROWS`` rows; one target's rows keep their order;
+    ``cum`` counts each row's 16-byte groups."""
+    monkeypatch.setattr(tkern, "ITEM_CELLS", item_cells)  # many cuts
+    monkeypatch.setattr(tkern, "ITEM_ROWS", 5)
+    q, nl, cl, tl, hi, hubs, d_cand, d_targ = ITEM_CASES[case]
+    ops = _item_operands(np.random.default_rng(len(case)), q=q, n_lists=nl,
+                         cand_len=cl, targ_len=tl, id_hi=hi, hubs=hubs)
+    flat, s_s, l_s, s_l, l_l = ops[:5]
+    lay = tkern.ItemLayout(s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ,
+                           align=align)
+    ls = _np(l_s.clamp(0, d_cand))
+    ll = _np(l_l.clamp(0, d_targ))
+    perm = _np(lay.perm)
+    n_items = int(lay.n_items[0])
+    n_live = int((ls > 0).sum())
+    assert sorted(perm.tolist()) == list(range(q))
+    assert (ls[perm[:n_live]] > 0).all() and not ls[perm[n_live:]].any()
+    groups = ((_np(s_s) + align) % 4 + ls + 3) // 4
+    np.testing.assert_array_equal(_np(lay.cum)[: n_live + 1], np.r_[
+        0, np.cumsum(groups[perm[:n_live]])])  # the dead rows' are unread
+    starts = _np(lay.item_start)[: n_items + 1]
+    assert starts[0] == 0 and starts[-1] == n_live and (
+        np.diff(starts) > 0).all()
+    target = np.stack([_np(s_l), ll], 1)
+    for a, b in zip(starts[:-1], starts[1:]):
+        rows = perm[a:b]
+        assert (target[rows] == target[rows[0]]).all()
+        assert b - a <= tkern.ITEM_ROWS
+        assert b - a == 1 or 4 * groups[rows].sum() <= tkern.ITEM_CELLS
+    # stable: one target's rows in their first order
+    key = target[perm[:n_live]]
+    same = (key[1:] == key[:-1]).all(1)
+    assert (perm[1:n_live][same] > perm[:n_live - 1][same]).all()
+
+
+@pytest.mark.parametrize("q", [60, 99, 100])
+@pytest.mark.parametrize("d_cand", [16, 255, 256, 257, 4096])
+def test_item_layout_rule_by_width(d_cand, q, monkeypatch):
+    """The host's rule: a call wider than ``WALK_MAX_CAND`` and of at
+    least ``BITMAP_MIN_ROWS`` rows puts every live row on the bitmap,
+    any other builds no layout (every row walks); ``path`` forces either
+    side on any shape."""
+    monkeypatch.setattr(tkern, "BITMAP_MIN_ROWS", 100)
+    ops = _item_operands(np.random.default_rng(d_cand), q=q, n_lists=10,
+                         cand_len=40, targ_len=80, id_hi=500, hubs=1)
+    kw = dict(d_cand=d_cand, d_targ=400)
+    lay = tkern.item_layout(*ops[1:5], **kw)
+    assert (lay is None) == (d_cand <= tkern.WALK_MAX_CAND or q < 100)
+    assert tkern.item_layout(*ops[1:5], path="walk", **kw) is None
+    forced = tkern.item_layout(*ops[1:5], path="bitmap", **kw)
+    n_live = int((ops[2].clamp(0, d_cand) > 0).sum())
+    assert int(forced.item_start[int(forced.n_items[0])]) == n_live
+
+
+def _items_vs_plain(ops, *, d_cand, d_targ, path, bitmap_words=None,
+                    align=0):
+    lay = tkern.item_layout(*ops[1:5], d_cand=d_cand, d_targ=d_targ,
+                            path=path, align=align)
+    off, hits, c1, c2 = probe_items_ref(
+        *ops[:5], lay, d_cand=d_cand, d_targ=d_targ, level=ops[5],
+        lev_u=ops[6], bitmap_words=bitmap_words)
+    r1, r2 = intersect_levels_ref(*ops, d_cand=d_cand, d_targ=d_targ)
+    ro, rh = intersect_hits_ref(*ops[:5], d_cand=d_cand, d_targ=d_targ)
+    np.testing.assert_array_equal(_np(c1), _np(r1))
+    np.testing.assert_array_equal(_np(c2), _np(r2))
+    np.testing.assert_array_equal(_np(off), _np(ro))
+    np.testing.assert_array_equal(_np(hits), _np(rh))
+    return lay, (c1, c2), hits
+
+
+@pytest.mark.parametrize("bitmap_words", [None, 2, 7],
+                         ids=["full", "w64", "w224"])
+@pytest.mark.parametrize("align", [0, 3])
+@pytest.mark.parametrize("path", ["auto", "bitmap", "walk"])
+@pytest.mark.parametrize("case", sorted(ITEM_CASES))
+def test_item_walk_matches_plain(case, path, align, bitmap_words,
+                                 monkeypatch):
+    """The item walk equals the plain K1 and K2 row for row: negative and
+    sentinel candidates, sentinel rows, clamped widths, items cut at two
+    alignments of the flat array, and bitmaps of 64 or 224 ids a window
+    where the spans are wider (windows)."""
+    monkeypatch.setattr(tkern, "ITEM_CELLS", 512)
+    monkeypatch.setattr(tkern, "WALK_MAX_CAND", 16)
+    monkeypatch.setattr(tkern, "BITMAP_MIN_ROWS", 0)
+    q, nl, cl, tl, hi, hubs, d_cand, d_targ = ITEM_CASES[case]
+    ops = _item_operands(np.random.default_rng(3 * len(case)), q=q,
+                         n_lists=nl, cand_len=cl, targ_len=tl, id_hi=hi,
+                         hubs=hubs)
+    lay, (c1, c2), hits = _items_vs_plain(
+        ops, d_cand=d_cand, d_targ=d_targ, path=path,
+        bitmap_words=bitmap_words, align=align)
+    assert int(c1.sum()) > 0 and int(c2.sum()) > 0 and not hits.all()
+    assert (lay is None) == (path == "walk")
+    if lay is not None:
+        assert int(lay.n_items[0]) > 1
+
+
+def test_item_walk_over_a_span_wider_than_the_bitmap():
+    """Ids up to ~4 M, so a hub's span takes three windows of the real
+    bitmap."""
+    ops = _item_operands(np.random.default_rng(5), q=90, n_lists=10,
+                         cand_len=3000, targ_len=20000, id_hi=4_000_000,
+                         hubs=1)
+    lay, *_ = _items_vs_plain(ops, d_cand=4096, d_targ=100_000,
+                              path="bitmap", align=1)
+    targ = ops[0][int(ops[3][0]):int(ops[3][0]) + int(ops[4][0])]
+    assert int(targ[-1] - targ[0]) > tkern.BITMAP_WORDS * 32
+
+
+@pytest.mark.parametrize("path", ["auto", "bitmap"])
+def test_item_walk_matches_plain_on_every_bucket_of_rmat12(path,
+                                                           monkeypatch):
+    """The count's own operands: every bucket of rmat12's plan, K1 and K2
+    by the item walk equal to their plain versions row for row."""
+    monkeypatch.setattr(tkern, "WALK_MAX_CAND", 0)
+    monkeypatch.setattr(tkern, "BITMAP_MIN_ROWS", 0)
+    _, tg, _, tl, _, tq = _engine_inputs(*gen.rmat(12, 16, seed=0))
+    h = int(tq[4])
+    plan = tint.plan_buckets(_np(tq[2])[:h], _np(tq[3])[:h], layout="desc")
+    adj = tint.CsrAdjacency.from_graph(tg)
+    assert len(plan.buckets) == 3
+    for b, base, qu, qw, bounds in tint.bucket_slices(adj, tq[0], tq[1],
+                                                      plan):
+        s_s, l_s, s_l, l_l, lev_u = tint.probe_operands(
+            adj, qu, qw, bounds, base, b.count, tl)
+        lay, _, _ = _items_vs_plain(
+            (adj.flat, s_s, l_s, s_l, l_l, tl, lev_u), d_cand=b.d_cand,
+            d_targ=b.d_targ, path=path)
+        assert int(lay.n_items[0]) > 0
+
+
+@pytest.mark.parametrize("path", ["bitmap", "walk"])
+@pytest.mark.parametrize("d_cand,d_targ", [(16, 200), (64, 24), (40, 100)])
+def test_item_walk_matches_pallas(d_cand, d_targ, path):
+    """The item walk against the reference's kernels in interpret mode on
+    the dense blocks its engine gathers from the same bounds:
+    ``intersect_pallas`` (c1, c2) and ``intersect_pallas_hits`` (the mask,
+    scattered from the ragged one)."""
+    rng = np.random.default_rng(d_cand + d_targ)
+    ops = [_t(x) for x in _csr_operands(rng, 48, 100, n=300)]
+    lay = tkern.item_layout(*ops[1:5], d_cand=d_cand, d_targ=d_targ,
+                            path=path)
+    off, hits, c1, c2 = probe_items_ref(
+        *ops[:5], lay, d_cand=d_cand, d_targ=d_targ, level=ops[5],
+        lev_u=ops[6], bitmap_words=2)
+    p1, p2 = _pallas_on_dense(tuple(map(_np, ops)), d_cand=d_cand,
+                              d_targ=d_targ, bq=16, bd=128)
+    np.testing.assert_array_equal(_np(c1), np.asarray(p1))
+    np.testing.assert_array_equal(_np(c2), np.asarray(p2))
+    cand, targ, _ = jint._gather_cand_targ(
+        *map(jnp.asarray, map(_np, ops[:5])), d_cand=d_cand, d_targ=d_targ,
+        need_targ=True)
+    ph = np.asarray(intersect_pallas_hits(cand, targ, block_q=16,
+                                          block_d=128, interpret=True))
+    ls = _np(ops[2].clamp(0, d_cand))
+    dense = np.zeros((len(ls), d_cand), bool)
+    dense[np.arange(d_cand)[None, :] < ls[:, None]] = _np(hits)
+    np.testing.assert_array_equal(dense, ph.astype(bool))
+
+
+def test_kernel_constants_match_the_wrapper():
+    """The layout's item rows and the emulation's bitmap words are the
+    CUDA source's ``kItemRows`` and ``kBitmapWords``."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tkern.__file__).parent / "csrc" / "intersect.cu").read_text()
+    got = {k: int(v) for k, v in
+           re.findall(r"constexpr int (kItemRows|kBitmapWords) = (\d+);", src)}
+    assert got == {"kItemRows": tkern.ITEM_ROWS,
+                   "kBitmapWords": tkern.BITMAP_WORDS}
+
+
+def test_wrapper_refuses_an_unknown_path():
+    ops = [_t(x) for x in _csr_operands(np.random.default_rng(1), 8, 16)]
+    with pytest.raises(ValueError, match="path must be"):
+        tkern.intersect_levels(*ops, d_cand=16, d_targ=16, path="tiles")
+    with pytest.raises(ValueError, match="path must be"):
+        tkern.intersect_hits(*ops[:5], d_cand=16, d_targ=16, path="tiles")
+
+
+# ------------------------------------------ kernels/intersect/ops.py
+
+
+def _karate_queries(xp, csr, bfs, edges_mod):
+    """The karate graph's horizontal-edge queries in one package's terms:
+    ``(g, qu, qw, level, d_max)``."""
+    edges, n = gen.karate()
+    g = (csr.from_edges(edges, n) if xp is jnp
+         else csr.from_edges(edges, n, device=CPU))
+    level = bfs.bfs_levels(g.src, g.dst, n, row_offsets=g.row_offsets)
+    h = edges_mod.horizontal_mask(g.src, g.dst, level, n)
+    eu, ew, und = csr.undirected_edges(g)
+    use = und & h
+    return g, xp.where(use, eu, n), xp.where(use, ew, n), level, \
+        csr.max_degree(g)
+
+
+def test_ops_end_to_end_triangle_count_karate():
+    """``horizontal_edge_counts`` per edge equal to the reference's on the
+    same graph (its kernel in interpret mode and its jnp oracle), and the
+    count T = c1 + c2 // 3 = 45 (the reference's
+    ``test_end_to_end_triangle_count_karate``)."""
+    from repro.kernels.intersect.ops import (
+        gather_query_blocks as j_gather,
+        horizontal_edge_counts as j_counts,
+    )
+    from repro_torch.kernels.intersect.ops import (
+        gather_query_blocks,
+        horizontal_edge_counts,
+    )
+
+    jg, jqu, jqw, jl, d_max = _karate_queries(jnp, jcsr, jbfs, jedges)
+    tg, tqu, tqw, tl, t_max = _karate_queries(torch, tcsr, tbfs, tedges)
+    assert d_max == t_max
+    c1, c2 = horizontal_edge_counts(tg, tqu, tqw, tl, d_max=t_max)
+    assert c1.dtype == c2.dtype == torch.int32
+    assert int(c1.sum() + c2.sum() // 3) == 45
+    for use_pallas in (True, False):
+        j1, j2 = j_counts(jg, jqu, jqw, jl, d_max=d_max,
+                          use_pallas=use_pallas, interpret=True)
+        np.testing.assert_array_equal(_np(c1), np.asarray(j1))
+        np.testing.assert_array_equal(_np(c2), np.asarray(j2))
+    for got, want in zip(
+            gather_query_blocks(tg, tqu, tqw, tl, d_cand=8, d_targ=12),
+            j_gather(jg, jqu, jqw, jl, d_cand=8, d_targ=12)):
+        np.testing.assert_array_equal(_np(got), np.asarray(want))
