@@ -13,10 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                the build of every CUDA source with nvcc (timed);
   2. kernel  — K1, K2 and K3 against their plain PyTorch versions on the
                same CUDA tensors: every row of every bucket of RMAT
-               scale 16 (K1 and K2 also with every live row forced onto
-               the bitmap and onto the row walk; K3 also against K1's
-               c1 + c2), and a seeded sample of 4,096 rows from each
-               bucket at full size;
+               scale 16 (each also with every live row forced onto the
+               bitmap and onto the row walk, K3 also onto its tiles;
+               K3 also against K1's c1 + c2), and a seeded sample of
+               4,096 rows from each bucket at full size;
   3. small   — ``TriangleEngine(device="cuda").count`` on karate and RMAT
                scales 10, 12 and 16, each count asserted; the per-vertex
                credit, the found list and two stream sessions (with and
@@ -39,7 +39,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                host-paced time from CUDA events, since it reads its
                output's size back; each wrapper call whole, its layout
                included; K3 one per bucket of the same plan run
-               level-free, equal to K1's c1 + c2 row for row) beside its
+               level-free, equal to K1's c1 + c2 row for row, on the
+               device and host-paced, by the rule and by each path, one
+               call profiled by kernel name) beside its
                bound (bytes once, one test per candidate cell and, for
                K1, one level compare per hit) and the binary search's
                bound, and the plain version on the same rows, timed and
@@ -52,8 +54,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                session's opening count, one warm-up and 8 timed applies
                of 4,096 mixed updates (K3); K3 at the probes' own
                launch shapes (the launches of 8 further applies,
-               recorded, each timed beside its bound and held against
-               its plain version on every row); 4 timed applies with
+               recorded, each timed on the device and host-paced by the
+               rule and by each path, beside its bound, held against its
+               plain version on every row and its path logged); a
+               session with a 65,536-update buffer (a warm-up and 3
+               timed applies of 65,536, K3 alone; its launches of one
+               further apply timed and held the same way; a fresh
+               count); 4 timed applies with
                per-vertex credit in a second session (K2), K2 at its
                probes' shapes (the launches of 2 further applies, each
                timed by the rule and by each forced path, the same bits),
@@ -280,19 +287,19 @@ def count_bound(flat, ops, d_cand: int, d_targ: int) -> dict:
     return _bound(once, int(ls.sum().item()), ls, ll, rows)
 
 
-def compare_count(flat, ops, kw, levels=None):
+def compare_count(flat, ops, kw, levels=None, path="auto"):
     """``(max |K3 - plain|, max |K3 - (c1 + c2)|, hits, plain_ms)`` over
-    every row: K3 against its plain version (timed with CUDA events)
-    and, given ``levels`` (``ops[4]`` K1's ``lev_u``), against K1's
-    per-row c1 + c2 on the same rows (0 without); these launches are
-    comparisons, not the main path."""
+    every row: K3 by ``path`` against its plain version (timed with CUDA
+    events) and, given ``levels`` (``ops[4]`` K1's ``lev_u``), against
+    K1's per-row c1 + c2 on the same rows (0 without); these launches
+    are comparisons, not the main path."""
     from repro_torch.kernels.intersect.intersect import (
         intersect_count,
         intersect_levels,
     )
     from repro_torch.kernels.intersect.ref import intersect_count_ref
 
-    k = intersect_count(flat, *ops[:4], **kw)
+    k = intersect_count(flat, *ops[:4], path=path, **kw)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -367,33 +374,71 @@ def time_hits_calls(calls) -> dict:
     return k2
 
 
-def time_count_calls(calls) -> dict:
-    """K3 on each recorded call (:func:`capture_counts`): its wrapper's
-    milliseconds from CUDA events (mean of 10 after a warm-up), every row
-    against its plain version (timed), and its bound; one log line per
-    launch and the sums over the launches."""
+#: device_ms's spin for one K3 call (~25 ms): longer than the host needs
+#: to queue its timed launches, a bitmap layout's ~70 ops each included
+K3_SPIN = 50_000_000
+
+
+def k3_kernels(per: dict) -> dict:
+    """The entries of a profiled run's device time by name that are
+    kernels of ``intersect.cu``: K3's where the run launches neither K1
+    nor K2 (a stream apply without credit): ``count_tiles``, the row
+    walk (``walk_rows_*``) and the bitmap items (``intersect_items``)."""
+    names = ("count_tiles", "walk_rows_", "intersect_items")
+    return {k: v for k, v in per.items() if any(m in k for m in names)}
+
+
+def time_count_calls(calls, buffer: int) -> dict:
+    """K3 on each recorded call (:func:`capture_counts`) of a session of
+    ``buffer`` updates an internal batch, by the rule by shape and with
+    every row forced onto each path: device milliseconds
+    (:func:`device_ms`, the host's enqueue hidden, mean of 5) and
+    host-paced milliseconds (CUDA events, mean of 10); every row of the
+    rule's output against its plain version (timed), each path launched
+    twice and equal to it; the call's bound.  One log line per launch
+    (the path the rule takes, rows, cells, distinct targets) and the
+    sums over the launches, per path."""
     from repro_torch.kernels.intersect.intersect import intersect_count
 
-    k3 = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, search_bound_ms=0.0,
-              row_bytes_bound_ms=0.0, max_abs_err=0, launches=len(calls),
-              rows=0, hits=0)
+    paths = ("auto",) + K3_PATHS_TIMED
+    k3 = dict(launches=len(calls), rows=0, cells=0, hits=0, max_abs_err=0,
+              device_ms=dict.fromkeys(paths, 0.0),
+              host_paced_ms=dict.fromkeys(paths, 0.0), plain_ms=0.0,
+              bound_ms=0.0, search_bound_ms=0.0, row_bytes_bound_ms=0.0,
+              rule_paths=dict.fromkeys(K3_PATHS_TIMED, 0))
     by_bound = []
     for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
         kw = dict(d_cand=d_cand, d_targ=d_targ)
-        ms = cuda_ms(lambda: intersect_count(flat, *ops, **kw), reps=10)
         err, _, hits, p_ms = compare_count(flat, ops, kw)
+        want = intersect_count(flat, *ops, **kw)
+        dev, host = {}, {}
+        for p in paths:
+            dev[p] = device_ms(lambda: intersect_count(flat, *ops, path=p,
+                                                       **kw),
+                               reps=5, spin=K3_SPIN)
+            host[p] = cuda_ms(lambda: intersect_count(flat, *ops, path=p,
+                                                      **kw), reps=10)
+            for _ in range(2):
+                got = intersect_count(flat, *ops, path=p, **kw)
+                err = max(err, int((got - want).abs().max().item()))
+            k3["device_ms"][p] += dev[p]
+            k3["host_paced_ms"][p] += host[p]
         bd = count_bound(flat, ops, d_cand, d_targ)
-        for key, v in (("ms", ms), ("plain_ms", p_ms),
-                       ("bound_ms", bd["bound_ms"]),
+        st = layout_stats(ops, SimpleNamespace(d_cand=d_cand, d_targ=d_targ),
+                          k3=True)
+        k3["rule_paths"][st["path"]] += 1
+        for key, v in (("plain_ms", p_ms), ("bound_ms", bd["bound_ms"]),
                        ("search_bound_ms", bd["search_bound_ms"]),
                        ("row_bytes_bound_ms", bd["row_bytes_bound_ms"]),
-                       ("hits", hits), ("rows", len(ops[0]))):
+                       ("hits", hits), ("rows", len(ops[0])),
+                       ("cells", st["live_cells"])):
             k3[key] += v
         k3["max_abs_err"] = max(k3["max_abs_err"], err)
         by_bound.append((bd["bound_ms"], bd["bound_by"]))
-        log("stream_k3_launch", launch=i, rows=len(ops[0]), d_cand=d_cand,
-            d_targ=d_targ, flat_slots=flat.numel(), hits=hits,
-            kernel_ms=ms, plain_ms=p_ms, max_abs_err_all_rows=err, **bd)
+        log("stream_k3_launch", buffer=buffer, launch=i, rows=len(ops[0]),
+            d_cand=d_cand, d_targ=d_targ, flat_slots=flat.numel(),
+            hits=hits, device_ms=dev, host_paced_ms=host, plain_ms=p_ms,
+            max_abs_err_all_rows_paths_and_repeat=err, **bd, **st)
     k3["bound_by"] = max(by_bound)[1] if by_bound else None
     return k3
 
@@ -521,20 +566,35 @@ def bucket_operands(g, levels, plan):
 
 #: K1's and K2's forced paths, timed beside the rule by shape ("auto")
 PATHS_TIMED = ("bitmap", "walk")
+#: K3's: the same and its tiles
+K3_PATHS_TIMED = PATHS_TIMED + ("tiles",)
 
 
-def layout_stats(ops, b) -> dict:
-    """How K1 and K2 serve one bucket (the rule by shape): the path, the
-    live rows and their distinct targets, and the bitmap's item count."""
-    from repro_torch.kernels.intersect.intersect import item_layout
+def layout_stats(ops, b, k3: bool = False) -> dict:
+    """How K1 and K2, or K3 (``k3``: the wrapper's own rule,
+    ``count_path``), serve one call by the rule by shape: the path, the
+    bitmap's item count, the live rows, their clamped candidate cells
+    and their distinct targets."""
+    from repro_torch.kernels.intersect.intersect import (
+        count_path,
+        item_layout,
+    )
 
     s_s, l_s, s_l, l_l = ops[:4]
-    live = l_s.clamp(0, b.d_cand) > 0
+    ls = l_s.clamp(0, b.d_cand)
+    live = ls > 0
     target = (s_l.to(torch.int64) << 32) | l_l.clamp(0, b.d_targ)
-    lay = item_layout(*ops[:4], d_cand=b.d_cand, d_targ=b.d_targ)
-    return dict(path="walk" if lay is None else "bitmap",
+    if k3:
+        path = count_path(s_s.shape[0], b.d_cand)
+        lay = None if path != "bitmap" else item_layout(
+            *ops[:4], d_cand=b.d_cand, d_targ=b.d_targ, path="bitmap")
+    else:
+        lay = item_layout(*ops[:4], d_cand=b.d_cand, d_targ=b.d_targ)
+        path = "walk" if lay is None else "bitmap"
+    return dict(path=path,
                 items=0 if lay is None else int(lay.n_items[0]),
                 live_rows=int(live.sum()),
+                live_cells=int(ls.sum(dtype=torch.int64).item()),
                 targets=int(torch.unique(target[live]).numel()))
 
 
@@ -577,6 +637,8 @@ def compare(flat, levels, ops, b, rows=None, path="auto"):
 #: updates per timed apply of the stream phase: the default
 #: ``TCOptions.stream_buffer``, so each apply is one internal batch
 STREAM_BATCH = 4096
+#: the large-buffer session's ``stream_buffer`` and updates per apply
+BIG_BUFFER = 65536
 
 
 def stream_phase(eng, edges, n, main_path):
@@ -668,9 +730,9 @@ def stream_phase(eng, edges, n, main_path):
     # for row, and bounded from its operands
     _, calls = capture_counts(
         lambda: timed_applies(sess, "k3_capture", 8, STREAM_BATCH))
-    k3 = time_count_calls(calls)
+    k3 = time_count_calls(calls, STREAM_BATCH)
     del calls
-    log("stream_k3", **k3)
+    log("stream_k3", buffer=STREAM_BATCH, **k3)
     if not k3["launches"] or k3["max_abs_err"]:
         raise SystemExit(f"stream: K3 at the probes' shapes: {k3}")
     out["k3"] = k3
@@ -678,7 +740,7 @@ def stream_phase(eng, edges, n, main_path):
     # one under sync debug mode (host syncs per batch)
     batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
     busy_ms, wall_s, top, per = device_busy(lambda: sess.apply(batch))
-    k3_dev = {k: v for k, v in per.items() if "intersect_count" in k}
+    k3_dev = k3_kernels(per)
     batch = mutation_batch(rng, sess.state.edges(), n, STREAM_BATCH)
     syncs = host_syncs(lambda: sess.apply(batch))
     out["k3_ms_per_batch"] = sum(k3_dev.values())
@@ -688,7 +750,37 @@ def stream_phase(eng, edges, n, main_path):
         k3_ms_per_batch=sum(k3_dev.values()), host_syncs_per_batch=syncs)
     check_fresh(sess, "count")
 
-    # 5b. a second session with per-vertex credit: its opening count and
+    # 5b. a session whose buffer holds 65,536 updates, so an apply of as
+    # many is one internal batch and its delete probes have 32,768 rows:
+    # its opening count (K1 alone), one warm-up and 3 timed applies (K3
+    # alone), K3 at these probes' own shapes by path (the launches of one
+    # further apply, recorded), then a fresh count
+    big_opts = TCOptions(stream_buffer=BIG_BUFFER, stream_staleness=1e9)
+    sess_big, open_big_s, _, got, _ = main_path(
+        lambda c: eng.stream((edges, n), options=big_opts))
+    only(got, "intersect_levels", "65,536-buffer open")
+    timed_applies(sess_big, "buffer_65536 warm-up", 1, BIG_BUFFER)
+    runs, _, _, got, mem = main_path(
+        lambda c: timed_applies(sess_big, "buffer_65536", 3, BIG_BUFFER))
+    only(got, "intersect_count", "65,536-buffer applies")
+    _, calls = capture_counts(
+        lambda: timed_applies(sess_big, "k3_capture_65536", 1, BIG_BUFFER))
+    k3_big = time_count_calls(calls, BIG_BUFFER)
+    del calls
+    log("stream_k3", buffer=BIG_BUFFER, **k3_big)
+    if not k3_big["launches"] or k3_big["max_abs_err"]:
+        raise SystemExit(f"stream: K3 at the 65,536-buffer probes' shapes: "
+                         f"{k3_big}")
+    check_fresh(sess_big, "buffer_65536")
+    out["buffer_65536"] = dict(
+        launches=got, memory=mem, k3=k3_big, open_seconds=open_big_s,
+        updates_per_second=[r["updates_per_second"] for r in runs],
+        median_updates_per_second=statistics.median(
+            r["updates_per_second"] for r in runs))
+    del sess_big
+    torch.cuda.empty_cache()
+
+    # 5c. a second session with per-vertex credit: its opening count and
     # its timed applies go through K2 alone
     pv_opts = TCOptions(per_vertex=True, stream_staleness=1e9)
     sess_pv, open_pv_s, _, got, mem = main_path(
@@ -718,7 +810,7 @@ def stream_phase(eng, edges, n, main_path):
     del sess_pv
     torch.cuda.empty_cache()
 
-    # 5c. one apply of 1 % of the edges (K3 alone), then a fresh count of
+    # 5d. one apply of 1 % of the edges (K3 alone), then a fresh count of
     # the same final graph, then a forced refresh (K1 alone)
     k_big = m0 // 100
     runs, _, _, got, mem = main_path(
@@ -1660,20 +1752,26 @@ def main() -> int:
     for b, ops in buckets:
         err, s1, s2, _ = compare(flat, res16.levels, ops, b)
         err_h, hits, _, _ = compare_hits(flat, ops, b)
-        err_c, err_c12, hits_c, _ = compare_count(
-            flat, ops, dict(d_cand=b.d_cand, d_targ=b.d_targ), res16.levels)
-        # K1 and K2 with every live row on the bitmap, and on the walk
+        kw16 = dict(d_cand=b.d_cand, d_targ=b.d_targ)
+        err_c, err_c12, hits_c, _ = compare_count(flat, ops, kw16,
+                                                  res16.levels)
+        # K1, K2 and K3 with every live row on the bitmap, and on the walk
         err_p = max(max(compare(flat, res16.levels, ops, b, path=p)[0],
                         compare_hits(flat, ops, b, path=p)[0])
-                    for p in ("bitmap", "walk"))
+                    for p in PATHS_TIMED)
+        err_cp = max(compare_count(flat, ops, kw16, path=p)[0]
+                     for p in K3_PATHS_TIMED)
         max_err = max(max_err, err, err_p)
         max_err_hits = max(max_err_hits, err_h, err_p)
-        max_err_count = max(max_err_count, err_c, err_c12)
+        max_err_count = max(max_err_count, err_c, err_c12, err_cp)
         log("kernel_vs_plain", graph="rmat16", rows=b.rows, d_cand=b.d_cand,
             d_targ=b.d_targ, max_abs_err=err, c1=s1, c2=s2,
             hits_max_abs_err=err_h, hits=hits, count_max_abs_err=err_c,
             count_vs_c1_c2_max_abs_err=err_c12, count_hits=hits_c,
-            forced_paths_max_abs_err=err_p, **layout_stats(ops, b))
+            forced_paths_max_abs_err=err_p,
+            count_forced_paths_max_abs_err=err_cp,
+            count_path=kmod.count_path(len(ops[0]), b.d_cand),
+            **layout_stats(ops, b))
         if hits != s1 + s2 or hits_c != s1 + s2:
             raise SystemExit(f"rmat16: K2 found {hits} hits, K3 {hits_c}, "
                              f"K1 {s1 + s2}")
@@ -1879,10 +1977,12 @@ def main() -> int:
     tot_h = dict(dict.fromkeys(sums, 0.0), host_paced_ms=0.0,
                  sample_ms=0.0, sample_plain_ms=0.0, sample_rows=0,
                  launches=0)
-    tot_c = dict.fromkeys(sums, 0.0)
-    # K1 and K2 with every live row on one path: the same launches,
+    tot_c = dict(dict.fromkeys(sums, 0.0), host_paced_ms=0.0)
+    # K1, K2 and K3 with every live row on one path: the same launches,
     # timed beside the rule by shape
     tot_p = {k: dict.fromkeys(PATHS_TIMED, 0.0) for k in ("k1", "k2")}
+    tot_p["k3"] = dict.fromkeys(K3_PATHS_TIMED, 0.0)
+    paths_c = []
     bound_by, bound_by_h, bound_by_c = [], [], []
     top_sample = None
     for b, ops in buckets:
@@ -1988,22 +2088,45 @@ def main() -> int:
                              f"bucket, K1 {s1 + s2}")
 
         # K3 at full width: the count's plan run level-free, one launch
-        # per bucket, every row against its plain version and against
-        # K1's c1 + c2 (each row's entries are unique)
-        ms_c = cuda_ms(lambda: kmod.intersect_count(flat, *ops[:4], **kw))
+        # per bucket: the wrapper call whole on the device (the host's
+        # enqueue hidden) by the rule and by each forced path, host-paced
+        # by the rule, one call profiled by kernel name; every row
+        # against its plain version and against K1's c1 + c2 (each row's
+        # entries are unique), each path launched twice and equal to it
+        call_c = (flat, *ops[:4])
+        ms_c = device_ms(lambda: kmod.intersect_count(*call_c, **kw))
+        host_c = cuda_ms(lambda: kmod.intersect_count(*call_c, **kw))
+        _, k3_by_name = profiled_ms(lambda: kmod.intersect_count(*call_c,
+                                                                 **kw))
         err_c, err_c12, hits_c, p_ms_c = compare_count(flat, ops, kw, levels)
+        ref3 = kmod.intersect_count(*call_c, **kw)
+        path_ms_c = {}
+        for p in K3_PATHS_TIMED:
+            path_ms_c[p] = device_ms(
+                lambda: kmod.intersect_count(*call_c, path=p, **kw))
+            tot_p["k3"][p] += path_ms_c[p]
+            for _ in range(2):
+                got = kmod.intersect_count(*call_c, path=p, **kw)
+                err_c = max(err_c, int((got - ref3).abs().max().item()))
+        del ref3
         max_err_count = max(max_err_count, err_c, err_c12)
         bd_c = count_bound(flat, ops, b.d_cand, b.d_targ)
-        for key, v in (("ms", ms_c), ("plain_ms", p_ms_c)):
+        for key, v in (("ms", ms_c), ("plain_ms", p_ms_c),
+                       ("host_paced_ms", host_c)):
             tot_c[key] += v
         for key in sums[2:]:
             tot_c[key] += bd_c[key]
         bound_by_c.append((bd_c["bound_ms"], bd_c["bound_by"]))
+        stats_c = layout_stats(ops, b, k3=True)
+        paths_c.append(stats_c["path"])
         log("bucket", kernel="intersect_count", graph=f"rmat{scale}",
             count=b.count, rows=b.rows, d_cand=b.d_cand, d_targ=b.d_targ,
-            hits=hits_c, kernel_ms=ms_c, plain_ms=p_ms_c,
-            max_abs_err_all_rows=err_c, max_abs_err_vs_c1_c2=err_c12,
-            library_ms=None, **bd_c)
+            hits=hits_c, kernel_ms=ms_c, host_paced_ms=host_c,
+            path_ms=path_ms_c, device_ms_by_name=k3_by_name,
+            plain_ms=p_ms_c,
+            max_abs_err_all_rows_paths_and_repeat=err_c,
+            max_abs_err_vs_c1_c2=err_c12, library_ms=None, **bd_c,
+            **stats_c)
         if hits_c != s1 + s2:
             raise SystemExit(f"rmat{scale}: K3 found {hits_c} hits in a "
                              f"bucket, K1 {s1 + s2}")
@@ -2051,6 +2174,9 @@ def main() -> int:
             "memory", "busy_share")} for tag, r in gnn["runs"].items()},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
+    k3s, big = stream["k3"], stream["buffer_65536"]
+    k3b = big["k3"]
+    k3_err = max(max_err_count, k3s["max_abs_err"], k3b["max_abs_err"])
     kernels = [{
         "name": "intersect_levels",
         "route": "cuda",
@@ -2111,32 +2237,55 @@ def main() -> int:
         "launches": stream["launches"]["intersect_count"],
         "launches_one_percent":
             stream["one_percent"]["launches"]["intersect_count"],
-        "matches_plain": max(max_err_count, stream["k3"]["max_abs_err"]) == 0,
-        "max_abs_err": max(max_err_count, stream["k3"]["max_abs_err"]),
-        "ms": stream["k3"]["ms"],
-        "plain_ms": stream["k3"]["plain_ms"],
-        "bound_ms": stream["k3"]["bound_ms"],
-        "bound_by": stream["k3"]["bound_by"],
-        "search_bound_ms": stream["k3"]["search_bound_ms"],
-        "row_bytes_bound_ms": stream["k3"]["row_bytes_bound_ms"],
+        "launches_buffer_65536":
+            big["launches"]["intersect_count"],
+        "matches_plain": k3_err == 0,
+        "max_abs_err": k3_err,
+        "ms": k3s["device_ms"]["auto"],
+        "host_paced_ms": k3s["host_paced_ms"]["auto"],
+        "path_ms": {p: k3s["device_ms"][p] for p in K3_PATHS_TIMED},
+        "host_paced_path_ms": {p: k3s["host_paced_ms"][p]
+                               for p in K3_PATHS_TIMED},
+        "paths": k3s["rule_paths"],
+        "plain_ms": k3s["plain_ms"],
+        "bound_ms": k3s["bound_ms"],
+        "bound_by": k3s["bound_by"],
+        "search_bound_ms": k3s["search_bound_ms"],
+        "row_bytes_bound_ms": k3s["row_bytes_bound_ms"],
         "library_ms": None,
-        "timed_launches": stream["k3"]["launches"],
-        "timed_rows": stream["k3"]["rows"],
+        "timed_launches": k3s["launches"],
+        "timed_rows": k3s["rows"],
+        "timed_cells": k3s["cells"],
         "stream_device_ms_per_batch": stream["k3_ms_per_batch"],
+        "buffer_65536_timed_launches": k3b["launches"],
+        "buffer_65536_ms": k3b["device_ms"]["auto"],
+        "buffer_65536_host_paced_ms": k3b["host_paced_ms"]["auto"],
+        "buffer_65536_path_ms": {p: k3b["device_ms"][p]
+                                 for p in K3_PATHS_TIMED},
+        "buffer_65536_host_paced_path_ms": {p: k3b["host_paced_ms"][p]
+                                            for p in K3_PATHS_TIMED},
+        "buffer_65536_paths": k3b["rule_paths"],
+        "buffer_65536_plain_ms": k3b["plain_ms"],
+        "buffer_65536_bound_ms": k3b["bound_ms"],
         "full_width_launches": n_buckets,
         "full_width_ms": tot_c["ms"],
+        "full_width_host_paced_ms": tot_c["host_paced_ms"],
+        "full_width_path_ms": tot_p["k3"],
+        "full_width_paths": paths_c,
         "full_width_plain_ms": tot_c["plain_ms"],
         "full_width_bound_ms": tot_c["bound_ms"],
         "full_width_search_bound_ms": tot_c["search_bound_ms"],
         "full_width_bound_by": max(bound_by_c)[1],
         "full_width_row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
         "full_width_max_abs_err": max_err_count,
-        "shape": f"rmat{scale} stream probes: the "
-                 f"{stream['k3']['launches']} launches of 8 applies of "
-                 f"{STREAM_BATCH} mixed updates (launches: the main "
-                 f"path's 8 timed applies), each timed and compared on "
-                 f"every row; full_width_*: the count's plan run "
-                 f"level-free, {n_buckets} buckets, one launch each",
+        "shape": f"rmat{scale} stream probes: the {k3s['launches']} "
+                 f"launches of 8 applies of {STREAM_BATCH} mixed updates "
+                 f"(launches: the main path's 8 timed applies), each on "
+                 f"the device by the rule and by each path and compared "
+                 f"on every row; buffer_65536_*: the {k3b['launches']} "
+                 f"launches of one apply of {BIG_BUFFER} at that buffer; "
+                 f"full_width_*: the count's plan run level-free, "
+                 f"{n_buckets} buckets, one launch each",
     }, gnn["kernel"], lm["kernel"]]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

@@ -81,8 +81,8 @@
 // kStageCap entries in shared memory and searches a longer one in
 // global memory.
 //
-// Every output is written once by one thread, with a plain store: no
-// atomics on the outputs (only on shared memory: the bitmap's bits and
+// K1's and K2's outputs are written once by one thread, with a plain
+// store: no atomics on them (only on shared memory: the bitmap's bits and
 // the row counts), and the same bits on every launch.  Sentinel
 // and masked rows carry l_s = l_l = 0 and touch nothing (the K1 wrapper
 // zeroes its outputs).  Index math within the adjacency is int32:
@@ -91,14 +91,44 @@
 // scale 20 holds 3.45e9 cells).  The windows' bounds are int64, so any
 // id below 2**31 is reached.
 //
-// K3 (intersect_count_launch) keeps the row walk alone, a warp or a
-// block per row, one per row of its grid.
+// K3 (intersect_count_launch) counts with no level split, at two kinds
+// of call: the stream route's delta probes (2,048 rows at the default
+// buffer, 32,768 at a 65,536-update one; d_cand up to 16,384 and
+// d_targ 65,536 at RMAT scale 20, yet a median row of ~139 candidates)
+// and the count's buckets run level-free (Algorithm 2's hedge rounds).
+// What bound its first form, a warp or a 512-thread block per row chosen
+// by the bucket's width: a block idled on a short row; every row staged
+// a target of up to 4,096 entries for a few lookups; a longer target was
+// binary-searched in global memory (12-16 dependent loads a candidate,
+// a third of a delete probe's cells); rows that share a target read it
+// again each (a 32,768-row probe: 132 M target entries summed over the
+// rows, 15 M read once).  Now the wrapper chooses by the call's shape
+// (intersect.py:count_path), with three kernels.  A call no wider than
+// WALK_MAX_CAND keeps the warp per row (the count's narrow and middle
+// buckets: on rows of at most 256 candidates it beat the tiles below).
+// A wider call of at least COUNT_BITMAP_MIN_ROWS rows builds an
+// ItemLayout and runs the bitmap items (a third instance that gathers
+// each row's count in shared memory with no level read and writes it
+// once).  Any other wider call (a stream probe's) runs a walk balanced
+// by the rows' own lengths (count_tiles): the call's clamped candidate
+// cells cut into tiles of kTile, by the running sum of the rows' counts,
+// whatever rows they fall in, so a short row costs a few lanes and a hub
+// row many warps.  A tile inside one row bounds its candidates and finds
+// the slice of the target they span with two searches; each lane then
+// searches its six cells in that slice, or in a tile of several rows in
+// each cell's own target, the six searches in step (six loads in
+// flight).  The running sum is the launch's own: one cooperative launch
+// sums, syncs its grid and walks, with no read-back.  Counts are added
+// with integer atomics, so each row's is exact and the same on every
+// launch.  The block per row stays for a forced row walk.
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes); each entry point launches on the given stream and returns
 // cudaGetLastError() so a refused launch is never silent.
 
+#include <algorithm>
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -118,6 +148,17 @@ constexpr int kBitmapWords = 53248;        // = intersect.py BITMAP_WORDS:
 constexpr int kBitmapBytes = kBitmapWords * 4;
 constexpr int kGroups = 2;                 // 16-byte groups a lane loads
                                            // ahead
+constexpr int kTileLane = 6;               // K3's walk: cells a lane takes
+constexpr int kTile = kWarp * kTileLane;   // = intersect.py COUNT_TILE
+constexpr int kTileWarps = 8;              // its 256-thread blocks
+constexpr int kScanThreads = 256;          // K3's running sum of the rows'
+constexpr int kScanPer = 8;                // cells: rows a thread takes,
+constexpr int kScanRows = kScanThreads * kScanPer;  // = COUNT_SCAN_ROWS
+constexpr unsigned kFull = 0xffffffffu;
+
+// What an instance of the bitmap items computes: K1's c1 and c2, K2's
+// mask or K3's count.
+enum : int { kK1, kK2, kK3 };
 
 // Lower-bound membership test of key in a[0:len] (a sorted).
 __device__ __forceinline__ bool contains_global(const int* __restrict__ a,
@@ -224,6 +265,11 @@ struct Probe {
   int* c2;
   const int64_t* offsets;  // K2
   uint8_t* hits;
+  int* cnt;                // K3
+  const long long* ends;   // K3's walk: ends[r], the running sum of the
+                           // clamped candidate counts of rows 0..r, so
+                           // cell c is candidate c - ends[r - 1] of the
+                           // row r with ends[r - 1] <= c < ends[r]
 };
 
 // Set the bits of the target entries with ids in the window [lo, hi).
@@ -254,16 +300,17 @@ __device__ __forceinline__ void clear_words(uint32_t* bm, int64_t n) {
 // [4 G, 4 G + 4).  Row i owns the item's groups pre[i] .. pre[i + 1] - 1,
 // group g of them is G = gb[i] + g, and its candidates are F in [beg[i],
 // end[i]).
-template <bool kLevels>
+template <int M>
 struct ItemRows {
   int pre[kItemRows + 1];
   int gb[kItemRows];
   int beg[kItemRows];
   int end[kItemRows];
-  int rid[kLevels ? kItemRows : 1];            // K1: the row's id
-  int lus[kLevels ? kItemRows : 1];            // K1: its lev_u
-  unsigned long long cnt[kLevels ? kItemRows : 1];  // K1: c1 | c2 << 32
-  long long out[kLevels ? 1 : kItemRows];      // K2: F's byte, hits[out + F]
+  int rid[M != kK2 ? kItemRows : 1];           // K1, K3: the row's id
+  int lus[M == kK1 ? kItemRows : 1];           // K1: its lev_u
+  unsigned long long cnt[M != kK2 ? kItemRows : 1];  // K1: c1 | c2 << 32;
+                                                     // K3: the count
+  long long out[M == kK2 ? kItemRows : 1];     // K2: F's byte, hits[out + F]
 };
 
 // One warp's run [g_begin, g_end) of an item's groups against the bitmap
@@ -275,10 +322,10 @@ struct ItemRows {
 // up, and a block's level reads are all issued before any is used.
 // kOne: one window and lo >= 0, where one unsigned compare tests the
 // span (a negative id wraps past it).
-template <bool kLevels, bool kOne>
+template <int M, bool kOne>
 __device__ __forceinline__ void probe_groups(
     const Probe& a, int align, const uint32_t* bm,
-    ItemRows<kLevels>& sr, int rows, int g_begin, int g_end, int64_t lo,
+    ItemRows<M>& sr, int rows, int g_begin, int g_end, int64_t lo,
     int64_t hi, bool first_win, bool last_win) {
   constexpr int kStep = kWarp * kGroups;
   const int g_first = g_begin + static_cast<int>(threadIdx.x % kWarp);
@@ -360,21 +407,23 @@ __device__ __forceinline__ void probe_groups(
       uint32_t word[4];  // 0: a miss, outside the row, or a tail group
 #pragma unroll
       for (int e = 0; e < 4; ++e) word[e] = lookup(v[e]);
-      if constexpr (kLevels) {
-        int lv[4];  // level[c] of the hits, all in flight
+      if constexpr (M != kK2) {
+        int lv[4];  // K1: level[c] of the hits, all in flight
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          lv[e] = (word[e] & 1u) ? level_of(a.level, a.n_level, v[e]) : 0;
+          lv[e] = (M == kK1 && (word[e] & 1u))
+                      ? level_of(a.level, a.n_level, v[e]) : 0;
         if ((word[0] | word[1] | word[2] | word[3]) & 1u) {
           if (rw[u] != cur) {
             if (acc) atomicAdd(sr.cnt + cur, acc);
             cur = rw[u];
-            lu_cur = sr.lus[cur];
+            if constexpr (M == kK1) lu_cur = sr.lus[cur];
             acc = 0ull;
           }
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (word[e] & 1u) acc += lv[e] == lu_cur ? (1ull << 32) : 1ull;
+            if (word[e] & 1u)
+              acc += (M == kK1 && lv[e] == lu_cur) ? (1ull << 32) : 1ull;
         }
       } else {
         if (g0 + u * kWarp >= g_end) continue;
@@ -389,18 +438,18 @@ __device__ __forceinline__ void probe_groups(
       }
     }
   }
-  if constexpr (kLevels) {
+  if constexpr (M != kK2) {
     if (acc) atomicAdd(sr.cnt + cur, acc);
   }
 }
 
 // The bitmap items: a persistent grid reads the item count from the
 // card and each block takes items blockIdx.x, + gridDim.x, ...
-template <bool kLevels>
+template <int M>
 __global__ void __launch_bounds__(kItemThreads, 1)
 intersect_items(const Probe a) {
   extern __shared__ __align__(16) uint32_t bm[];  // zero between items
-  __shared__ ItemRows<kLevels> sr;
+  __shared__ ItemRows<M> sr;
   const int tid = threadIdx.x;
   const int warp = tid / kWarp;
   const int align = static_cast<int>(
@@ -424,9 +473,9 @@ intersect_items(const Probe a) {
         sr.gb[i] = (f >> 2) - g;
         sr.beg[i] = f;
         sr.end[i] = f + max(0, min(a.l_s[r], a.d_cand));
-        if constexpr (kLevels) {
+        if constexpr (M != kK2) {
           sr.rid[i] = r;
-          sr.lus[i] = a.lev_u[r];
+          if constexpr (M == kK1) sr.lus[i] = a.lev_u[r];
           sr.cnt[i] = 0ull;
         } else {
           sr.out[i] = a.offsets[r] - f;
@@ -451,26 +500,29 @@ intersect_items(const Probe a) {
       set_target(bm, targ, ll, lo, hi);
       __syncthreads();
       if (n_win == 1 && t_lo >= 0)
-        probe_groups<kLevels, true>(a, align, bm, sr, rows, g_begin, g_end,
-                                    lo, hi, true, true);
+        probe_groups<M, true>(a, align, bm, sr, rows, g_begin, g_end, lo, hi,
+                              true, true);
       else
-        probe_groups<kLevels, false>(a, align, bm, sr, rows, g_begin, g_end,
-                                     lo, hi, w == 0, w == n_win - 1);
+        probe_groups<M, false>(a, align, bm, sr, rows, g_begin, g_end, lo,
+                               hi, w == 0, w == n_win - 1);
       __syncthreads();
       clear_words(bm, hi - lo);
     }
-    if constexpr (kLevels) {
+    if constexpr (M == kK1) {
       for (int i = tid; i < rows; i += kItemThreads) {
         a.c1[sr.rid[i]] = static_cast<int>(sr.cnt[i] & 0xffffffffull);
         a.c2[sr.rid[i]] = static_cast<int>(sr.cnt[i] >> 32);
       }
+    } else if constexpr (M == kK3) {
+      for (int i = tid; i < rows; i += kItemThreads)
+        a.cnt[sr.rid[i]] = static_cast<int>(sr.cnt[i] & 0xffffffffull);
     }
     __syncthreads();  // before the next item stages its rows
   }
 }
 
 // The row walk, over every row: a warp per row ...
-template <bool kLevels>
+template <int M>
 __global__ void __launch_bounds__(kWarp * kRowsPerWarpBlock)
 walk_rows_warp(const Probe a) {
   const int row = blockIdx.x * kRowsPerWarpBlock + threadIdx.x / kWarp;
@@ -480,7 +532,7 @@ walk_rows_warp(const Probe a) {
   const int ls = min(a.l_s[row], a.d_cand);
   const int* targ = a.flat + a.s_l[row];
   const int ll = min(a.l_l[row], a.d_targ);
-  if constexpr (kLevels) {
+  if constexpr (M == kK1) {
     const int lu = a.lev_u[row];
     int x = 0, y = 0;
     warp_walk(cand, ls, targ, ll, lane, [&](int, int c, bool found) {
@@ -492,6 +544,12 @@ walk_rows_warp(const Probe a) {
       a.c1[row] = x;
       a.c2[row] = y;
     }
+  } else if constexpr (M == kK3) {
+    int x = 0;
+    warp_walk(cand, ls, targ, ll, lane,
+              [&](int, int, bool found) { x += found; });
+    x = warp_sum(x);
+    if (lane == 0) a.cnt[row] = x;
   } else {
     uint8_t* __restrict__ o = a.hits + a.offsets[row];
     warp_walk(cand, ls, targ, ll, lane,
@@ -500,7 +558,7 @@ walk_rows_warp(const Probe a) {
 }
 
 // ... or a block per row.
-template <bool kLevels>
+template <int M>
 __global__ void __launch_bounds__(kBlockThreads)
 walk_rows_block(const Probe a) {
   __shared__ int stage[kStageCap];
@@ -513,11 +571,13 @@ walk_rows_block(const Probe a) {
   const int ls = min(a.l_s[row], a.d_cand);
   const int* targ = a.flat + a.s_l[row];
   const int ll = min(a.l_l[row], a.d_targ);
-  if constexpr (kLevels) {
-    const int lu = a.lev_u[row];
-    int x = 0, y = 0;
+  if constexpr (M != kK2) {
+    const int lu = M == kK1 ? a.lev_u[row] : 0;
+    int x = 0, y = 0;  // K3: y stays 0
     block_walk(stage, cand, ls, targ, ll, [&](int, int c, bool found) {
-      if (found) tally(c, a.level, a.n_level, lu, x, y);
+      if (!found) return;
+      if constexpr (M == kK1) tally(c, a.level, a.n_level, lu, x, y);
+      else ++x;
     });
     x = warp_sum(x);
     y = warp_sum(y);
@@ -530,8 +590,12 @@ walk_rows_block(const Probe a) {
       x = warp_sum(lane < kBlockThreads / kWarp ? red_a[lane] : 0);
       y = warp_sum(lane < kBlockThreads / kWarp ? red_b[lane] : 0);
       if (lane == 0) {
-        a.c1[row] = x;
-        a.c2[row] = y;
+        if constexpr (M == kK1) {
+          a.c1[row] = x;
+          a.c2[row] = y;
+        } else {
+          a.cnt[row] = x;
+        }
       }
     }
   } else {
@@ -551,70 +615,331 @@ int sm_count() {
   return n;
 }
 
-// The bitmap items with a layout, else the row walk over every row: one
-// launch either way.
-template <bool kLevels>
-int launch_probe(const Probe& a, cudaStream_t st) {
+// ------------------------------------------------------------------ K3
+
+__device__ __forceinline__ int cells_of(const int* __restrict__ l_s, int r,
+                                        int q, int d_cand) {
+  return r < q ? max(0, min(__ldg(l_s + r), d_cand)) : 0;
+}
+
+// Over a block of kScanThreads: the sum of v over the threads before this
+// one, and in total over all of them.  sh holds kScanThreads / kWarp
+// words of shared memory, free again on return.
+__device__ __forceinline__ long long scan_block(long long v, long long* sh,
+                                                long long& total) {
+  const int lane = threadIdx.x % kWarp, w = threadIdx.x / kWarp;
+  long long inc = v;
+#pragma unroll
+  for (int o = 1; o < kWarp; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, inc, o);
+    if (lane >= o) inc += y;
+  }
+  if (lane == kWarp - 1) sh[w] = inc;
+  __syncthreads();
+  long long before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kScanThreads / kWarp; ++i) {
+    before += i < w ? sh[i] : 0;
+    total += sh[i];
+  }
+  __syncthreads();
+  return before + inc - v;
+}
+
+// The first i in (lo, hi] with key < a[i], given a[lo] <= key < a[hi]
+// (lo may be -1 and hi the array's length: those two are never read).
+// Each half of the warp searches with its own key, lo and hi, 16 ways a
+// round: one load a lane, one ballot.
+// Loads for the searches: the target read-only (__ldg); the running sum,
+// which the launch writes itself, through L2 (__ldcg).
+__device__ __forceinline__ int ld(const int* p) { return __ldg(p); }
+__device__ __forceinline__ long long ld(const long long* p) {
+  return __ldcg(p);
+}
+
+template <class T>
+__device__ __forceinline__ int upper_bound16(const T* __restrict__ a, int lo,
+                                             int hi, T key) {
+  const int sub = threadIdx.x % 16;
+  const int half = threadIdx.x % kWarp & 16;
+  while (__any_sync(kFull, hi - lo > 1)) {
+    const int p = lo + static_cast<int>(
+                           (static_cast<int64_t>(hi - lo) * (sub + 1)) >> 4);
+    const bool le = sub != 15 && (p == lo || ld(a + p) <= key);
+    const unsigned k = __popc((__ballot_sync(kFull, le) >> half) & 0xffffu);
+    const int nlo =
+        __shfl_sync(kFull, p, half + max(static_cast<int>(k) - 1, 0));
+    hi = __shfl_sync(kFull, p, half + k);
+    lo = k ? nlo : lo;
+  }
+  return hi;
+}
+
+// Whether each cell's v[k] is in p[base[k] : base[k] + len[k]] (sorted):
+// every range halved in step with the others, so all of a lane's loads of
+// one step are in flight at once.  A cell with len[k] < 1 is a miss.
+__device__ __forceinline__ unsigned find_cells(const int* __restrict__ p,
+                                               const int (&v)[kTileLane],
+                                               int (&base)[kTileLane],
+                                               int (&len)[kTileLane]) {
+  auto at = [&](int i) { return __ldg(p + i); };
+  for (bool more = true; more;) {
+    int x[kTileLane];
+#pragma unroll
+    for (int k = 0; k < kTileLane; ++k)
+      x[k] = len[k] > 1 ? at(base[k] + (len[k] >> 1)) : 0;
+    more = false;
+#pragma unroll
+    for (int k = 0; k < kTileLane; ++k) {
+      if (len[k] > 1) {
+        const int h = len[k] >> 1;
+        if (x[k] <= v[k]) base[k] += h;  // the last entry <= v stays in
+        len[k] -= h;
+        more |= len[k] > 1;
+      }
+    }
+  }
+  unsigned hit = 0;
+#pragma unroll
+  for (int k = 0; k < kTileLane; ++k)
+    if (len[k] == 1 && at(base[k]) == v[k]) hit |= 1u << k;
+  return hit;
+}
+
+// The walk, one cooperative launch in three phases.  1: each chunk of
+// kScanRows rows writes its rows' running sum of clamped cells (ends,
+// inclusive, within the chunk), its total and its rows' zero counts.  2:
+// each chunk after the first adds the totals of the chunks before it.
+// Each phase ends in a grid-wide sync.  3: the call's cells cut into
+// tiles of kTile, whatever rows they fall in, and the warps of the grid
+// (all resident at once: a cooperative launch) taking tiles t = warp, +
+// warps, ....  Lane l takes a tile's cells l, l + 32, ... (coalesced
+// within a row).  A warp finds the row of its tile's first cell by a
+// search of ends, then resolves its cells' rows a window of 32 rows at a
+// time (each lane loads one row's bounds; a cell finds its lane by five
+// shuffles, and a slot k that every lane has resolved is skipped); the
+// next window is the next 32 rows, or a search where a window resolved
+// nothing (a run of sentinel rows).  A tile inside one row bounds its
+// candidates [vmin, vmax] (vmin the least id >= 0) and finds the slice of
+// the target in that range with two searches (one per half-warp); each
+// cell then searches that slice alone.  A tile of several rows searches
+// each cell's own target, all in global memory.  Row counts are added
+// with integer atomics (a tile inside one row: one add), so the order in
+// which warps finish does not change them.
+__global__ void __launch_bounds__(kTileWarps * kWarp)
+count_tiles(const Probe a, long long* __restrict__ totals) {
+  static_assert(kScanThreads == kTileWarps * kWarp, "one block size");
+  namespace cg = cooperative_groups;
+  __shared__ long long sh[kScanThreads / kWarp];
+  long long* ends = const_cast<long long*>(a.ends);
+  const int nb = (a.q + kScanRows - 1) / kScanRows;
+  for (int b = blockIdx.x; b < nb; b += gridDim.x) {  // 1
+    const int r0 = b * kScanRows + threadIdx.x * kScanPer;
+    int c[kScanPer];
+    long long t = 0, total;
+#pragma unroll
+    for (int i = 0; i < kScanPer; ++i) {
+      c[i] = cells_of(a.l_s, r0 + i, a.q, a.d_cand);
+      t += c[i];
+    }
+    long long run = scan_block(t, sh, total);
+#pragma unroll
+    for (int i = 0; i < kScanPer; ++i) {
+      run += c[i];
+      if (r0 + i < a.q) {
+        ends[r0 + i] = run;
+        a.cnt[r0 + i] = 0;
+      }
+    }
+    if (threadIdx.x == 0) totals[b] = total;
+  }
+  cg::this_grid().sync();
+  if (nb > 1) {  // 2
+    for (int b = blockIdx.x; b < nb; b += gridDim.x) {
+      if (b == 0) continue;
+      long long off = 0;
+      for (int i = threadIdx.x; i < b; i += kScanThreads)
+        off += __ldcg(totals + i);
+      scan_block(off, sh, off);
+      const int r0 = b * kScanRows + threadIdx.x * kScanPer;
+#pragma unroll
+      for (int i = 0; i < kScanPer; ++i)
+        if (r0 + i < a.q) ends[r0 + i] += off;
+    }
+    cg::this_grid().sync();
+  }
+  const int lane = threadIdx.x % kWarp;  // 3
+  const long long cells = ld(a.ends + a.q - 1);
+  const long long tiles = (cells + kTile - 1) / kTile;
+  const long long warps = static_cast<long long>(gridDim.x) * kTileWarps;
+  for (long long t = static_cast<long long>(blockIdx.x) * kTileWarps +
+                     threadIdx.x / kWarp;
+       t < tiles; t += warps) {
+    const long long c0 = t * kTile;
+    const int n = static_cast<int>(min(static_cast<long long>(kTile),
+                                       cells - c0));
+    int v[kTileLane], base[kTileLane], len[kTileLane], row[kTileLane];
+    unsigned todo = 0;
+#pragma unroll
+    for (int k = 0; k < kTileLane; ++k) {
+      v[k] = -1;
+      base[k] = len[k] = 0;
+      row[k] = -1;
+      if (lane + kWarp * k < n) todo |= 1u << k;
+    }
+    for (int r = -1, search = 1;;) {
+      // the window: 32 rows from r
+      const int first = __reduce_min_sync(
+          kFull, todo ? lane + kWarp * (__ffs(todo) - 1) : kTile);
+      if (first >= kTile) break;
+      if (search)
+        r = upper_bound16<long long>(a.ends, max(r, 0) - 1, a.q - 1,
+                                     c0 + first);
+      const int rr = r + lane;
+      const bool in = rr < a.q;
+      const long long e = in ? ld(a.ends + rr) : LLONG_MAX;
+      long long b = __shfl_up_sync(kFull, e, 1);
+      if (lane == 0) b = r > 0 ? ld(a.ends + r - 1) : 0;
+      // the row's end and its first candidate's flat index, both counted
+      // from the tile's first cell
+      const int end = static_cast<int>(max(-1ll, min(e - c0, kTile + 1ll)));
+      const int from =
+          in ? static_cast<int>(__ldg(a.s_s + rr) + (c0 - b)) : 0;
+      const int tb = in ? __ldg(a.s_l + rr) : 0;
+      const int tl = in ? max(0, min(__ldg(a.l_l + rr), a.d_targ)) : 0;
+      const unsigned open = todo;
+#pragma unroll
+      for (int k = 0; k < kTileLane; ++k) {
+        if (!__any_sync(kFull, todo >> k & 1u)) continue;
+        const int x = lane + kWarp * k;
+        int l = 0;  // the first lane whose row ends past x (31 at most)
+#pragma unroll
+        for (int s = 16; s > 0; s >>= 1)
+          if (__shfl_sync(kFull, end, l + s - 1) <= x) l += s;
+        const int c_end = __shfl_sync(kFull, end, l);
+        const int c_from = __shfl_sync(kFull, from, l);
+        const int c_tb = __shfl_sync(kFull, tb, l);
+        const int c_tl = __shfl_sync(kFull, tl, l);
+        if ((todo >> k & 1u) && x < c_end) {
+          todo &= ~(1u << k);
+          row[k] = r + l;
+          v[k] = __ldg(a.flat + c_from + x);
+          base[k] = c_tb;
+          len[k] = c_tl;
+        }
+      }
+      search = !__any_sync(kFull, todo != open);
+      if (!search) r += kWarp;
+    }
+    int r_last = -1;
+#pragma unroll
+    for (int k = 0; k < kTileLane; ++k) r_last = max(r_last, row[k]);
+    r_last = __reduce_max_sync(kFull, r_last);
+    const int r0 = __shfl_sync(kFull, row[0], 0);
+    unsigned hit;
+    if (r0 == r_last) {  // a tile inside one row
+      int vmin = INT_MAX, vmax = -1;
+#pragma unroll
+      for (int k = 0; k < kTileLane; ++k) {
+        if (v[k] >= 0) {
+          vmin = min(vmin, v[k]);
+          vmax = max(vmax, v[k]);
+        }
+      }
+      vmin = __reduce_min_sync(kFull, vmin);
+      vmax = __reduce_max_sync(kFull, vmax);
+      if (vmax < 0) continue;  // no candidate can be found
+      const int tb = __shfl_sync(kFull, base[0], 0);
+      const int tl = __shfl_sync(kFull, len[0], 0);
+      // [s0, s0 + m): the target's entries in [vmin, vmax]
+      const int bound = upper_bound16<int>(a.flat + tb, -1, tl,
+                                           lane < 16 ? vmin - 1 : vmax);
+      const int s0 = __shfl_sync(kFull, bound, 0);
+      const int m = __shfl_sync(kFull, bound, 16) - s0;
+#pragma unroll
+      for (int k = 0; k < kTileLane; ++k) {
+        base[k] = tb + s0;
+        len[k] = v[k] >= 0 ? m : 0;
+      }
+      hit = find_cells(a.flat, v, base, len);
+      const int tot = __reduce_add_sync(kFull, __popc(hit));
+      if (lane == 0 && tot) atomicAdd(a.cnt + r0, tot);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kTileLane; ++k)
+        if (v[k] < 0) len[k] = 0;
+      hit = find_cells(a.flat, v, base, len);
+      int cur = -1, acc = 0;  // this lane's hits in row cur
+#pragma unroll
+      for (int k = 0; k < kTileLane; ++k) {
+        if (hit >> k & 1u) {
+          if (row[k] != cur) {
+            if (acc) atomicAdd(a.cnt + cur, acc);
+            cur = row[k];
+            acc = 0;
+          }
+          ++acc;
+        }
+      }
+      if (acc) atomicAdd(a.cnt + cur, acc);
+    }
+  }
+}
+
+// Blocks of count_tiles that fit on the card at once.
+int tile_blocks() {
+  static const int n = [] {
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, count_tiles,
+                                                  kTileWarps * kWarp, 0);
+    return std::max(1, per_sm) * sm_count();
+  }();
+  return n;
+}
+
+// The bitmap items with a layout; else K3's tiles where scratch is given;
+// else the row walk over every row.  One launch each (K3's items: a
+// memset first).
+template <int M>
+int launch_probe(const Probe& a, long long* scratch, cudaStream_t st) {
   const int q = a.q;
   if (a.perm) {
     static const cudaError_t attr = cudaFuncSetAttribute(
-        intersect_items<kLevels>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kBitmapBytes);
+        intersect_items<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBitmapBytes);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    intersect_items<kLevels><<<min(q, sm_count()), kItemThreads,
-                               kBitmapBytes, st>>>(a);
+    if constexpr (M == kK3) {  // the rows no item writes: zeros
+      const cudaError_t zero = cudaMemsetAsync(a.cnt, 0, sizeof(int) * q, st);
+      if (zero != cudaSuccess) return static_cast<int>(zero);
+    }
+    intersect_items<M><<<min(q, sm_count()), kItemThreads, kBitmapBytes,
+                         st>>>(a);
+  } else if (M == kK3 && scratch) {
+    // the running sum in scratch[0 : q], the chunks' totals after it; a
+    // grid no larger than the cells could need (q * d_cand at most) nor
+    // than fits on the card at once
+    const int64_t tiles =
+        (static_cast<int64_t>(q) * std::max(a.d_cand, 0) + kTile - 1) /
+        kTile;
+    int blocks = static_cast<int>(
+        std::min(std::max(int64_t{1}, (tiles + kTileWarps - 1) / kTileWarps),
+                 static_cast<int64_t>(tile_blocks())));
+    Probe w = a;
+    w.ends = scratch;
+    long long* totals = scratch + q;
+    void* args[] = {&w, &totals};
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(count_tiles), dim3(blocks),
+        dim3(kTileWarps * kWarp), args, 0, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
   } else if (a.d_cand <= kWarpMaxCand) {
     const int blocks = (q + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
-    walk_rows_warp<kLevels><<<blocks, kWarp * kRowsPerWarpBlock, 0, st>>>(a);
+    walk_rows_warp<M><<<blocks, kWarp * kRowsPerWarpBlock, 0, st>>>(a);
   } else {
-    walk_rows_block<kLevels><<<q, kBlockThreads, 0, st>>>(a);
+    walk_rows_block<M><<<q, kBlockThreads, 0, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// ------------------------------------------------------------------ K3
-
-__global__ void __launch_bounds__(kWarp * kRowsPerWarpBlock)
-intersect_count_warp(const int* __restrict__ flat,
-                     const int* __restrict__ s_s,
-                     const int* __restrict__ l_s,
-                     const int* __restrict__ s_l,
-                     const int* __restrict__ l_l, int q, int d_cand,
-                     int d_targ, int* __restrict__ cnt) {
-  const int row = blockIdx.x * kRowsPerWarpBlock + (threadIdx.x / kWarp);
-  const int lane = threadIdx.x % kWarp;
-  if (row >= q) return;  // uniform across the warp
-  int a = 0;
-  warp_walk(flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
-            min(l_l[row], d_targ), lane,
-            [&](int, int, bool found) { a += found; });
-  a = warp_sum(a);
-  if (lane == 0) cnt[row] = a;
-}
-
-__global__ void __launch_bounds__(kBlockThreads)
-intersect_count_block(const int* __restrict__ flat,
-                      const int* __restrict__ s_s,
-                      const int* __restrict__ l_s,
-                      const int* __restrict__ s_l,
-                      const int* __restrict__ l_l, int d_cand, int d_targ,
-                      int* __restrict__ cnt) {
-  __shared__ int stage[kStageCap];
-  __shared__ int red[kBlockThreads / kWarp];
-  const int row = blockIdx.x;
-  int a = 0;
-  block_walk(stage, flat + s_s[row], min(l_s[row], d_cand), flat + s_l[row],
-             min(l_l[row], d_targ),
-             [&](int, int, bool found) { a += found; });
-  a = warp_sum(a);
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  if (lane == 0) red[warp] = a;
-  __syncthreads();
-  if (warp == 0) {
-    a = warp_sum(lane < kBlockThreads / kWarp ? red[lane] : 0);
-    if (lane == 0) cnt[row] = a;
-  }
 }
 
 }  // namespace
@@ -651,7 +976,7 @@ int intersect_levels_launch(const int* flat, const int* s_s, const int* l_s,
   a.lev_u = lev_u;
   a.c1 = c1;
   a.c2 = c2;
-  return launch_probe<true>(a, static_cast<cudaStream_t>(stream));
+  return launch_probe<kK1>(a, nullptr, static_cast<cudaStream_t>(stream));
 }
 
 // Launch K2 over q rows into hits[0 : offsets[q]] (one byte per clamped
@@ -678,25 +1003,37 @@ int intersect_hits_launch(const int* flat, const int* s_s, const int* l_s,
   a.n_items = n_items;
   a.offsets = offsets;
   a.hits = hits;
-  return launch_probe<false>(a, static_cast<cudaStream_t>(stream));
+  return launch_probe<kK2>(a, nullptr, static_cast<cudaStream_t>(stream));
 }
 
-// Launch K3 over q rows into cnt[0 : q].  Returns a cudaError_t (0 =
-// launched).
+// Launch K3 over q rows into cnt[0 : q]: the bitmap items where perm is
+// not null (laid out as K1); else the tiles where scratch (int64[q +
+// ceil(q / kScanRows)]: the running sum of the rows' cells, then the
+// chunks' totals) is not null; else the row walk (a warp per row up to
+// kWarpMaxCand, a block per row above).  cnt needs no zeros on entry.
+// Returns a cudaError_t (0 = launched).
 int intersect_count_launch(const int* flat, const int* s_s, const int* l_s,
-                           const int* s_l, const int* l_l, int q, int d_cand,
-                           int d_targ, int* cnt, void* stream) {
+                           const int* s_l, const int* l_l,
+                           long long* scratch, const int* perm,
+                           const int64_t* cum, const int* item_start,
+                           const int* n_items, int q, int d_cand, int d_targ,
+                           int* cnt, void* stream) {
   if (q <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d_cand <= kWarpMaxCand) {
-    const int blocks = (q + kRowsPerWarpBlock - 1) / kRowsPerWarpBlock;
-    intersect_count_warp<<<blocks, kWarp * kRowsPerWarpBlock, 0, st>>>(
-        flat, s_s, l_s, s_l, l_l, q, d_cand, d_targ, cnt);
-    return static_cast<int>(cudaGetLastError());
-  }
-  intersect_count_block<<<q, kBlockThreads, 0, st>>>(
-      flat, s_s, l_s, s_l, l_l, d_cand, d_targ, cnt);
-  return static_cast<int>(cudaGetLastError());
+  Probe a{};
+  a.flat = flat;
+  a.s_s = s_s;
+  a.l_s = l_s;
+  a.s_l = s_l;
+  a.l_l = l_l;
+  a.q = q;
+  a.d_cand = d_cand;
+  a.d_targ = d_targ;
+  a.perm = perm;
+  a.cum = cum;
+  a.item_start = item_start;
+  a.n_items = n_items;
+  a.cnt = cnt;
+  return launch_probe<kK3>(a, scratch, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

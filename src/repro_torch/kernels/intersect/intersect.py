@@ -23,6 +23,16 @@ in shared memory, one lookup a candidate).  ``path="bitmap"`` or
 ``"walk"`` forces one side on any bucket (:func:`item_layout`).
 :func:`~repro_torch.kernels.intersect.ref.probe_items_ref` is the item
 walk in plain PyTorch.
+
+K3 chooses among three kernels (:func:`count_path`): the row walk on a
+bucket no wider than ``WALK_MAX_CAND``, the bitmap items on a wider
+call of at least ``COUNT_BITMAP_MIN_ROWS`` rows, and on any other call
+(a stream probe's) a walk balanced by the rows' own lengths: the call's
+clamped candidate cells cut into tiles of ``COUNT_TILE`` by their
+running sum (the launch's own, in the wrapper's scratch), whatever rows
+they fall in.  ``path`` forces any of the three (``COUNT_PATHS``).
+:func:`~repro_torch.kernels.intersect.ref.count_tiles_ref` is that walk
+in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -46,7 +56,8 @@ _ARGTYPES = {
                          _I, _I, _P, _P, _P],
     "intersect_hits": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
                        _P],
-    "intersect_count": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "intersect_count": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P, _P],
 }
 _FNS: dict = {}
 
@@ -62,7 +73,21 @@ WALK_MAX_CAND = 256
 #: fewest rows of a call that builds a layout: its ~70 queued torch ops
 #: cost the host more than the walk of a shorter call takes
 BITMAP_MIN_ROWS = 1 << 12
+#: K3's fewest rows of a call wider than ``WALK_MAX_CAND`` that takes the
+#: bitmap (fewer take the tiles).  Set by ``chip_smoke.py`` on one H100
+#: (700 W): the 32,768-row delete probes of a 65,536-update stream buffer
+#: take ~0.24 ms of device time on the tiles against ~0.9 on the bitmap
+#: (its layout ~1.2-1.5 ms host-paced), RMAT scale 20's 2,921,462-row
+#: wide bucket ~56 ms on the tiles against ~10 on the bitmap
+COUNT_BITMAP_MIN_ROWS = 1 << 16
+#: candidate cells of one tile of K3's tiles (``kTile``: 6 a lane)
+COUNT_TILE = 192
+#: rows of one chunk of K3's running sum (``kScanRows``): its scratch
+#: holds the sum and one total a chunk
+COUNT_SCAN_ROWS = 2048
 PATHS = ("auto", "bitmap", "walk")
+#: K3's paths: K1's and K2's, and its tiles
+COUNT_PATHS = PATHS + ("tiles",)
 
 _DEAD = 2**31 - 1  # sort key of a row with no candidates
 
@@ -186,20 +211,38 @@ def _check(d_cand, d_targ, per_row, **ts) -> torch.device:
 
 
 def item_layout(s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int,
-                path: str = "auto", align: int = 0):
-    """The :class:`ItemLayout` of a K1 or K2 call, or None where every
-    row takes the row walk: ``path="walk"``, or ``"auto"`` on a bucket
-    no wider than ``WALK_MAX_CAND`` or of fewer than ``BITMAP_MIN_ROWS``
-    rows."""
+                path: str = "auto", align: int = 0,
+                min_rows: int | None = None):
+    """The :class:`ItemLayout` of a K1, K2 or K3 call, or None where
+    every row takes the row walk: ``path="walk"``, or ``"auto"`` on a
+    bucket no wider than ``WALK_MAX_CAND`` or of fewer than ``min_rows``
+    rows (default ``BITMAP_MIN_ROWS``; K3 passes
+    ``COUNT_BITMAP_MIN_ROWS``)."""
     if path not in PATHS:
         raise ValueError(f"path must be one of {PATHS}; got {path!r}")
     if int(d_cand) >= 2**31 or int(d_targ) >= 2**31:
         raise ValueError(f"d_cand/d_targ exceed int32: {d_cand}, {d_targ}")
+    if min_rows is None:
+        min_rows = BITMAP_MIN_ROWS
     if path == "walk" or (path == "auto" and (
-            d_cand <= WALK_MAX_CAND or s_s.shape[0] < BITMAP_MIN_ROWS)):
+            d_cand <= WALK_MAX_CAND or s_s.shape[0] < min_rows)):
         return None
     return ItemLayout(s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ,
                       align=align)
+
+
+def count_path(q: int, d_cand: int, path: str = "auto") -> str:
+    """The kernel that a K3 call of ``q`` rows and width ``d_cand`` runs:
+    ``path`` where it is forced, else by shape ``"walk"`` (a warp per
+    row) up to ``WALK_MAX_CAND``, ``"bitmap"`` from
+    ``COUNT_BITMAP_MIN_ROWS`` rows, ``"tiles"`` between."""
+    if path not in COUNT_PATHS:
+        raise ValueError(f"path must be one of {COUNT_PATHS}; got {path!r}")
+    if path != "auto":
+        return path
+    if d_cand <= WALK_MAX_CAND:
+        return "walk"
+    return "bitmap" if q >= COUNT_BITMAP_MIN_ROWS else "tiles"
 
 
 def _align(flat: torch.Tensor) -> int:
@@ -302,29 +345,43 @@ def intersect_hits(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int,
     return offsets, hits
 
 
-def intersect_count(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int):
+def intersect_count(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int,
+                    path: str = "auto"):
     """Per-row hit count int32[Q]: how many of the candidates
     ``flat[s_s : s_s + min(l_s, d_cand)]`` are found in the sorted target
     ``flat[s_l : s_l + min(l_l, d_targ)]`` — K1's ``c1 + c2`` without the
     level split.
 
-    Every operand is a 1-D int32 tensor on one device."""
+    Every operand is a 1-D int32 tensor on one device.  On the card
+    ``path`` chooses the kernel (:func:`count_path`); the result does not
+    depend on it.  One call is one launch (the bitmap's: its layout's
+    torch ops, a memset and the items); the tiles' scratch comes from
+    ``torch.empty``."""
+    if path not in COUNT_PATHS:
+        raise ValueError(f"path must be one of {COUNT_PATHS}; got {path!r}")
     dev = _check(d_cand, d_targ, ("l_s", "s_l", "l_l"),
                  flat=flat, s_s=s_s, l_s=l_s, s_l=s_l, l_l=l_l)
     if dev.type == "cpu":
         return intersect_count_ref(flat, s_s, l_s, s_l, l_l,
                                    d_cand=d_cand, d_targ=d_targ)
-    flat, s_s, l_s, s_l, l_l = (
-        t.contiguous() for t in (flat, s_s, l_s, s_l, l_l)
-    )
+    ts = dict(zip(("flat", "s_s", "l_s", "s_l", "l_l"), (
+        t.contiguous() for t in (flat, s_s, l_s, s_l, l_l))))
     q = s_s.shape[0]
-    cnt = torch.empty(q, dtype=torch.int32, device=dev)
+    cnt = torch.empty(q, dtype=torch.int32, device=dev)  # zeroed on the card
     if q == 0:
         return cnt
+    which = count_path(q, d_cand, path)
+    lay = item_layout(ts["s_s"], ts["l_s"], ts["s_l"], ts["l_l"],
+                      d_cand=d_cand, d_targ=d_targ,
+                      path="bitmap" if which == "bitmap" else "walk",
+                      align=_align(ts["flat"]))
+    scratch = None if which != "tiles" else torch.empty(
+        q + -(-q // COUNT_SCAN_ROWS), dtype=torch.int64, device=dev)
     _launch(
         "intersect_count", dev,
-        flat.data_ptr(), s_s.data_ptr(), l_s.data_ptr(), s_l.data_ptr(),
-        l_l.data_ptr(), int(q), int(d_cand), int(d_targ), cnt.data_ptr(),
-        shape=f"q={q}, d_cand={d_cand}, d_targ={d_targ}",
+        *(ts[k].data_ptr() for k in ("flat", "s_s", "l_s", "s_l", "l_l")),
+        None if scratch is None else scratch.data_ptr(), *_layout_ptrs(lay),
+        int(q), int(d_cand), int(d_targ), cnt.data_ptr(),
+        shape=f"q={q}, d_cand={d_cand}, d_targ={d_targ}, path={which}",
     )
     return cnt

@@ -31,7 +31,8 @@ because the dense ``bool[Q, Dc]`` does not fit at Graph500 scale 20.
 
 K3, the level-free count ``|cand ∩ targ|`` per row, on CSR bounds:
 :func:`intersect_count_ref` (on the dense blocks it is the row sum of
-:func:`hits_ref`).
+:func:`hits_ref`); :func:`count_tiles_ref` is its walk as the kernel
+does it (tiles of cells, slices of the target).
 """
 from __future__ import annotations
 
@@ -213,6 +214,97 @@ def intersect_count_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int,
         flat, s_s, l_s, s_l, l_l.clamp(max=d_targ),
         d_cand=d_cand, num_steps=search_steps(d_targ),
     )
+
+
+def _upper_bound(flat, base, n, key):
+    """Per element: how many of ``flat[base : base + n]`` (sorted) are
+    ``<= key`` — the first index past them."""
+    lo = torch.zeros_like(n)
+    hi = n.clone()
+    top = max(0, flat.shape[0] - 1)
+    while bool((lo < hi).any()):
+        on = lo < hi
+        mid = (lo + hi) // 2
+        le = flat[(base + mid).clamp(0, top)] <= key
+        lo = torch.where(on & le, mid + 1, lo)
+        hi = torch.where(on & ~le, mid, hi)
+    return lo
+
+
+def _find_halving(flat, base, n, v):
+    """Whether ``v`` is in ``flat[base : base + n]`` (sorted), by the
+    kernel's halving: keep the last entry ``<= v`` in range, ``n -= n //
+    2`` a step, then compare the one left (``n < 1``: a miss)."""
+    top = max(0, flat.shape[0] - 1)
+    while bool((n > 1).any()):
+        on = n > 1
+        h = n >> 1
+        x = flat[torch.where(on, base + h, 0).clamp(0, top)]
+        base = torch.where(on & (x <= v), base + h, base)
+        n = torch.where(on, n - h, n)
+    one = n == 1
+    return one & (flat[torch.where(one, base, 0).clamp(0, top)] == v)
+
+
+def count_tiles_ref(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int,
+                    tile: int | None = None):
+    """K3's walk as the kernel does it, in plain PyTorch: ``(cnt
+    int32[Q], stats)``, equal to :func:`intersect_count_ref`.
+
+    The clamped candidate cells, row after row, are cut into tiles of
+    ``tile`` cells (default ``COUNT_TILE``) by their running sum
+    (:func:`hit_offsets`), whatever rows they fall in; a tile's first
+    row and each cell's row are the first row whose running sum passes
+    the cell.  A tile inside one row searches only the slice of the
+    target in ``[vmin, vmax]``, its least and greatest candidate ``>=
+    0`` (two searches give that slice); a tile of several rows searches
+    each cell's whole target.  Each search is the kernel's halving; the
+    hits are summed per row, tile by tile.  ``stats``: the tiles, those
+    inside one row, and those whose slice is shorter than their
+    target."""
+    from repro_torch.kernels.intersect.intersect import COUNT_TILE
+
+    tile = COUNT_TILE if tile is None else int(tile)
+    q = s_s.shape[0]
+    dev = s_s.device
+    cnt = torch.zeros(q, dtype=torch.int32, device=dev)
+    ends = hit_offsets(l_s, d_cand=d_cand)[1:]
+    cells = int(ends[-1]) if q else 0
+    stats = dict(tiles=-(-cells // tile), one_row_tiles=0, narrowed_tiles=0)
+    if cells == 0:
+        return cnt, stats
+    cell = torch.arange(cells, dtype=torch.int64, device=dev)
+    t = cell // tile
+    first = torch.arange(stats["tiles"], device=dev) * tile
+    last = torch.clamp(first + tile, max=cells) - 1
+    t_row = torch.searchsorted(ends, first, right=True)
+    one = t_row == torch.searchsorted(ends, last, right=True)
+    row = torch.searchsorted(ends, cell, right=True)
+    ls = l_s.clamp(0, max(0, int(d_cand))).long()
+    ll = l_l.clamp(0, max(0, int(d_targ))).long()
+    v = flat[s_s[row].long() + cell - (ends[row] - ls[row])].long()
+    # a tile inside one row: its candidates' span and the target's slice
+    real = v >= 0
+    vmin = torch.full((stats["tiles"],), 2**40, dtype=torch.int64,
+                      device=dev).scatter_reduce(
+        0, t, torch.where(real, v, 2**40), "amin")
+    vmax = torch.full((stats["tiles"],), -1, dtype=torch.int64,
+                      device=dev).scatter_reduce(
+        0, t, torch.where(real, v, -1), "amax")
+    tb, tl = s_l[t_row].long(), ll[t_row]
+    s0 = _upper_bound(flat, tb, tl, vmin - 1)
+    m = _upper_bound(flat, tb, tl, vmax) - s0
+    live = one & (vmax >= 0)
+    stats["one_row_tiles"] = int(one.sum())
+    stats["narrowed_tiles"] = int((live & (m < tl)).sum())
+    inside = one[t]
+    base = torch.where(inside, (tb + s0)[t], s_l[row].long())
+    n = torch.where(real, torch.where(inside, m[t], ll[row]), 0)
+    found = _find_halving(flat, base, n, v)
+    # per (tile, row) sums, then their sum per row (the kernel's atomics)
+    key, part = torch.unique(t[found] * q + row[found], return_counts=True)
+    cnt.index_add_(0, key % q, part.to(torch.int32))
+    return cnt, stats
 
 
 # ---------------------------------------------- K1 and K2's item walk

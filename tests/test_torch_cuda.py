@@ -5,7 +5,12 @@ many items, targets past 65,536 entries, a span wider than the bitmap,
 two ``lev_u`` on one target, empty and all-sentinel launches, each
 repeated bit for bit), the count, find and per-vertex paths at RMAT
 scale 16 going through them, ``ops.horizontal_edge_counts``, and stream sessions whose
-delta probes go through K3 (K2 with credit); K5 against its plain
+delta probes go through K3 (K2 with credit); K3 by each path (the bitmap
+items, the row walk, the length-balanced tiles, the rule) at the stream
+probes' shapes,
+on the bitmap cases, on tiles of many rows and runs of sentinel rows,
+on every rmat16 bucket and on the launches of rmat16 sessions at
+buffers of 4,096 and 65,536, each launched twice; K5 against its plain
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
 bit across launches and against its chunk-then-carry order in plain
@@ -213,8 +218,9 @@ def test_find_and_per_vertex_rmat16_go_through_k2(cuda_device):
     np.testing.assert_array_equal(found, r.per_vertex)
 
 
-# K3 takes K1's two mappings too: the same cases reach the warp kernel,
-# the staged and the global-memory branch of the block kernel, and clamps.
+# K3 under the rule by shape (every call here has 3,000 rows, so it walks):
+# short rows in tiles of several rows, long rows in tiles of one (their
+# target's slice staged or searched in global memory), and clamps.
 @pytest.mark.parametrize("d_cand,d_targ,d_list", [
     (32, 1024, 1200),      # warp kernel
     (256, 300, 1200),      # warp kernel, clamped targets
@@ -435,6 +441,199 @@ def test_stream_session_goes_through_k3_and_matches_the_cpu(cuda_device,
     got = {k: tkern.LAUNCHES[k] - before[k] for k in before}
     assert got["intersect_count"] == 0
     assert gpu.count().c1 == fresh.c1 and gpu.count().k == fresh.k
+
+
+def _k3_paths_match(ops, kw, paths=tkern.COUNT_PATHS):
+    """K3 by each path equal to its plain version on every row, launched
+    twice (the same bits), one count a launch."""
+    want = intersect_count_ref(*ops[:5], **kw)
+    for path in paths:
+        before = tkern.LAUNCHES["intersect_count"]
+        first = tkern.intersect_count(*ops[:5], path=path, **kw)
+        again = tkern.intersect_count(*ops[:5], path=path, **kw)
+        torch.cuda.synchronize()
+        assert tkern.LAUNCHES["intersect_count"] == before + 2
+        assert torch.equal(first, want), path
+        assert torch.equal(again, first), path
+    return want
+
+
+def _probe_like_operands(rng, *, q, live, d_cand, n_ids, hub_len,
+                         hub_rows):
+    """A delta probe's operands at its own shape: ``live`` rows of
+    heavy-tailed candidate lists (median ~140, a few of ``d_cand`` and
+    one of 16,384 when d_cand allows) against targets of up to
+    ``hub_len`` entries, ``hub_rows`` of them one shared hub target,
+    negative ids in one list; the other rows sentinels (l_s = l_l = 0)
+    spread among them."""
+    lens = np.minimum(rng.lognormal(np.log(140), 1.3, size=2 * live)
+                      .astype(np.int64) + 1, d_cand)
+    lens[0] = min(d_cand, 16384)
+    lists = [np.unique(rng.integers(0, n_ids, size=int(x))) for x in lens]
+    lists[1] = np.r_[-3, -1, lists[1]]
+    lists.append(np.unique(rng.integers(0, n_ids, size=hub_len)))
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    sizes = np.array([len(x) for x in lists], np.int32)
+    u = rng.integers(0, live, size=q)
+    w = rng.integers(live, 2 * live, size=q)
+    u[0] = 0
+    w[:hub_rows] = 2 * live
+    ls, ll = sizes[u], sizes[w]
+    dead = rng.permutation(q)[:q - live]
+    ls[dead] = 0
+    ll[dead] = 0
+    return (flat, starts[u], ls, starts[w], ll)
+
+
+# (q, live, d_cand, n_ids, hub_len, hub_rows, d_targ): the stream's probe
+# shapes at RMAT scale 20, synthetic
+K3_PROBES = {
+    "delete_probe": (2048, 2048, 16384, 1_048_576, 64807, 300, 65536),
+    "insert_probe": (2048, 789, 1024, 1_048_576, 64807, 20, 65536),
+    "large_probe": (32768, 32768, 16384, 1_048_576, 64807, 3000, 65536),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K3_PROBES))
+def test_k3_paths_match_plain_at_the_stream_probe_shapes(cuda_device, case):
+    """K3 by the rule and by each path on operands of the stream
+    probes' shapes: every row equal to the plain version, bit for bit
+    across launches."""
+    q, live, d_cand, n_ids, hub_len, hub_rows, d_targ = K3_PROBES[case]
+    ops = [torch.from_numpy(x).to(cuda_device) for x in _probe_like_operands(
+        np.random.default_rng(q + live), q=q, live=live, d_cand=d_cand,
+        n_ids=n_ids, hub_len=hub_len, hub_rows=hub_rows)]
+    want = _k3_paths_match(ops, dict(d_cand=d_cand, d_targ=d_targ))
+    assert int(want.sum()) > 0
+
+
+@pytest.mark.parametrize("case", sorted(BITMAP_CASES))
+def test_k3_paths_match_plain(cuda_device, case):
+    """K3 by each path where K1 and K2 are held: a hub target cut across
+    items, targets past 4,096 and 65,536 entries, a span wider than the
+    bitmap (~4 M ids), clamped narrow rows."""
+    q, n_lists, cl, tl, id_hi, hub, d_cand, d_targ = BITMAP_CASES[case]
+    ops = [torch.from_numpy(x).to(cuda_device) for x in _bitmap_operands(
+        np.random.default_rng(len(case) + 1), q=q, n_lists=n_lists,
+        cand_len=cl, targ_len=tl, id_hi=id_hi, hub_rows=hub)]
+    kw = dict(d_cand=d_cand, d_targ=d_targ)
+    want = _k3_paths_match(ops, kw)
+    c1, c2 = intersect_levels_ref(*ops, **kw)
+    assert torch.equal(want, c1 + c2) and int(want.sum()) > 0
+
+
+def test_k3_walk_over_tiles_of_many_rows_and_dead_runs(cuda_device):
+    """Rows of 1-7 cells (a tile spans more than one window of 32 rows),
+    long runs of sentinel rows between live ones, and a long row whose
+    tiles hold dense candidates (a staged slice) beside sparse ones (a
+    slice searched in global memory)."""
+    rng = np.random.default_rng(21)
+    lists = [np.unique(rng.integers(0, 5000, size=rng.integers(1, 8)))
+             for _ in range(400)]
+    lists.append(np.arange(0, 40000, 2))        # dense against the hub
+    lists.append(np.unique(rng.integers(0, 10**6, size=3000)))  # sparse
+    lists.append(np.arange(0, 40000, 3))        # the hub target
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    sizes = np.array([len(x) for x in lists], np.int32)
+    q = 6000
+    u = rng.integers(0, 400, size=q)
+    u[100], u[3000] = 400, 401
+    w = np.full(q, 402)
+    ls, ll = sizes[u], sizes[w]
+    ls[500:2500] = 0  # a run of 2,000 sentinel rows
+    ll[500:2500] = 0
+    ops = [torch.from_numpy(x).to(cuda_device)
+           for x in (flat, starts[u], ls, starts[w], ll)]
+    want = _k3_paths_match(ops, dict(d_cand=20000, d_targ=20000),
+                           paths=("tiles",))
+    assert int(want[100]) > 0 and int(want.sum()) > int(want[100])
+
+
+@pytest.mark.parametrize("q", [0, 5000])
+def test_k3_empty_and_all_sentinel_launches(cuda_device, q):
+    """No rows, or rows that are all sentinels: zeros on every path, one
+    launch each where there are rows."""
+    z = torch.zeros(q, dtype=torch.int32, device=cuda_device)
+    flat = torch.arange(10, dtype=torch.int32, device=cuda_device)
+    for path in tkern.COUNT_PATHS:
+        before = tkern.LAUNCHES["intersect_count"]
+        k = tkern.intersect_count(flat, z, z, z, z, d_cand=1024, d_targ=64,
+                                  path=path)
+        torch.cuda.synchronize()
+        assert k.shape == (q,) and not k.any()
+        assert tkern.LAUNCHES["intersect_count"] == before + (q > 0)
+
+
+def test_k3_paths_match_plain_on_every_bucket_of_rmat16(cuda_device):
+    """The count's plan run level-free: every bucket by each path equal
+    to the plain version and to K1's c1 + c2."""
+    edges, n = gen.rmat(16, 16, seed=0)
+    res = TriangleEngine(device=cuda_device).count_raw((edges, n))
+    g = from_edges(edges, n, device=cuda_device)
+    qu, qw, *_ = horizontal_queries(g, res.levels, order="desc")
+    adj = tint.CsrAdjacency.from_graph(g)
+    for b, base, qu_b, qw_b, bounds in tint.bucket_slices(adj, qu, qw,
+                                                          res.plan):
+        ops = tint.probe_operands(adj, qu_b, qw_b, bounds, base, b.count,
+                                  res.levels)
+        kw = dict(d_cand=b.d_cand, d_targ=b.d_targ)
+        want = _k3_paths_match((adj.flat, *ops[:4]), kw)
+        c1, c2 = tkern.intersect_levels(adj.flat, *ops[:4], res.levels,
+                                        ops[4], **kw)
+        assert torch.equal(want, c1 + c2)
+
+
+def _captured_counts(run):
+    """``run()`` with the probe engine's K3 calls recorded: ``[(flat,
+    s_s, l_s, s_l, l_l), kw]`` each, in launch order."""
+    real, calls = tint.intersect_count, []
+
+    def record(flat, s_s, l_s, s_l, l_l, *, d_cand, d_targ):
+        calls.append(((flat, s_s, l_s, s_l, l_l),
+                      dict(d_cand=d_cand, d_targ=d_targ)))
+        return real(flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ)
+
+    tint.intersect_count = record
+    try:
+        run()
+    finally:
+        tint.intersect_count = real
+    return calls
+
+
+@pytest.mark.parametrize("buffer", [4096, 65536])
+def test_stream_session_at_both_buffers_goes_through_k3(cuda_device,
+                                                        buffer):
+    """rmat16 sessions at the default buffer and at 65,536 updates an
+    internal batch: every apply launches K3 alone, the totals equal a
+    fresh count, and each captured launch equals the plain version on
+    every row by each path."""
+    edges, n = gen.rmat(16, 16, seed=0)
+    opts = TCOptions(stream_buffer=buffer, stream_staleness=1e9)
+    eng = TriangleEngine(device=cuda_device)
+    sess = eng.stream((edges, n), options=opts)
+    rng = np.random.default_rng(buffer)
+    calls = []
+    for _ in range(2):
+        cur = sess.state.edges()
+        k = buffer // 2
+        dels = cur[rng.choice(cur.shape[0], k, replace=False)]
+        ins = rng.integers(0, n, size=(k, 2))
+        ops = np.r_[-np.ones(k, np.int8), np.ones(k, np.int8)]
+        before = dict(tkern.LAUNCHES)
+        calls += _captured_counts(
+            lambda: sess.apply((ops, np.r_[dels, ins])))
+        got = {name: tkern.LAUNCHES[name] - before[name] for name in before}
+        assert got["intersect_count"] > 0
+        assert sum(got.values()) == got["intersect_count"], got
+    fresh = eng.count((sess.state.edges(), n))
+    assert fresh.triangles == sess.triangles
+    rows = max(len(c[0][1]) for c in calls)
+    assert rows >= buffer // 2
+    for ops, kw in calls:
+        _k3_paths_match(ops, kw)
 
 
 # ------------------------------------------------------------------- K5

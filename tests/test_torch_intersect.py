@@ -34,6 +34,7 @@ from repro_torch.graph import csr as tcsr
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.kernels.intersect.ref import (
+    count_tiles_ref,
     found_counts,
     hits_ref,
     intersect_count_ref,
@@ -650,6 +651,220 @@ def test_wrapper_refuses_an_unknown_path():
         tkern.intersect_levels(*ops, d_cand=16, d_targ=16, path="tiles")
     with pytest.raises(ValueError, match="path must be"):
         tkern.intersect_hits(*ops[:5], d_cand=16, d_targ=16, path="tiles")
+
+
+# ------------------------------------------------ K3's walk and layout
+
+
+def _tile_operands(rng, *, q, n_short, short_len, hub_len, id_hi,
+                   hub_rows, long_rows, long_len=16384):
+    """K3's operands with every case its walk meets: ``n_short`` sorted
+    lists of up to ``short_len`` ids (one led by negative ids, one
+    holding sentinel ids past ``id_hi``, one empty), a hub target of
+    ``hub_len`` ids and a long candidate list of ``long_len``; ``q``
+    rows, ``hub_rows`` of them against the hub, ``long_rows`` of them
+    the long list, about a tenth sentinel rows (l_s = l_l = 0)."""
+    lists = [np.unique(rng.integers(0, id_hi, size=rng.integers(0,
+                                                                short_len)))
+             for _ in range(n_short)]
+    lists[0] = np.r_[-9, -1, lists[0]]
+    lists[1] = np.unique(np.r_[lists[1], id_hi, id_hi + 7])
+    lists[2] = lists[2][:0]
+    lists.append(np.unique(rng.integers(0, id_hi, size=hub_len)))
+    lists.append(np.unique(rng.integers(0, id_hi, size=long_len)))
+    flat = np.concatenate(lists).astype(np.int32)
+    starts = np.cumsum([0] + [len(x) for x in lists[:-1]]).astype(np.int32)
+    lens = np.array([len(x) for x in lists], np.int32)
+    u = rng.integers(0, n_short, size=q)
+    w = rng.integers(0, n_short, size=q)
+    w[rng.permutation(q)[:hub_rows]] = n_short
+    u[rng.permutation(q)[:long_rows]] = n_short + 1
+    ls, ll = lens[u], lens[w]
+    dead = rng.random(q) < 0.1
+    ls[dead] = 0
+    ll[dead] = 0
+    return [_t(x) for x in (flat, starts[u], ls, starts[w], ll)]
+
+
+TILE_CASES = {
+    # (q, n_short, short_len, hub_len, id_hi, hub_rows, long_rows,
+    #  d_cand, d_targ)
+    "probe_like": (300, 60, 400, 3000, 20000, 120, 1, 16384, 4096),
+    "clamped": (400, 40, 300, 5000, 8000, 150, 2, 100, 1500),
+    "narrow_rows": (600, 80, 9, 2000, 4000, 200, 0, 32, 2048),
+}
+
+
+@pytest.mark.parametrize("tile", [tkern.COUNT_TILE, 64, 32],
+                         ids=["kernel", "t64", "t32"])
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_count_tiles_ref_matches_plain(case, tile):
+    """K3's walk, tiles of cells over the rows' running sum, equals the
+    plain count row for row: negative and sentinel candidates, empty
+    and sentinel rows, clamped widths, one 16,384-candidate row among
+    short ones and a hub target shared by many rows; tiles inside one row
+    (searching a slice of the target) and tiles of many rows."""
+    q, ns, sl, hl, hi, hub, lr, d_cand, d_targ = TILE_CASES[case]
+    ops = _tile_operands(np.random.default_rng(len(case) + tile), q=q,
+                         n_short=ns, short_len=sl, hub_len=hl, id_hi=hi,
+                         hub_rows=hub, long_rows=lr)
+    kw = dict(d_cand=d_cand, d_targ=d_targ)
+    got, stats = count_tiles_ref(*ops, tile=tile, **kw)
+    want = intersect_count_ref(*ops, **kw)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(_np(got), _np(want))
+    assert int(want.sum()) > 0
+    assert stats["tiles"] > stats["one_row_tiles"]  # tiles of many rows
+    if case == "probe_like":
+        # tiles inside the long row, each searching a slice of the hub
+        assert 0 < stats["narrowed_tiles"] <= stats["one_row_tiles"]
+
+
+def _delta_probe_operands(edges, n, *, seed, k=600):
+    """The ``(flat, s_s, l_s, s_l, l_l, d_cand, d_targ)`` of every
+    level-free probe chunk a stream session runs for one mixed apply of
+    ``k`` updates on ``(edges, n)``, built as ``probe_sum`` builds them
+    (recorded at ``core.intersect._count_chunk``)."""
+    from repro_torch.api import TCOptions, TriangleEngine
+
+    sess = TriangleEngine(device=CPU).stream(
+        (edges, n), options=TCOptions(stream_staleness=1e9))
+    rng = np.random.default_rng(seed)
+    cur = sess.state.edges()
+    dels = cur[rng.choice(cur.shape[0], k // 2, replace=False)]
+    ins = rng.integers(0, n, size=(k - k // 2, 2))
+    ops = np.r_[-np.ones(k // 2, np.int8), np.ones(k - k // 2, np.int8)]
+    real, calls = tint._count_chunk, []
+
+    def record(adj, qu, qw, bounds, base, count, *, d_cand, d_targ, level,
+               **kw):
+        if level is None:
+            o = tint.probe_operands(adj, qu, qw, bounds, base, count, None)
+            calls.append((adj.flat, *o[:4], d_cand, d_targ))
+        return real(adj, qu, qw, bounds, base, count, d_cand=d_cand,
+                    d_targ=d_targ, level=level, **kw)
+
+    tint._count_chunk = record
+    try:
+        sess.apply((ops, np.r_[dels, ins]))
+    finally:
+        tint._count_chunk = real
+    return calls
+
+
+def test_count_tiles_ref_matches_plain_on_rmat12_delta_probes():
+    """The stream's own delta probes at RMAT scale 12 (six a mixed
+    apply: three per phase), tiled at the kernel's size and at a small
+    one: every row equal to the plain count."""
+    calls = _delta_probe_operands(*gen.rmat(12, 16, seed=0), seed=4)
+    assert len(calls) == 6
+    for flat, s_s, l_s, s_l, l_l, d_cand, d_targ in calls:
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        want = intersect_count_ref(flat, s_s, l_s, s_l, l_l, **kw)
+        for tile in (tkern.COUNT_TILE, 32):
+            got, _ = count_tiles_ref(flat, s_s, l_s, s_l, l_l, tile=tile,
+                                     **kw)
+            np.testing.assert_array_equal(_np(got), _np(want))
+    assert any(int(c[2].clamp(0, c[5]).sum()) > 1024 for c in calls)
+
+
+@pytest.mark.parametrize("q,d,bq,bd", SWEEP)
+def test_count_tiles_ref_matches_pallas_count(q, d, bq, bd):
+    """K3's walk against the reference's count kernel in interpret mode
+    on the dense blocks its engine gathers from the same bounds."""
+    rng = np.random.default_rng(q + 5 * d)
+    ops = _csr_operands(rng, q, d)
+    d_targ = max(1, int(ops[4].max()))
+    cp = _pallas_count_on_dense(ops, d_cand=d, d_targ=d_targ, bq=bq, bd=bd)
+    for tile in (tkern.COUNT_TILE, 32):
+        got, _ = count_tiles_ref(*map(_t, ops[:5]), d_cand=d, d_targ=d_targ,
+                                 tile=tile)
+        np.testing.assert_array_equal(_np(got), np.asarray(cp))
+
+
+@pytest.mark.parametrize("case", sorted(TILE_CASES))
+def test_item_walk_row_sums_match_count_on_k3_layout(case, monkeypatch):
+    """The bitmap items on K3's layout (its own row threshold): each
+    row's hits summed equal the plain count."""
+    monkeypatch.setattr(tkern, "ITEM_CELLS", 512)
+    monkeypatch.setattr(tkern, "COUNT_BITMAP_MIN_ROWS", 100)
+    q, ns, sl, hl, hi, hub, lr, d_cand, d_targ = TILE_CASES[case]
+    ops = _tile_operands(np.random.default_rng(7 * len(case)), q=q,
+                         n_short=ns, short_len=sl, hub_len=hl, id_hi=hi,
+                         hub_rows=hub, long_rows=lr)
+    kw = dict(d_cand=d_cand, d_targ=d_targ)
+    lay = tkern.item_layout(*ops[1:5], min_rows=tkern.COUNT_BITMAP_MIN_ROWS,
+                            **kw)
+    assert (lay is None) == (d_cand <= tkern.WALK_MAX_CAND)
+    if lay is None:
+        lay = tkern.item_layout(*ops[1:5], path="bitmap", **kw)
+    off, hits, c1, c2 = probe_items_ref(*ops, lay, bitmap_words=7, **kw)
+    assert c1 is None and c2 is None
+    row = torch.searchsorted(off[1:], torch.arange(hits.shape[0]),
+                             right=True)
+    sums = torch.zeros(q, dtype=torch.int32).index_add_(
+        0, row, hits.to(torch.int32))
+    np.testing.assert_array_equal(_np(sums),
+                                  _np(intersect_count_ref(*ops, **kw)))
+
+
+@pytest.mark.parametrize("q", [99, 100])
+def test_count_layout_takes_its_own_row_threshold(q, monkeypatch):
+    """``min_rows`` replaces ``BITMAP_MIN_ROWS`` in the rule by shape."""
+    monkeypatch.setattr(tkern, "BITMAP_MIN_ROWS", 10)
+    ops = _item_operands(np.random.default_rng(q), q=q, n_lists=10,
+                         cand_len=40, targ_len=80, id_hi=500, hubs=1)
+    kw = dict(d_cand=1024, d_targ=400)
+    assert tkern.item_layout(*ops[1:5], **kw) is not None
+    lay = tkern.item_layout(*ops[1:5], min_rows=100, **kw)
+    assert (lay is None) == (q < 100)
+
+
+def test_count_wrapper_takes_a_path_on_the_cpu():
+    """``intersect_count(path=...)``: each path is the plain count on CPU
+    tensors (no launch); an unknown path is refused."""
+    ops = [_t(x) for x in _csr_operands(np.random.default_rng(2), 40, 60)]
+    want = intersect_count_ref(*ops[:5], d_cand=60, d_targ=60)
+    before = dict(tkern.LAUNCHES)
+    for path in tkern.COUNT_PATHS:
+        got = tkern.intersect_count(*ops[:5], d_cand=60, d_targ=60,
+                                    path=path)
+        np.testing.assert_array_equal(_np(got), _np(want))
+    assert tkern.LAUNCHES == before
+    with pytest.raises(ValueError, match="path must be"):
+        tkern.intersect_count(*ops[:5], d_cand=60, d_targ=60, path="rows")
+
+
+@pytest.mark.parametrize("q,d_cand,want", [
+    (2048, 256, "walk"), (10**7, 256, "walk"), (2048, 257, "tiles"),
+    (2048, 16384, "tiles"), (32768, 16384, "tiles"),
+    (65536, 16384, "bitmap"), (2_921_472, 32768, "bitmap")])
+def test_count_path_by_shape(q, d_cand, want):
+    """K3's rule: the warp per row up to ``WALK_MAX_CAND``, the bitmap
+    from ``COUNT_BITMAP_MIN_ROWS`` rows, the tiles between (the stream
+    probes' shapes at RMAT scale 20); a forced path is kept, and the
+    rule agrees with K3's ``item_layout``."""
+    assert tkern.count_path(q, d_cand) == want
+    assert tkern.count_path(q, d_cand, "tiles") == "tiles"
+    with pytest.raises(ValueError, match="path must be"):
+        tkern.count_path(q, d_cand, "rows")
+    assert (want == "bitmap") == (
+        d_cand > tkern.WALK_MAX_CAND
+        and q >= tkern.COUNT_BITMAP_MIN_ROWS)
+
+
+def test_count_constants_match_the_kernel():
+    """K3's tile and scan block are the CUDA source's ``kTile`` (``kWarp
+    * kTileLane``) and ``kScanRows`` (``kScanThreads * kScanPer``)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tkern.__file__).parent / "csrc" / "intersect.cu").read_text()
+    got = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kWarp|kTileLane|kScanThreads|kScanPer) = (\d+);",
+        src)}
+    assert got["kWarp"] * got["kTileLane"] == tkern.COUNT_TILE
+    assert got["kScanThreads"] * got["kScanPer"] == tkern.COUNT_SCAN_ROWS
 
 
 # ------------------------------------------ kernels/intersect/ops.py
