@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
 1), triangle finding, per-vertex credit, the stream route (exact batch
-deltas), LM serving (smollm-135m prefill and KV-cache decode) and
-GatedGCN training end to end on one NVIDIA H100, through the
-hand-written Hopper kernels K1 to K5.
+deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
+training and the batch route with its triangle server end to end on one
+NVIDIA H100, through the hand-written Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -106,7 +106,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                with every K4 call recorded and timed beside its bound,
                its plain version (compared) and ``index_add_``, its
                chunks per call logged.
-  8. summary — one JSON line per kernel, the card's name and power
+  8. serve_tc — the batch route and the triangle server.  (a) One
+               batch of 8 lanes of RMAT scale 16 (seeds 0-7, about the
+               size of SNAP's ego-Twitter) through ``count_batch`` on its
+               bounded plan (packed from the edge lists), on its exact
+               plan (packed once, no meta) and with per-vertex credit
+               (K2): each a main path (one K1 launch per bucket over all
+               lanes; K2 alone for the credit), then 3 timed runs (wall,
+               stages pack / bfs and its sweeps / compact / plan /
+               probe, peak memory) and one profiled (busy share); every
+               lane equal to its own local count on the card (credit
+               summing to 3T); every K1 and K2 launch of the lane view
+               recorded, timed on the device and host-paced beside its
+               bound, and held against its plain version on every row.
+               (b) ``measure_serve`` over the reference's mix of 96
+               requests and a mix of 64 ``rmat(s, 16)`` with s drawn from
+               12-16, at batch sizes 1, 8 and 16 against the
+               budget-padded sequential loop; every request id agreeing.
+  9. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -317,17 +334,19 @@ def compare_count(flat, ops, kw, levels=None, path="auto"):
 
 
 def capture_counts(run, name: str = "intersect_count"):
-    """``run()`` with every call of the probe engine's ``name`` (K3, or
-    K2 with ``"intersect_hits"``) recorded: ``(result, [(flat, (s_s,
-    l_s, s_l, l_l), d_cand, d_targ)])`` in launch order.  Each call still
+    """``run()`` with every call of the probe engine's ``name`` (K3, K2
+    with ``"intersect_hits"``, K1 with ``"intersect_levels"``) recorded:
+    ``(result, [(flat, (s_s, l_s, s_l, l_l, *rest), d_cand, d_targ)])``
+    in launch order, ``rest`` K1's ``(level, lev_u)``.  Each call still
     launches its kernel as it would."""
     from repro_torch.core import intersect as tint
 
     real, calls = getattr(tint, name), []
 
-    def record(flat, s_s, l_s, s_l, l_l, *, d_cand, d_targ):
-        calls.append((flat, (s_s, l_s, s_l, l_l), d_cand, d_targ))
-        return real(flat, s_s, l_s, s_l, l_l, d_cand=d_cand, d_targ=d_targ)
+    def record(flat, s_s, l_s, s_l, l_l, *rest, d_cand, d_targ):
+        calls.append((flat, (s_s, l_s, s_l, l_l, *rest), d_cand, d_targ))
+        return real(flat, s_s, l_s, s_l, l_l, *rest, d_cand=d_cand,
+                    d_targ=d_targ)
 
     setattr(tint, name, record)
     try:
@@ -1648,6 +1667,203 @@ def gnn_phase(dev, main_path) -> dict:
     return out
 
 
+#: phase 8's batch: ``SERVE_LANES`` lanes of ``rmat(SERVE_SCALE, 16,
+#: seed=s)``, s = 0 .. SERVE_LANES - 1
+SERVE_LANES, SERVE_SCALE = 8, 16
+#: phase 8's real-size serving mix: ``SERVE_MIX[0]`` requests of
+#: ``rmat(scale, 16, seed=i)``, the scale drawn from ``SERVE_MIX[1] ..
+#: SERVE_MIX[2]`` under seed 0
+SERVE_MIX = (64, 12, 16)
+SERVE_BATCH_SIZES = (1, 8, 16)
+
+
+def time_batch_calls(tag: str, calls, name: str) -> dict:
+    """Each recorded K1 (``name`` ``"intersect_levels"``) or K2 call of a
+    batch over its lane view (:func:`capture_counts`): the wrapper call's
+    device milliseconds (K1: the host's enqueue hidden; K2: one profiled
+    call, since it reads its output's size back) and host-paced
+    milliseconds (CUDA events), its bound, and its plain version on
+    every row (timed and compared).  One log line per launch and the
+    sums over the launches."""
+    from repro_torch.kernels.intersect import intersect as kmod
+
+    tot = dict(launches=len(calls), rows=0, cells=0, ms=0.0,
+               host_paced_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               search_bound_ms=0.0, max_abs_err=0)
+    by_bound = []
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        b = SimpleNamespace(d_cand=d_cand, d_targ=d_targ)
+        if name == "intersect_levels":
+            levels, ops5 = ops[4], (*ops[:4], ops[5])
+            ms = device_ms(lambda: kmod.intersect_levels(flat, *ops, **kw))
+            host = cuda_ms(lambda: kmod.intersect_levels(flat, *ops, **kw))
+            err, s1, s2, plain_ms = compare(flat, levels, ops5, b)
+            hits = s1 + s2
+            bd = bucket_bound(flat, levels, ops5, d_cand, d_targ, hits)
+        else:
+            host = cuda_ms(lambda: kmod.intersect_hits(flat, *ops, **kw))
+            ms = profiled_ms(lambda: kmod.intersect_hits(flat, *ops,
+                                                         **kw))[0]
+            err, hits, _, plain_ms = compare_hits(flat, ops, b)
+            bd = hits_bound(flat, ops, d_cand, d_targ)
+        st = layout_stats(ops, b)
+        for key, v in (("ms", ms), ("host_paced_ms", host),
+                       ("plain_ms", plain_ms), ("bound_ms", bd["bound_ms"]),
+                       ("search_bound_ms", bd["search_bound_ms"]),
+                       ("rows", len(ops[0])), ("cells", st["live_cells"])):
+            tot[key] += v
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        by_bound.append((bd["bound_ms"], bd["bound_by"]))
+        log("serve_tc_launch", kernel=name, batch_path=tag, launch=i,
+            rows=len(ops[0]), d_cand=d_cand, d_targ=d_targ,
+            flat_slots=flat.numel(), hits=hits, device_ms=ms,
+            host_paced_ms=host, plain_ms=plain_ms, max_abs_err_all_rows=err,
+            **bd, **st)
+    tot["bound_by"] = max(by_bound)[1] if by_bound else None
+    return tot
+
+
+def serve_tc_phase(dev, main_path, runs: int) -> dict:
+    """Phase 8: the batch route and the triangle server (see the module's
+    docstring); ``main_path`` is ``main``'s.  Returns the phase's summary,
+    with K1's and K2's per-launch sums on the batch's lane view."""
+    import dataclasses
+
+    from repro_torch.api import TCOptions, TriangleEngine
+    from repro_torch.core.sequential import StageClock
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph.csr import from_edges_batch
+    from repro_torch.launch.serve_tc import measure_serve
+
+    t_phase = time.perf_counter()
+    eng = TriangleEngine(device=dev)
+    pv_opts = TCOptions(per_vertex=True)
+    t0 = time.perf_counter()
+    lanes = [gen.rmat(SERVE_SCALE, 16, seed=s) for s in range(SERVE_LANES)]
+    gen_s = time.perf_counter() - t0
+    # the gate: each lane's own count on the card, local route
+    local = [eng.count(x) for x in lanes]
+    local_pv = [eng.count(x, options=pv_opts) for x in lanes]
+    log("serve_tc_data", lanes=SERVE_LANES, graph=f"rmat{SERVE_SCALE}",
+        edge_rows=[len(e) for e, _ in lanes], generate_seconds=gen_s,
+        triangles=[r.triangles for r in local],
+        num_horizontal=[r.num_horizontal for r in local])
+
+    def same(reps, want, pv):
+        return len(reps) == len(want) and all(
+            (r.triangles, r.c1, r.c2, r.num_horizontal, r.k)
+            == (w.triangles, w.c1, w.c2, w.num_horizontal, w.k)
+            and np.array_equal(r.levels[:len(w.levels)], w.levels)
+            and not r.overflow and r.backend == "cuda"
+            and (not pv or (np.array_equal(r.per_vertex, w.per_vertex)
+                            and int(r.per_vertex.astype(np.int64).sum())
+                            == 3 * r.triangles))
+            for r, w in zip(reps, want))
+
+    # packed once for the exact path (no meta) and the plans
+    gb = from_edges_batch(lanes, grid=eng.budgets, device=dev)
+    gb_exact = dataclasses.replace(gb, meta=None)
+    n_buckets = {"bounded": len(eng.plan_for(gb).buckets),
+                 "exact": len(eng.count_batch_raw(gb_exact).plan.buckets)}
+    log("serve_tc_plan", budget=vars(gb.budget), meta=vars(gb.meta),
+        bounded=[vars(b) for b in eng.plan_for(gb).buckets])
+    # each path: its run from the edge lists (the exact one from the
+    # packed batch), the same launches on the packed batch, the gate
+    paths = {
+        "bounded": (lambda c: eng.count_batch(lanes, clock=c),
+                    lambda: eng.count_batch(gb), local, False,
+                    "intersect_levels"),
+        "exact": (lambda c: eng.count_batch(gb_exact, clock=c),
+                  lambda: eng.count_batch(gb_exact), local, False,
+                  "intersect_levels"),
+        "per_vertex": (lambda c: eng.count_batch(lanes, options=pv_opts,
+                                                 clock=c),
+                       lambda: eng.count_batch(gb, options=pv_opts),
+                       local_pv, True, "intersect_hits"),
+    }
+    out = {"batch": {}, "launch_sums": {}}
+    for tag, (run, packed, want, pv, kname) in paths.items():
+        reps, warm_s, _, got, mem = main_path(run)
+        others = [k for k in ("intersect_levels", "intersect_hits",
+                              "intersect_count") if k != kname]
+        if not same(reps, want, pv):
+            raise SystemExit(f"serve_tc {tag}: a lane differs from its "
+                             f"local count")
+        if got[kname] == 0 or any(got[k] for k in others) or (
+                kname == "intersect_levels" and got[kname] != n_buckets[tag]):
+            raise SystemExit(f"serve_tc {tag}: launched {got}; expected "
+                             f"{kname} alone, once per bucket for K1")
+        timed = []
+        for i in range(runs):
+            clock = StageClock(dev)
+            t0 = time.perf_counter()
+            r = run(clock)
+            dt = time.perf_counter() - t0
+            if not same(r, want, pv):
+                raise SystemExit(f"serve_tc {tag}: timed run {i} differs")
+            timed.append((dt, clock))
+        med = statistics.median(dt for dt, _ in timed)
+        med_clock = sorted(timed, key=lambda x: x[0])[len(timed) // 2][1]
+        busy_ms, prof_s, top, _ = device_busy(lambda: run(None))
+        line = dict(lanes=SERVE_LANES, launches=got, warm_seconds=warm_s,
+                    seconds=[dt for dt, _ in timed], median_seconds=med,
+                    median_run_stages=med_clock.seconds,
+                    bfs_sweeps=med_clock.counts.get("bfs_sweeps"),
+                    memory=mem, busy_ms=busy_ms, profiled_seconds=prof_s,
+                    busy_share=busy_ms / 1e3 / med, top_device_ms=top,
+                    plan_id=reps[0].plan_id,
+                    graphs_per_second=SERVE_LANES / med)
+        out["batch"][tag] = line
+        log("serve_tc_batch", path=tag, **line)
+        # every launch of this path, at its own shapes
+        _, calls = capture_counts(packed, kname)
+        out["launch_sums"][tag] = time_batch_calls(tag, calls, kname)
+        log("serve_tc_launches", path=tag, **out["launch_sums"][tag])
+        del calls
+        torch.cuda.empty_cache()
+    if any(v["max_abs_err"] for v in out["launch_sums"].values()):
+        raise SystemExit(f"serve_tc: a lane-view launch differs from its "
+                         f"plain version: {out['launch_sums']}")
+    del gb, gb_exact, local, local_pv
+    torch.cuda.empty_cache()
+
+    # (b) the server over two streams, against the budget-padded loop
+    rng = np.random.default_rng(0)
+    n_mix, lo, hi = SERVE_MIX
+    scales = rng.integers(lo, hi + 1, size=n_mix)
+    t0 = time.perf_counter()
+    mix = [gen.rmat(int(s), 16, seed=i) for i, s in enumerate(scales)]
+    log("serve_tc_mix", requests=n_mix, scales=np.bincount(
+        scales, minlength=hi + 1)[lo:].tolist(),
+        generate_seconds=time.perf_counter() - t0)
+    out["serve"] = {}
+    for name, kw in (("synth_96", dict(num_requests=96, seed=0)),
+                     (f"rmat{lo}_{hi}_{n_mix}", dict(requests=mix))):
+        row, secs, _, got, mem = main_path(
+            lambda c, kw=kw: measure_serve(batch_sizes=SERVE_BATCH_SIZES,
+                                           device=dev, **kw))
+        row = dict(row, launches=got, memory=mem, seconds=secs)
+        out["serve"][name] = row
+        log("serve_tc_serve", stream=name, **row)
+        if not row["agree"] or got["intersect_levels"] == 0:
+            raise SystemExit(f"serve_tc serve {name}: agree "
+                             f"{row['agree']}, launches {got}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("serve_tc_summary", seconds=out["seconds"],
+        batch={k: {f: v[f] for f in ("median_seconds", "busy_share",
+                                     "graphs_per_second")}
+               for k, v in out["batch"].items()},
+        serve={k: {"sequential_graphs_per_s":
+                   v["sequential"]["graphs_per_s"],
+                   "batched": [{f: e[f] for f in (
+                       "batch_size", "graphs_per_s", "p50_ms", "p99_ms",
+                       "batches", "plan_cache_hit_rate",
+                       "speedup_vs_sequential")} for e in v["batched"]]}
+               for k, v in out["serve"].items()})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -2156,7 +2372,12 @@ def main() -> int:
     # ------------------------------------------------------------ 7. gnn
     gnn = gnn_phase(dev, main_path)
 
-    # ---------------------------------------------------------- 8. summary
+    # ------------------------------------------------------- 8. serve_tc
+    stc = serve_tc_phase(dev, main_path, args.runs)
+    ls = stc["launch_sums"]
+    stc1, stc1x, stc2 = ls["bounded"], ls["exact"], ls["per_vertex"]
+
+    # ---------------------------------------------------------- 9. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -2172,6 +2393,11 @@ def main() -> int:
         gnn_train={tag: {k: r[k] for k in (
             "median_step_ms", "steps_per_second", "loss_first", "loss_last",
             "memory", "busy_share")} for tag, r in gnn["runs"].items()},
+        serve_tc_batch={k: v["median_seconds"]
+                        for k, v in stc["batch"].items()},
+        serve_tc_graphs_per_second={
+            k: {e["batch_size"]: e["graphs_per_s"] for e in v["batched"]}
+            for k, v in stc["serve"].items()},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     k3s, big = stream["k3"], stream["buffer_65536"]
@@ -2185,8 +2411,10 @@ def main() -> int:
         "replaces_function":
             "repro.kernels.intersect.intersect.intersect_pallas",
         "launches": count_launches["intersect_levels"],
-        "matches_plain": max_err == 0,
-        "max_abs_err": max_err,
+        "matches_plain": max(max_err, stc1["max_abs_err"],
+                             stc1x["max_abs_err"]) == 0,
+        "max_abs_err": max(max_err, stc1["max_abs_err"],
+                           stc1x["max_abs_err"]),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "sample_rows": k1_sample_rows,
@@ -2198,7 +2426,23 @@ def main() -> int:
         "row_bytes_bound_ms": tot["row_bytes_bound_ms"],
         "library_ms": None,
         "path_ms": tot_p["k1"],
-        "shape": f"rmat{scale} plan, {n_buckets} buckets",
+        "serve_tc_launches": stc["batch"]["bounded"]["launches"][
+            "intersect_levels"],
+        "serve_tc_ms": stc1["ms"],
+        "serve_tc_host_paced_ms": stc1["host_paced_ms"],
+        "serve_tc_plain_ms": stc1["plain_ms"],
+        "serve_tc_bound_ms": stc1["bound_ms"],
+        "serve_tc_bound_by": stc1["bound_by"],
+        "serve_tc_exact_launches": stc["batch"]["exact"]["launches"][
+            "intersect_levels"],
+        "serve_tc_exact_ms": stc1x["ms"],
+        "serve_tc_exact_host_paced_ms": stc1x["host_paced_ms"],
+        "serve_tc_exact_plain_ms": stc1x["plain_ms"],
+        "serve_tc_exact_bound_ms": stc1x["bound_ms"],
+        "shape": f"rmat{scale} plan, {n_buckets} buckets; serve_tc_*: one "
+                 f"batch of {SERVE_LANES} lanes of rmat{SERVE_SCALE} on its "
+                 f"bounded plan, one launch per bucket over all lanes "
+                 f"(serve_tc_exact_*: on its exact plan)",
     }, {
         "name": "intersect_hits",
         "route": "cuda",
@@ -2210,8 +2454,8 @@ def main() -> int:
                      + pv_launches["intersect_hits"]),
         "launches_find": find_launches["intersect_hits"],
         "launches_per_vertex": pv_launches["intersect_hits"],
-        "matches_plain": max_err_hits == 0,
-        "max_abs_err": max_err_hits,
+        "matches_plain": max(max_err_hits, stc2["max_abs_err"]) == 0,
+        "max_abs_err": max(max_err_hits, stc2["max_abs_err"]),
         "ms": tot_h["ms"],
         "plain_ms": tot_h["plain_ms"],
         "sample_rows": tot_h["sample_rows"],
@@ -2224,9 +2468,18 @@ def main() -> int:
         "library_ms": None,
         "host_paced_ms": tot_h["host_paced_ms"],
         "host_paced_path_ms": tot_p["k2"],
+        "serve_tc_launches": stc["batch"]["per_vertex"]["launches"][
+            "intersect_hits"],
+        "serve_tc_ms": stc2["ms"],
+        "serve_tc_host_paced_ms": stc2["host_paced_ms"],
+        "serve_tc_plain_ms": stc2["plain_ms"],
+        "serve_tc_bound_ms": stc2["bound_ms"],
+        "serve_tc_bound_by": stc2["bound_by"],
         "shape": f"rmat{scale} plan, {n_buckets} buckets, "
                  f"{tot_h['launches']} launches at the main path's chunk "
-                 f"shapes",
+                 f"shapes; serve_tc_*: the per-vertex count of one batch "
+                 f"of {SERVE_LANES} lanes of rmat{SERVE_SCALE}, one launch "
+                 f"per chunk of the cell budget over all lanes",
     }, {
         "name": "intersect_count",
         "route": "cuda",

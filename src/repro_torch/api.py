@@ -2,14 +2,18 @@
 
 Counterpart of ``repro.api`` for the routes ported so far: the exact
 single-graph count on the local route (Algorithm 1), with per-vertex
-credit, triangle finding, and the stream route (live counts under edge
-mutation streams).
+credit, triangle finding, the batch route (budget-padded lanes probed
+with one cached plan — the serving path) and the stream route (live
+counts under edge mutation streams).
 
-* :class:`TCOptions` — the local route's knobs, validated as in the
-  reference.
-* :class:`TriangleEngine` — ``count`` on the local and stream routes,
-  ``find`` and ``stream``, on the engine's device (``"cuda"`` unless the
-  caller asks for ``"cpu"``).
+* :class:`TCOptions` — the knobs of the ported routes, validated as in
+  the reference; :meth:`TCOptions.plan_view` is the bounded-plan cache
+  key.
+* :class:`TriangleEngine` — ``count`` on the local, batch and stream
+  routes, ``count_batch``, ``find``, ``stream`` and ``serve``, on the
+  engine's device (``"cuda"`` unless the caller asks for ``"cpu"``).  It
+  owns the budget grid (``budgets=``), whose top cell ``route_for``
+  reads, and the LRU bounded-plan cache.
 * :class:`TriangleReport` — the result contract: ``triangles``, ``k``,
   ``c1``/``c2``, the normalized :class:`Overflow` flags, provenance and,
   with ``per_vertex``, each vertex's triangle count and degree.
@@ -22,17 +26,18 @@ mutation streams).
     rep = engine.count((edges, n_nodes), options=TCOptions(per_vertex=True))
     print(rep.top_k(10), rep.transitivity())
     tri, count = engine.find((edges, n_nodes), max_triangles=1000)
+    reports = engine.count_batch([(edges, n_nodes), (edges2, n2)])
     session = engine.stream((edges, n_nodes))
     update = session.apply([(+1, 0, 5), (-1, 2, 3)])
     print(update.delta_triangles, session.count().triangles)
 
-The other routes of the reference (batch, distributed, approx) raise
+The other routes of the reference (distributed, approx) raise
 ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -42,10 +47,19 @@ from repro_torch.core.approx import ApproxEstimate
 from repro_torch.core.intersect import (
     BACKENDS,
     DEFAULT_BUCKET_WIDTHS,
+    IntersectPlan,
     resolve_backend,
 )
 from repro_torch.device import resolve_device
-from repro_torch.graph.csr import Graph, from_edges
+from repro_torch.graph.csr import (
+    DEFAULT_BUDGET_GRID,
+    BudgetGrid,
+    Graph,
+    GraphBatch,
+    ShapeBudget,
+    from_edges,
+    from_edges_batch,
+)
 from repro_torch.stream.session import StreamSession, StreamStats
 
 __all__ = [
@@ -57,15 +71,22 @@ __all__ = [
 ]
 
 #: The reference's dispatch targets.  The port answers ``auto``,
-#: ``local`` and ``stream``; every other route names the ROADMAP item
-#: that ports it.
+#: ``local``, ``batch`` and ``stream``; every other route names the
+#: ROADMAP item that ports it.  ``auto`` resolves per call through
+#: ``TriangleEngine.route_for``: ``local`` while the request fits the
+#: budget grid, ``distributed`` beyond its top cell.
 ROUTES = ("auto", "local", "batch", "distributed", "approx", "stream")
 
 _UNPORTED_ROUTES = {
-    "batch": "ROADMAP Queue 1 item 5 (batch lanes and the serving path)",
     "distributed": "ROADMAP Queue 1 item 10 (distributed Algorithm 2)",
     "approx": "ROADMAP Queue 1 item 8 (approx route)",
 }
+
+#: the reference's serving robustness knobs, which the port does not
+#: answer yet: a value other than the default raises
+_ROBUST_KNOBS = {"deadline_s": None, "admission_tokens": None,
+                 "approx_on_overload": True, "distributed_timeout_s": None}
+_ROBUST_ITEM = "ROADMAP Queue 1 item 8 (approx route and robust serving)"
 
 #: edge-list input: ``(edges int[any, 2], n_nodes)``
 EdgeList = tuple
@@ -101,7 +122,18 @@ class TCOptions:
       root:           BFS root.
       compact:        ``False`` = the dense seed reference path.
       route:          default dispatch of ``TriangleEngine.count``:
-                      ``"auto"``, ``"local"`` or ``"stream"``.
+                      ``"auto"``, ``"local"``, ``"batch"`` or
+                      ``"stream"``.
+      grid:           :class:`~repro_torch.graph.csr.BudgetGrid` of the
+                      batch route and the serving queues (``None`` = the
+                      default grid; ``TriangleEngine(budgets=...)``
+                      outranks it).  Plan-irrelevant: the cell is in the
+                      plan-cache key already.
+
+    Serving robustness (``deadline_s``, ``admission_tokens``,
+    ``approx_on_overload``, ``distributed_timeout_s``) is not ported: a
+    value other than the default raises ``NotImplementedError`` naming
+    ROADMAP Queue 1 item 8.
 
     Stream route knobs (``repro_torch.stream``):
       stream_buffer:  mutation buffer capacity — an ``apply`` stream
@@ -131,6 +163,11 @@ class TCOptions:
     root: int = 0
     compact: bool = True
     route: str = "auto"
+    grid: Optional[BudgetGrid] = None
+    deadline_s: Optional[float] = None
+    admission_tokens: Optional[int] = None
+    approx_on_overload: bool = True
+    distributed_timeout_s: Optional[float] = None
     stream_buffer: int = 4096
     stream_staleness: float = 0.25
     stream_exact_edges: Optional[int] = None
@@ -146,6 +183,17 @@ class TCOptions:
                 f"backend must be one of {BACKENDS}; got {self.backend!r}"
             )
         _check_route(self.route)
+        if self.grid is not None and not isinstance(self.grid, BudgetGrid):
+            raise TypeError(
+                f"grid must be a BudgetGrid or None; "
+                f"got {type(self.grid).__name__}"
+            )
+        for name, default in _ROBUST_KNOBS.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"TCOptions.{name} is not ported to repro_torch yet: "
+                    f"{_ROBUST_ITEM}"
+                )
         for name in ("query_chunk", "d_max", "cap_h"):
             v = getattr(self, name)
             if v is not None and int(v) <= 0:
@@ -176,6 +224,20 @@ class TCOptions:
                 f"stream_approx_rate must lie in (0, 1]; "
                 f"got {self.stream_approx_rate}"
             )
+
+    def plan_view(self, device: Union[str, torch.device]) -> "TCOptions":
+        """The plan-relevant projection, the bounded-plan cache key: the
+        backend resolved against ``device``, ``row_mult`` folded into
+        ``query_chunk`` when chunking (bucket rows must be a chunk
+        multiple), every other field at its default.  Two option sets
+        that lay out the same plan project to the same value."""
+        return TCOptions(
+            backend=resolve_backend(self.backend, device),
+            bucket_widths=self.bucket_widths,
+            query_chunk=self.query_chunk,
+            row_mult=(int(self.query_chunk) if self.query_chunk
+                      else self.row_mult),
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,6 +334,13 @@ class TriangleReport:
         return order[: max(0, min(int(k), pv.shape[0]))]
 
 
+def _plan_id(plan: IntersectPlan, kind: str) -> str:
+    """Provenance tag of an intersection plan, as in the reference
+    (with the port's backend names, ``cuda``/``torch``)."""
+    shape = "+".join(f"{b.rows}x{b.d_cand}" for b in plan.buckets) or "empty"
+    return f"{kind}/{plan.backend}/{shape}"
+
+
 def _graph_edges(g: Graph) -> tuple[torch.Tensor, int]:
     """A graph's unique undirected edges as an ``int64[m, 2]`` tensor on
     the graph's device, with its vertex count — how a packed ``Graph``
@@ -281,25 +350,45 @@ def _graph_edges(g: Graph) -> tuple[torch.Tensor, int]:
             g.n_nodes)
 
 
+def _host_edges(g: Graph) -> tuple[np.ndarray, int]:
+    """A graph's unique undirected edges on the host: the batch route
+    packs a ``Graph`` input again onto a grid cell."""
+    e, n = _graph_edges(g)
+    return e.cpu().numpy(), n
+
+
 class TriangleEngine:
-    """The facade of the port: one object that owns the device and the
-    default options of every count.
+    """The facade of the port: one object that owns the device, the
+    default options, the budget grid and the bounded-plan cache.
 
     Args:
       options: default :class:`TCOptions` for every call (per-call
         overrides via ``options=`` / ``route=``).
+      budgets: the :class:`~repro_torch.graph.csr.BudgetGrid` of the
+        batch route and the serving queues; its top cell is the
+        local/distributed boundary of ``route="auto"``.  ``None``
+        resolves ``options.grid``, then the default grid.
       device: where the engine runs — ``"cuda"`` (default) or ``"cpu"``.
         A CUDA device on a host without a card raises here.
+      plan_cache_capacity: LRU bound of the engine's bounded-plan cache
+        (``None`` = unbounded).
     """
 
     def __init__(self, options: Optional[TCOptions] = None, *,
-                 device: Union[str, torch.device] = "cuda"):
+                 budgets: Optional[BudgetGrid] = None,
+                 device: Union[str, torch.device] = "cuda",
+                 plan_cache_capacity: Optional[int] = (
+                     _seq.DEFAULT_PLAN_CACHE_CAPACITY)):
         if options is not None and not isinstance(options, TCOptions):
             raise TypeError(
                 f"options must be a TCOptions, got {type(options).__name__}"
             )
         self.options = options or TCOptions()
         self.device = resolve_device(device)
+        self.budgets = budgets or self.options.grid or DEFAULT_BUDGET_GRID
+        self._plan_cache = _seq.PlanCache(plan_cache_capacity)
+        self._plan_stats = {"hits": 0, "misses": 0}
+        self._meta_ceiling: dict = {}  # ShapeBudget -> BatchDegreeMeta
 
     def _graph(self, graph_or_edges, clock=None) -> Graph:
         if isinstance(graph_or_edges, Graph):
@@ -317,6 +406,68 @@ class TriangleEngine:
             clock.lap("csr")
         return g
 
+    # --------------------------------------------------------- routing
+    def route_for(self, n_nodes: int, n_edges_und: int, *,
+                  route: Optional[str] = None) -> str:
+        """Resolve ``auto`` for a request of this size: ``local`` while
+        the request's grid cell fits the budget grid's top cell,
+        ``distributed`` beyond it (the reference's one dispatch policy;
+        the port's distributed route is ROADMAP Queue 1 item 10)."""
+        r = route or self.options.route
+        if r not in ROUTES:
+            raise ValueError(f"route must be one of {ROUTES}; got {r!r}")
+        if r != "auto":
+            return r
+        fits = self.budgets.fits(int(n_nodes), int(n_edges_und))
+        return "local" if fits else "distributed"
+
+    # -------------------------------------------------------- planning
+    def options_for(self, budget: ShapeBudget) -> TCOptions:
+        """The options of a budget cell: the engine's options (a tuned
+        profile's per-cell overrides are ROADMAP Queue 1 item 11)."""
+        del budget
+        return self.options
+
+    def plan_for(self, gb: GraphBatch) -> IntersectPlan:
+        """The bounded plan of ``gb`` from the engine's LRU plan cache,
+        keyed on ``(budget, meta, options_for(budget).plan_view())``."""
+        return _seq.batch_plan_for(
+            gb, options=self.options_for(gb.budget),
+            cache=self._plan_cache, stats=self._plan_stats,
+        )
+
+    def compile_space(self, *, batch_size: int = 8) -> list:
+        """The reference's enumerated compile set of a pre-warmed server:
+        ROADMAP Queue 1 item 12 (the static auditor)."""
+        raise NotImplementedError(
+            "TriangleEngine.compile_space is not ported to repro_torch "
+            "yet: ROADMAP Queue 1 item 12 (the static auditor)")
+
+    def pool_meta(self, budget: ShapeBudget, meta):
+        """Pool a batch's degree meta up to the engine's per-cell
+        high-water mark and return the pooled meta: still a true upper
+        bound (``BatchDegreeMeta.union``), and every batch the cell has
+        covered lands on one plan per lane count, whichever requests it
+        happened to group.  The mark only rises."""
+        prev = self._meta_ceiling.get(budget)
+        pooled = meta if prev is None else prev.union(meta)
+        self._meta_ceiling[budget] = pooled
+        return pooled
+
+    def plan_cache_stats(self, reset: bool = False) -> dict:
+        """``{"hits", "misses", "size", "evictions", "capacity"}`` of
+        this engine's plan cache."""
+        out = dict(
+            self._plan_stats,
+            size=len(self._plan_cache),
+            evictions=self._plan_cache.evictions,
+            capacity=self._plan_cache.capacity,
+        )
+        if reset:
+            self._plan_stats.update(hits=0, misses=0)
+        return out
+
+    # ------------------------------------------------- raw-result API
     def count_raw(self, graph_or_edges, *,
                   options: Optional[TCOptions] = None,
                   clock: Optional[_seq.StageClock] = None) -> _seq.TCResult:
@@ -326,6 +477,21 @@ class TriangleEngine:
             clock=clock,
         )
 
+    def count_batch_raw(self, gb: GraphBatch, *,
+                        options: Optional[TCOptions] = None,
+                        plan: Optional[IntersectPlan] = None,
+                        clock: Optional[_seq.StageClock] = None,
+                        ) -> _seq.TCResult:
+        """Batched count returning the raw lane-axis ``TCResult``: the
+        fused path with ``plan`` (see :meth:`plan_for`), the exact
+        two-stage path without."""
+        if gb.device.type != self.device.type:
+            raise ValueError(f"batch lives on {gb.device}; this engine "
+                             f"runs on {self.device}")
+        return _seq._triangle_count_batch(gb, options or self.options,
+                                          plan=plan, clock=clock)
+
+    # ------------------------------------------------------ public API
     def count(
         self,
         graph_or_edges: Union[Graph, EdgeList],
@@ -335,28 +501,53 @@ class TriangleEngine:
         clock: Optional[_seq.StageClock] = None,
     ) -> TriangleReport:
         """Count the triangles of one graph — a packed :class:`Graph` or
-        an ``(edges, n_nodes)`` pair — on the local route (``"auto"`` or
-        ``"local"``) or the stream route.
+        an ``(edges, n_nodes)`` pair — on the resolved route.
 
-        ``route="stream"`` opens a one-shot session (:meth:`stream`),
-        whose opening refresh is the full local count, and answers its
-        report: the same numbers with stream provenance.  Degenerate n=0
-        graphs are answered here without running the pipeline.
-        ``clock`` (a :class:`~repro_torch.core.sequential.StageClock`)
-        records per-stage seconds of the local route, each closed by a
-        device synchronize: CSR build, BFS (and its sweep count),
-        horizontal compaction, plan, probe.
+        ``local`` runs the graph at its own shape; ``batch`` rounds it
+        onto the engine's budget grid and runs the cached-plan batch
+        path as one lane (its ``levels`` keep the budget's length, its
+        ``per_vertex``/``degrees`` the graph's); ``stream`` opens a
+        one-shot session (:meth:`stream`), whose opening refresh is the
+        full local count, and answers its report.  ``auto`` goes through
+        :meth:`route_for`.  Degenerate n=0 graphs are answered here
+        without running a pipeline.  ``clock`` (a
+        :class:`~repro_torch.core.sequential.StageClock`) records the
+        per-stage seconds of the local route, each closed by a device
+        synchronize: CSR build, BFS (and its sweep count), horizontal
+        compaction, plan, probe.
         """
         o = options or self.options
-        r = route or o.route
-        _check_route(r)
-        if r != "stream":
-            r = "local"
-        backend = resolve_backend(o.backend, self.device)
-        if isinstance(graph_or_edges, Graph):
-            n_nodes = graph_or_edges.n_nodes
+        if isinstance(graph_or_edges, GraphBatch):
+            raise TypeError(
+                "count() takes one graph; use count_batch() for a "
+                "GraphBatch"
+            )
+        is_graph = isinstance(graph_or_edges, Graph)
+        if is_graph:
+            g, edges, n_nodes = graph_or_edges, None, graph_or_edges.n_nodes
         else:
-            n_nodes = int(graph_or_edges[1])
+            g = None
+            edges, n_nodes = graph_or_edges
+            edges, n_nodes = np.asarray(edges), int(n_nodes)
+        m_und = 0
+        if (route or o.route) == "auto":
+            # the routing size: an edge list's row count (what the server
+            # routes on); for a packed Graph num_slots / 2, refined to the
+            # true edge count only when slot padding would not fit
+            if is_graph:
+                m_und = g.num_slots // 2
+                if not self.budgets.fits(n_nodes, m_und):
+                    m_und = int(g.n_edges_dir.item()) // 2
+            elif edges.size:
+                m_und = edges.reshape(-1, 2).shape[0]
+        r = self.route_for(n_nodes, m_und, route=route or o.route)
+        _check_route(r)
+        if r == "batch" and (o.d_max is not None or o.cap_h is not None):
+            raise ValueError(
+                "route='batch' uses cached bounded plans; d_max/cap_h "
+                "only apply to the local route's exact planning"
+            )
+        backend = resolve_backend(o.backend, self.device)
         if n_nodes == 0:
             empty_pv = np.zeros((0,), np.int32) if o.per_vertex else None
             return TriangleReport(
@@ -368,22 +559,95 @@ class TriangleEngine:
             )
         if r == "stream":
             return self.stream(graph_or_edges, options=o).count()
-        g = self._graph(graph_or_edges, clock)
+        if r == "batch":
+            # pack the raw edges once (a Graph goes back to host edges)
+            if clock is not None:
+                clock.start()
+            gb = from_edges_batch(
+                [_host_edges(g) if is_graph else (edges, n_nodes)],
+                grid=self.budgets, device=self.device,
+            )
+            if clock is not None:
+                clock.lap("pack")
+            plan = self.plan_for(gb)
+            if clock is not None:
+                clock.lap("plan")
+            res = _seq._squeeze_lane(
+                self.count_batch_raw(gb, options=o, plan=plan, clock=clock))
+            # the lane is budget-padded: credit and degrees are sliced back
+            # to the request's own vertices
+            return self._report_local(res, o, route="batch",
+                                      plan_id=_plan_id(plan, "bounded"),
+                                      deg=gb.deg[0], n=n_nodes)
+        g = self._graph((edges, n_nodes) if g is None else g, clock)
         res = _seq._triangle_count(g, o, clock=clock)
-        tri, c1, c2, nh, k, ovf = (
-            x.item() for x in (res.triangles, res.c1, res.c2,
-                               res.num_horizontal, res.k, res.h_overflow)
-        )
-        pv = degs = None
+        return self._report_local(res, o, route="local",
+                                  plan_id=f"exact/{backend}", deg=g.deg)
+
+    def count_batch(
+        self,
+        graphs: Union[GraphBatch, Sequence],
+        *,
+        options: Optional[TCOptions] = None,
+        clock: Optional[_seq.StageClock] = None,
+    ) -> list:
+        """Count every graph of a batch — a packed :class:`GraphBatch`
+        or a sequence of ``(edges, n_nodes)`` pairs, packed here onto the
+        engine's budget grid — returning one :class:`TriangleReport` per
+        real graph (every lane of a ``GraphBatch``).
+
+        A batch with degree metadata and no ``d_max``/``cap_h`` runs the
+        cached bounded plan (:meth:`plan_for`); any other runs the exact
+        two-stage path.  Each lane equals ``count(..., route="local")``
+        of its graph; ``per_vertex`` and ``degrees`` are sliced to the
+        lane's ``n_nodes``, ``levels`` keep the budget's length.  A
+        ``clock`` records pack, plan, bfs, compact and probe.
+        """
+        o = options or self.options
+        if clock is not None:
+            clock.start()
+        if isinstance(graphs, GraphBatch):
+            gb, n_real = graphs, graphs.batch_size
+        else:
+            graphs = list(graphs)
+            gb = from_edges_batch(
+                [(np.asarray(e), int(n)) for e, n in graphs],
+                grid=self.budgets, device=self.device,
+            )
+            n_real = len(graphs)
+        if clock is not None:
+            clock.lap("pack")
+        plan = None
+        if gb.meta is not None and o.d_max is None and o.cap_h is None:
+            plan = self.plan_for(gb)
+            if clock is not None:
+                clock.lap("plan")
+        res = self.count_batch_raw(gb, options=o, plan=plan, clock=clock)
+        backend = resolve_backend(o.backend, self.device)
+        pid = (_plan_id(plan, "bounded") if plan is not None
+               else f"exact/{backend}")
+        ints = torch.stack([res.triangles, res.c1, res.c2,
+                            res.num_horizontal, res.h_overflow.to(torch.int32),
+                            gb.n_nodes]).cpu().numpy()
+        tri, c1, c2, nh, ovf, n_lane = ints
+        k, lev = res.k.cpu().numpy(), res.levels.cpu().numpy()
+        pv_b = deg_b = None
         if o.per_vertex:
-            pv, degs = res.per_vertex.cpu().numpy(), g.deg.cpu().numpy()
-        return TriangleReport(
-            triangles=int(tri), k=float(k), num_horizontal=int(nh),
-            c1=int(c1), c2=int(c2), overflow=Overflow(h=bool(ovf)),
-            route=r, backend=backend, plan_id=f"exact/{backend}",
-            options=o, levels=res.levels.cpu().numpy(),
-            per_vertex=pv, degrees=degs,
-        )
+            pv_b, deg_b = res.per_vertex.cpu().numpy(), gb.deg.cpu().numpy()
+        return [
+            TriangleReport(
+                triangles=int(tri[i]), k=float(k[i]),
+                num_horizontal=int(nh[i]), c1=int(c1[i]), c2=int(c2[i]),
+                overflow=Overflow(h=bool(ovf[i])),
+                route="batch", backend=backend, plan_id=pid, options=o,
+                levels=lev[i],
+                per_vertex=(pv_b[i, :n_lane[i]] if pv_b is not None
+                            else None),
+                degrees=(deg_b[i, :n_lane[i]] if deg_b is not None
+                         else None),
+            )
+            for i in range(n_real)
+        ]
 
     def find(
         self,
@@ -425,6 +689,45 @@ class TriangleEngine:
         return StreamSession(
             self, graph_or_edges, options=options or self.options,
             seed=seed,
+        )
+
+    def serve(self, *, batch_size: int = 8, max_inflight: int = 8,
+              strict: bool = False, faults=None, prewarm: bool = False,
+              recorder=None):
+        """A :class:`~repro_torch.launch.serve_tc.TriangleServer` wired to
+        this engine: its budget grid buckets the queues, its plan cache
+        feeds every flush, its options govern every lane.
+        ``strict=True`` raises on a malformed ``submit``; ``faults``
+        (ROADMAP Queue 1 item 8), ``prewarm`` and ``recorder`` (item 11)
+        are not ported and raise."""
+        from repro_torch.launch.serve_tc import TriangleServer
+
+        return TriangleServer(self, batch_size=batch_size,
+                              max_inflight=max_inflight, strict=strict,
+                              faults=faults, prewarm=prewarm,
+                              recorder=recorder)
+
+    def _report_local(self, res: _seq.TCResult, o: TCOptions, *, route: str,
+                      plan_id: str, deg: torch.Tensor,
+                      n: Optional[int] = None) -> TriangleReport:
+        """The report of one graph's raw result; ``n`` slices a
+        budget-padded lane's credit and degrees to the graph's own
+        vertices."""
+        tri, c1, c2, nh, k, ovf = (
+            x.item() for x in (res.triangles, res.c1, res.c2,
+                               res.num_horizontal, res.k, res.h_overflow)
+        )
+        pv = degs = None
+        if o.per_vertex:
+            pv, degs = res.per_vertex.cpu().numpy(), deg.cpu().numpy()
+            if n is not None:
+                pv, degs = pv[:n], degs[:n]
+        return TriangleReport(
+            triangles=int(tri), k=float(k), num_horizontal=int(nh),
+            c1=int(c1), c2=int(c2), overflow=Overflow(h=bool(ovf)),
+            route=route, backend=resolve_backend(o.backend, self.device),
+            plan_id=plan_id, options=o, levels=res.levels.cpu().numpy(),
+            per_vertex=pv, degrees=degs,
         )
 
     #: the reference's ``find_raw`` returns device arrays where its

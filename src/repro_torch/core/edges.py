@@ -3,25 +3,32 @@
 Counterpart of ``repro.core.edges``.  Only the horizontal bit is
 consumed by the counting algorithm; ``k_fraction`` is the paper's ``k``,
 the fraction of undirected edges that are horizontal.
+
+Every function here also takes a batch's tensors with a leading lane
+axis (``GraphBatch.lane_view()``, levels ``[B, n]``): gathers, sorts and
+sums run along the last axis, lane by lane.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core.bfs import UNVISITED
+from repro_torch.core.bfs import UNVISITED, _take
 from repro_torch.graph.csr import Graph, undirected_edges
 
 
-def _level_ext(level: torch.Tensor, pad: int) -> torch.Tensor:
+def _ext(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """``x`` with one more entry, ``pad``, along its last axis."""
     return torch.cat([
-        level,
-        torch.full((1,), pad, dtype=torch.int32, device=level.device),
-    ])
+        x,
+        torch.full((*x.shape[:-1], 1), pad, dtype=x.dtype, device=x.device),
+    ], -1)
 
 
 def _endpoint_levels(src, dst, level, n_nodes):
-    lev_ext = _level_ext(level, UNVISITED)
-    return lev_ext[src.clamp(0, n_nodes)], lev_ext[dst.clamp(0, n_nodes)]
+    lev_ext = _ext(level, UNVISITED)
+    return (_take(lev_ext, src.clamp(0, n_nodes)),
+            _take(lev_ext, dst.clamp(0, n_nodes)))
 
 
 def horizontal_mask(
@@ -53,10 +60,9 @@ def horizontal_queries(g: Graph, level: torch.Tensor, *, order: str = "asc"):
     horiz = horizontal_mask(g.src, g.dst, level, n)
     eu, ew, und = undirected_edges(g)
     use = und & horiz
-    deg_ext = torch.cat([g.deg, torch.zeros((1,), dtype=torch.int32,
-                                            device=dev)])
-    du = deg_ext[eu.clamp(0, n)]
-    dw = deg_ext[ew.clamp(0, n)]
+    deg_ext = _ext(g.deg, 0)
+    du = _take(deg_ext, eu.clamp(0, n))
+    dw = _take(deg_ext, ew.clamp(0, n))
     d_min = torch.minimum(du, dw)
     if order == "asc":
         key = torch.where(use, d_min, g.num_slots + 1)  # > any degree
@@ -65,14 +71,44 @@ def horizontal_queries(g: Graph, level: torch.Tensor, *, order: str = "asc"):
         key = -torch.where(use, d_min, -1)
     else:
         raise ValueError(f"order must be 'asc' or 'desc'; got {order!r}")
-    sort = torch.sort(key, stable=True).indices
+    sort = torch.sort(key, dim=-1, stable=True).indices
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-    qu = torch.where(use, eu, n)[sort]
-    qw = torch.where(use, ew, n)[sort]
-    d_small = torch.where(use, d_min, zero)[sort]
-    d_large = torch.where(use, torch.maximum(du, dw), zero)[sort]
-    n_h = use.sum(dtype=torch.int32)
+    qu = _take(torch.where(use, eu, n), sort)
+    qw = _take(torch.where(use, ew, n), sort)
+    d_small = _take(torch.where(use, d_min, zero), sort)
+    d_large = _take(torch.where(use, torch.maximum(du, dw), zero), sort)
+    n_h = use.sum(-1, dtype=torch.int32)
     return qu, qw, d_small, d_large, n_h
+
+
+def mindeg_per_slot(src, dst, deg):
+    """Host-side ``(und, mind)`` per edge slot (numpy): ``und`` marks the
+    undirected (``src < dst``) slots — sentinel pads have ``src == dst``
+    and drop out — and ``mind`` their smaller endpoint's degree (0
+    elsewhere).  Any slot layout; the shape is kept.  Every bound the
+    bucket planners read counts ``mind > w`` strictly: a query with
+    ``d_small == w`` fits a ``w``-wide bucket."""
+    und = src < dst
+    if deg.shape[0] == 0:
+        return und, np.zeros_like(src)
+    hi = deg.shape[0] - 1
+    mind = np.where(
+        und,
+        np.minimum(deg[np.clip(src, 0, hi)], deg[np.clip(dst, 0, hi)]),
+        0,
+    )
+    return und, mind
+
+
+def mindeg_exceedance(g: Graph, widths) -> tuple[int, ...]:
+    """For each width ``w``, the number of undirected edges whose
+    smaller endpoint has degree > ``w`` (one read-back of the graph).
+    The horizontal queries of any BFS are a subset of the undirected
+    edges, so these counts bound every bucket's occupancy whatever the
+    root — what ``plan_buckets_bounded`` is laid out from."""
+    _, mind = mindeg_per_slot(g.src.cpu().numpy(), g.dst.cpu().numpy(),
+                              g.deg.cpu().numpy())
+    return tuple(int((mind > int(w)).sum()) for w in widths)
 
 
 def classify_edges(src, dst, level, n_nodes):
@@ -94,8 +130,9 @@ def classify_edges(src, dst, level, n_nodes):
 
 def k_fraction(src, dst, level, n_nodes) -> torch.Tensor:
     """Paper's k: |horizontal undirected edges| / m, float32 — an
-    int32/int32 true division, as in the reference."""
+    int32/int32 true division, as in the reference (per lane on a lane
+    axis)."""
     h = horizontal_mask(src, dst, level, n_nodes)
     und = src < dst  # count each undirected edge once
-    m = ((src < n_nodes) & (dst < n_nodes) & und).sum(dtype=torch.int32)
-    return (h & und).sum(dtype=torch.int32) / m.clamp(min=1)
+    m = ((src < n_nodes) & (dst < n_nodes) & und).sum(-1, dtype=torch.int32)
+    return (h & und).sum(-1, dtype=torch.int32) / m.clamp(min=1)

@@ -5,9 +5,11 @@ per-vertex credit and triangle finding:
 
 * **Adjacency view.**  ``CsrAdjacency`` reads a ``Graph``'s CSR arrays
   and exposes ``bounds(v) -> (starts, lens)`` into one flat sorted array.
-* **Plans.**  ``plan_buckets`` (host numpy, verbatim from the reference,
-  so the plan work counts match) lays out contiguous query-row buckets,
-  each with a row count and candidate/target widths.
+* **Plans.**  ``plan_buckets`` (exact, from a degree profile) and
+  ``plan_buckets_bounded`` (from upper bounds known before the BFS, the
+  batch route's cached plans) — host numpy, verbatim from the
+  reference, so the plan work counts match — lay out contiguous
+  query-row buckets, each with a row count and candidate/target widths.
 * **Execution.**  ``run_plan`` probes each bucket — whole, or in
   ``query_chunk`` slices — through one of two backends:
 
@@ -22,6 +24,13 @@ per-vertex credit and triangle finding:
 
   The two agree on every exact plan: ``plan_buckets`` sizes ``d_targ``
   to at least every large degree of its bucket.
+
+* **Lanes.**  ``run_plan`` also runs a batch: given ``[B, rows]`` query
+  blocks over a :class:`LaneView` (the batch's B CSRs numbered as one),
+  each bucket slice is ONE probe over its ``B * rows`` rows, and the
+  counts and overflow are reduced per lane — the counterpart of the
+  reference's ``vmap`` of ``run_plan``.  BFS, compaction and planning
+  stay per lane; only the probe sees one index space.
 
 * **Level-free probes.**  Without ``level`` (the stream route's batch
   deltas) every hit counts once: ``c1`` is the raw hit total and ``c2``
@@ -44,7 +53,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.graph.csr import Graph, _ceil_to, _next_pow2, gather_rows
+from repro_torch.graph.csr import (
+    Graph,
+    GraphBatch,
+    _ceil_to,
+    _next_pow2,
+    gather_rows,
+)
 from repro_torch.graph.segment import segment_sum
 from repro_torch.kernels.intersect.intersect import (
     intersect_count,
@@ -70,6 +85,13 @@ BACKENDS = ("auto", "torch", "cuda")
 #: card): the mask costs a byte per cell and its hit list ~24 bytes per
 #: hit, so this bounds a chunk's memory to a few GB.
 HIT_CELL_BUDGET = 1 << 28
+
+#: the item that ports the in-run query sort ``sort_queries`` asks for
+_SORT_QUERIES_ITEM = (
+    "IntersectPlan(sort_queries=True) sorts the query block in the run, "
+    "which only Algorithm 2 needs: ROADMAP Queue 1 item 10 (distributed "
+    "Algorithm 2)"
+)
 
 
 # --------------------------------------------------------------- views
@@ -105,6 +127,17 @@ class CsrAdjacency:
         return self.row_offsets[vc], torch.where(v < n, deg_ext[vc], 0)
 
 
+class PairListAdjacency:
+    """The reference's adjacency over Algorithm 2's lex-sorted ``(owner,
+    value)`` pair lists, which the local and batch routes do not use:
+    ROADMAP Queue 1 item 10 (distributed Algorithm 2)."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PairListAdjacency is not ported to repro_torch yet: ROADMAP "
+            "Queue 1 item 10 (distributed Algorithm 2)")
+
+
 # --------------------------------------------------------------- plans
 
 
@@ -128,11 +161,15 @@ class PlanBucket:
 @dataclasses.dataclass(frozen=True)
 class IntersectPlan:
     """A hashable execution plan for one query-block layout, produced on
-    the host once (``plan_buckets``) and executed by ``run_plan``."""
+    the host once (``plan_buckets`` / ``plan_buckets_bounded``) and
+    executed by ``run_plan``.  ``sort_queries`` asks the run to sort the
+    block by descending min-degree first (Algorithm 2's blocks, which
+    the host could not sort); ``run_plan`` refuses it until item 10."""
 
     buckets: tuple[PlanBucket, ...]
     backend: str = "torch"
     query_chunk: int | None = None
+    sort_queries: bool = False
 
     @property
     def total_rows(self) -> int:
@@ -221,6 +258,68 @@ def plan_buckets(
     )
 
 
+def plan_buckets_bounded(
+    total_rows: int,
+    *,
+    d_pad: int,
+    exceed: tuple[tuple[int, int], ...] | None = None,
+    bucket_widths: tuple[int, ...] = DEFAULT_BUCKET_WIDTHS,
+    row_mult: int = 1,
+    backend: str = "torch",
+    query_chunk: int | None = None,
+    sort_queries: bool | None = None,
+) -> IntersectPlan:
+    """Safe plan when the per-query degree profile is known only as
+    upper bounds: the batch route's cached plans, whose bounds come from
+    a ``BatchDegreeMeta`` (``core.sequential.batch_plan_for``).
+
+    ``exceed`` holds ``(width, bound)`` pairs: for each candidate width,
+    an upper bound on how many queries of any block this plan runs have
+    min-endpoint degree above it.  Buckets are laid out widest-first and
+    sized from those bounds, so on a block sorted by descending
+    min-degree every query lands in a bucket at least as wide as its
+    candidate list; a violated bound flags ``overflow`` in the run
+    instead of miscounting.  ``exceed=None`` is one ``d_pad``-wide
+    bucket.  ``sort_queries=None`` asks the run to sort the block when
+    the plan has more than one bucket; the batch route passes ``False``
+    (its lanes arrive sorted from the compaction).
+    """
+    T = _ceil_to(int(total_rows), row_mult) if total_rows > 0 else 0
+    if T == 0:
+        return IntersectPlan((), backend=backend, query_chunk=query_chunk)
+    if sort_queries is None:
+        sort_queries = True  # resolved to len(buckets) > 1 below
+    top = int(d_pad)
+    bound = dict(exceed or ())
+    widths = sorted(
+        w for w in {int(w) for w in bucket_widths}
+        if 0 < w < top and w in bound
+    )
+    widths.append(top)  # ascending, widest last
+    buckets = []
+    used = 0
+    for i in range(len(widths) - 1, -1, -1):  # allocate widest-first
+        w = widths[i]
+        if i == 0:
+            rows = T - used  # narrowest bucket absorbs the remainder
+        else:
+            # every query with min-degree > widths[i-1] must rank before
+            # this bucket's end — size it so cumulative rows cover the bound
+            need = int(bound[widths[i - 1]])
+            need_rows = _ceil_to(need, row_mult) if need > 0 else 0
+            rows = min(T - used, max(0, need_rows - used))
+        if rows <= 0:
+            continue
+        buckets.append(PlanBucket(
+            start=used, count=rows, rows=rows, d_cand=w, d_targ=top,
+        ))
+        used += rows
+    return IntersectPlan(
+        buckets=tuple(buckets), backend=backend, query_chunk=query_chunk,
+        sort_queries=bool(sort_queries) and len(buckets) > 1,
+    )
+
+
 # ----------------------------------------------------------- execution
 
 
@@ -250,22 +349,17 @@ def _swapped_bounds(su, lu, sw, lw, row_ok):
     return s_s, l_s, s_l, l_l
 
 
-def _width_overflow(l_s, l_l, *, d_cand, d_targ) -> torch.Tensor:
-    """The reference's width-overflow predicate (``_gather_cand_targ``):
-    some row's candidate or target list is longer than its width."""
-    return ((l_s > d_cand) | (l_l > d_targ)).any()
-
-
 def probe_operands(adj: CsrAdjacency, qu, qw, bounds, base: int, count: int,
-                   level: Optional[torch.Tensor]):
+                   level: Optional[torch.Tensor], *, lanes: int = 1):
     """The kernel operands of one slice of bucket rows: ``(s_s, l_s, s_l,
     l_l, lev_u)``.  ``base`` is the slice's offset within its bucket
     (rows at or past ``count`` are masked), ``bounds`` the slice's
     ``(su, lu, sw, lw)`` endpoint bounds; ``lev_u`` is None without
-    ``level``."""
+    ``level``.  Over a lane view the slice is ``lanes`` lanes' rows one
+    after another, each lane's offset counted from ``base``."""
     n = adj.n_nodes
-    pos = base + torch.arange(qu.shape[0], dtype=torch.int32,
-                              device=qu.device)
+    pos = base + torch.arange(qu.shape[0] // lanes, dtype=torch.int32,
+                              device=qu.device).repeat(lanes)
     row_ok = (pos < count) & (qu < n) & (qw < n)
     s_s, l_s, s_l, l_l = _swapped_bounds(*bounds, row_ok)
     if level is None:
@@ -366,10 +460,19 @@ def _chunk_credit(n, cand, end_rows, qu_c, qw_c):
     return apex + _ends_credit(n, end_rows, qu_c, qw_c)
 
 
+def _per_lane(x: torch.Tensor, lanes: Optional[int]) -> torch.Tensor:
+    """Per-row ``x`` as ``[lanes, rows]`` over a lane view; one graph's
+    rows stay 1-D (a reduction over the last axis then gives a 0-d
+    total)."""
+    return x if lanes is None else x.view(lanes, -1)
+
+
 def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
-                 level, backend, per_vertex=False, clock=None):
+                 level, backend, per_vertex=False, clock=None, lanes=None):
     """Summed ``(c1, c2, overflow, credit)`` for one slice of bucket
     rows; ``credit`` is int32[n + 1] with ``per_vertex``, else None.
+    With ``lanes`` (a lane view's slice, ``lanes`` lanes' rows one after
+    another) c1, c2 and overflow are per lane, ``[lanes]``; else 0-d.
 
     Without ``per_vertex`` the ``cuda`` backend counts with K1 (K3 when
     ``level`` is None) and the ``torch`` backend with the jnp probe's
@@ -380,27 +483,36 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
     endpoints (Algorithm 2's N-hat regime).  A ``clock`` records the
     per-vertex path's ``probe``, ``hit_list`` and ``credit`` stages."""
     s_s, l_s, s_l, l_l, lev_u = probe_operands(
-        adj, qu, qw, bounds, base, count, level
+        adj, qu, qw, bounds, base, count, level, lanes=lanes or 1
     )
-    overflow = _width_overflow(l_s, l_l, d_cand=d_cand, d_targ=d_targ)
+    # the reference's width-overflow predicate (``_gather_cand_targ``):
+    # some row's candidate or target list is longer than its width
+    overflow = _per_lane((l_s > d_cand) | (l_l > d_targ), lanes).any(-1)
     if per_vertex:
         n = adj.n_nodes
-        c1 = torch.zeros((), dtype=torch.int32, device=qu.device)
-        c2 = torch.zeros((), dtype=torch.int32, device=qu.device)
+        rpl = qu.shape[0] // (lanes or 1)
+        shape = () if lanes is None else (lanes,)
+        c1 = torch.zeros(shape, dtype=torch.int32, device=qu.device)
+        c2 = torch.zeros(shape, dtype=torch.int32, device=qu.device)
         credit = torch.zeros(n + 1, dtype=torch.int32, device=qu.device)
+
+        def tally(mask, row):
+            """Hits of ``mask``, in total or per lane of their ``row``."""
+            if lanes is None:
+                return mask.sum(dtype=torch.int32)
+            return segment_sum(mask.to(torch.int32), row // rpl, lanes)
+
         for row, cand in hit_chunks(adj, (s_s, l_s, s_l, l_l),
                                     d_cand=d_cand, d_targ=d_targ,
                                     backend=backend, clock=clock):
             ones = torch.ones_like(cand, dtype=torch.int32)
             if level is None:
-                c1 = c1 + cand.shape[0]
-                diff_rows = segment_sum(ones, row, qu.shape[0])
+                diff = torch.ones_like(cand, dtype=torch.bool)
             else:
                 diff = level[cand] != lev_u[row]
-                n_diff = diff.sum(dtype=torch.int32)
-                c1 = c1 + n_diff
-                c2 = c2 + (cand.shape[0] - n_diff)
-                diff_rows = segment_sum(ones[diff], row[diff], qu.shape[0])
+            c1 = c1 + tally(diff, row)
+            c2 = c2 + tally(~diff, row)
+            diff_rows = segment_sum(ones[diff], row[diff], qu.shape[0])
             credit += _chunk_credit(n, cand, diff_rows, qu, qw)
             if clock is not None:
                 clock.lap("credit")
@@ -412,8 +524,8 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
         else:
             cnt = found_counts(adj.flat, s_s, l_s, s_l, l_l, d_cand=d_cand,
                                num_steps=search_steps(d_targ))
-        zero = torch.zeros((), dtype=torch.int32, device=qu.device)
-        return cnt.sum(dtype=torch.int32), zero, overflow, None
+        c1 = _per_lane(cnt, lanes).sum(-1, dtype=torch.int32)
+        return c1, torch.zeros_like(c1), overflow, None
     if backend == "cuda":
         c1, c2 = intersect_levels(
             adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
@@ -426,22 +538,24 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
             adj.flat, s_s, l_s, s_l, l_l, level, lev_u,
             d_cand=d_cand, num_steps=search_steps(d_targ),
         )
-    return (c1.sum(dtype=torch.int32), c2.sum(dtype=torch.int32), overflow,
-            None)
+    return (_per_lane(c1, lanes).sum(-1, dtype=torch.int32),
+            _per_lane(c2, lanes).sum(-1, dtype=torch.int32), overflow, None)
 
 
 def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
     """Yield ``(bucket, base, qu, qw, bounds)`` for every slice
     ``run_plan`` probes, in its order: each bucket whole, or in
     ``query_chunk`` slices.  ``qu``/``qw`` are padded to the plan's
-    total rows with the sentinel first."""
+    total rows with the sentinel first.  Given ``[B, rows]`` blocks (a
+    lane view's), each slice is the B lanes' rows one after another,
+    flattened."""
     n = adj.n_nodes
     need = plan.total_rows
-    if qu.shape[0] < need:
-        fill = torch.full((need - qu.shape[0],), n, dtype=qu.dtype,
-                          device=qu.device)
-        qu = torch.cat([qu, fill])
-        qw = torch.cat([qw, fill])
+    if qu.shape[-1] < need:
+        fill = torch.full((*qu.shape[:-1], need - qu.shape[-1]), n,
+                          dtype=qu.dtype, device=qu.device)
+        qu = torch.cat([qu, fill], -1)
+        qw = torch.cat([qw, fill], -1)
     # endpoint bounds once per block, then sliced per bucket
     su, lu = adj.bounds(qu)
     sw, lw = adj.bounds(qw)
@@ -454,9 +568,9 @@ def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
             )
         for base in range(0, b.rows, chunk):
             lo, hi = b.start + base, b.start + base + chunk
-            yield b, base, qu[lo:hi], qw[lo:hi], tuple(
-                x[lo:hi] for x in (su, lu, sw, lw)
-            )
+            qu_c, qw_c, *bounds = (x[..., lo:hi].reshape(-1)
+                                   for x in (qu, qw, su, lu, sw, lw))
+            yield b, base, qu_c, qw_c, tuple(bounds)
 
 
 def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
@@ -473,6 +587,11 @@ def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
     ``c1`` and ``c2`` is 0 (the stream route's level-free probes).  Sums
     are int32, as in the reference.
 
+    Given ``[B, rows]`` query blocks in a :class:`LaneView`'s ids (and
+    its levels), the plan covers every lane: each bucket slice is one
+    probe over the B lanes' rows, and ``c1``, ``c2`` and ``overflow``
+    come back per lane, ``[B]``.
+
     With ``per_vertex=True`` the same probe pass also returns triangle
     credit (:func:`_chunk_credit`), int32[n + 1]: slot ``n`` absorbs
     sentinel-row credit and is dropped by the caller, and
@@ -480,25 +599,83 @@ def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
     without it every hit credits all three corners).  A ``clock``
     (``core.sequential.StageClock``) splits that path's stages.
     """
+    if plan.sort_queries:
+        raise NotImplementedError(_SORT_QUERIES_ITEM)
     dev = qu.device
     n = adj.n_nodes
-    c1 = torch.zeros((), dtype=torch.int32, device=dev)
-    c2 = torch.zeros((), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((), dtype=torch.bool, device=dev)
+    lanes = qu.shape[0] if qu.dim() == 2 else None
+    shape = () if lanes is None else (lanes,)
+    c1 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    c2 = torch.zeros(shape, dtype=torch.int32, device=dev)
+    ovf = torch.zeros(shape, dtype=torch.bool, device=dev)
     credit = (torch.zeros(n + 1, dtype=torch.int32, device=dev)
               if per_vertex else None)
-    if qu.shape[0] == 0 or not plan.buckets:
+    if qu.shape[-1] == 0 or not plan.buckets:
         return EngineCounts(c1, c2, ovf, credit)
     for b, base, qu_c, qw_c, bounds in bucket_slices(adj, qu, qw, plan):
         d1, d2, do, dc = _count_chunk(
             adj, qu_c, qw_c, bounds, base, b.count,
             d_cand=b.d_cand, d_targ=b.d_targ, level=level,
             backend=plan.backend, per_vertex=per_vertex, clock=clock,
+            lanes=lanes,
         )
         c1, c2, ovf = c1 + d1, c2 + d2, ovf | do
         if per_vertex:
             credit += dc
     return EngineCounts(c1, c2, ovf, credit)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneView:
+    """A batch's B CSRs numbered as one adjacency, built once per batch:
+    vertex ``v`` of lane ``i`` is ``i * (n_budget + 1) + v``, its row
+    offsets shift by ``i * slot_budget``, and each lane's sentinel
+    ``n_budget`` becomes an isolated vertex of degree 0.  ``adj`` has
+    ``B * (n_budget + 1)`` vertices; its own sentinel pads the plan's
+    rows.
+
+    This is an index view at the probe's boundary: every probe row reads
+    only its own lane's slices, and K1's bitmap works over each target's
+    own id span, so the shifted ids change none of its results.  BFS,
+    compaction and planning stay per lane."""
+
+    adj: CsrAdjacency
+    lanes: int
+    n_budget: int
+
+    @classmethod
+    def from_batch(cls, gb: GraphBatch) -> "LaneView":
+        B, nb, S = gb.batch_size, gb.n_budget, gb.slot_budget
+        dev = gb.device  # GraphBatch checked that the ids fit in int32
+        lane = torch.arange(B, dtype=torch.int32, device=dev)[:, None]
+        flat = (gb.dst + lane * (nb + 1)).reshape(-1)
+        row = (gb.row_offsets[:, :nb + 1] + lane * S).reshape(-1)
+        row = torch.cat([row, torch.full((1,), B * S, dtype=torch.int32,
+                                         device=dev)])
+        deg = torch.cat([gb.deg, torch.zeros((B, 1), dtype=torch.int32,
+                                             device=dev)], 1).reshape(-1)
+        return cls(adj=CsrAdjacency(flat=flat, row_offsets=row, deg=deg,
+                                    n_nodes=B * (nb + 1)),
+                   lanes=B, n_budget=nb)
+
+    def ids(self, v: torch.Tensor) -> torch.Tensor:
+        """Lane-local ids ``[B, rows]`` (the lane sentinel included) as
+        the view's ids."""
+        lane = torch.arange(self.lanes, dtype=v.dtype, device=v.device)
+        return v + (lane * (self.n_budget + 1))[:, None]
+
+    def levels(self, level: torch.Tensor) -> torch.Tensor:
+        """Per-lane levels ``[B, n_budget]`` as the view's flat levels
+        (each lane's sentinel, never a candidate, at ``-9``)."""
+        pad = torch.full((self.lanes, 1), -9, dtype=level.dtype,
+                         device=level.device)
+        return torch.cat([level, pad], 1).reshape(-1)
+
+    def lane_credit(self, credit: torch.Tensor) -> torch.Tensor:
+        """The view's credit ``int32[B * (n_budget + 1) + 1]`` as
+        ``[B, n_budget]``: the view's sentinel slot and each lane's
+        sentinel column dropped (the reference's ``[:, :-1]``)."""
+        return credit[:-1].view(self.lanes, self.n_budget + 1)[:, :-1]
 
 
 # ------------------------------------------------- probe-level wrappers

@@ -20,6 +20,20 @@ With ``per_vertex`` the count also returns each vertex's triangle
 count, and ``_find_triangles`` returns the triangles themselves; both
 probe through the hit mask (K2 on the card).
 
+The batch route (``_triangle_count_batch``) runs B budget-padded lanes
+of a ``GraphBatch`` through the same steps with a leading lane axis —
+one BFS loop and one compaction for all lanes — and probes them with
+ONE plan that covers every lane (``run_plan`` over a ``LaneView``: one
+K1 or K2 launch per bucket slice for all lanes).  Two planning modes:
+
+* **exact**: the pooled degree profile (a per-row max over the lanes'
+  descending profiles, itself descending) comes to the host in one
+  sync and ``plan_buckets`` lays out the plan;
+* **bounded** (``plan=batch_plan_for(gb)``): a plan from the batch's
+  quantized ``BatchDegreeMeta``, made before the BFS and kept in an
+  LRU ``PlanCache`` — the serving path (``launch/serve_tc.py``), with
+  no host sync besides the BFS's one per sweep.
+
 ``triangle_count_dense`` / ``find_triangles_dense`` are the seed's
 golden reference: every directed slot probed at the global ``d_max``
 width, non-horizontal rows masked.
@@ -34,7 +48,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.bfs import bfs_levels_iters
+from repro_torch.core.bfs import bfs_levels_batch, bfs_levels_iters
 from repro_torch.core.edges import (
     horizontal_mask,
     horizontal_queries,
@@ -43,20 +57,30 @@ from repro_torch.core.edges import (
 from repro_torch.core.intersect import (
     CsrAdjacency,
     IntersectPlan,
+    LaneView,
     PlanBucket,
     bucket_slices,
     hit_chunks,
     plan_buckets,
+    plan_buckets_bounded,
     probe_operands,
     resolve_backend,
     run_plan,
 )
-from repro_torch.graph.csr import Graph, max_degree, undirected_edges
+from repro_torch.graph.csr import (
+    Graph,
+    GraphBatch,
+    max_degree,
+    undirected_edges,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class TCResult:
-    """Raw count result; tensors live on the graph's device."""
+    """Raw count result; tensors live on the graph's device.  A batch's
+    result has a leading lane axis on every tensor (``levels`` is ``[B,
+    n_budget]``, ``per_vertex`` ``[B, n_budget]``); the plan work counts
+    stay scalar, since every lane runs the same plan."""
 
     triangles: torch.Tensor   # int32 scalar
     c1: torch.Tensor
@@ -175,6 +199,262 @@ def _triangle_count(g: Graph, o, *,
         per_vertex=(eng.per_vertex[:-1] if eng.per_vertex is not None
                     else None),
         plan=plan,
+    )
+
+
+# ----------------------------------------------------------------- batch
+
+
+def _lane_plan(gview: Graph, root: int, clock: Optional[StageClock] = None):
+    """Plan pass of a batch's lanes (``GraphBatch.lane_view()``): BFS
+    levels, the desc-compacted, degree-sorted horizontal queries and the
+    paper's k, each with a lane axis — one BFS loop (one host sync a
+    sweep for all lanes) and one compaction."""
+    level, sweeps = bfs_levels_batch(gview.src, gview.dst, gview.n_nodes,
+                                     root, row_offsets=gview.row_offsets)
+    if clock is not None:
+        clock.lap("bfs")
+        clock.counts["bfs_sweeps"] = sweeps
+    qu, qw, d_small, d_large, n_h = horizontal_queries(gview, level,
+                                                       order="desc")
+    k = k_fraction(gview.src, gview.dst, level, gview.n_nodes)
+    if clock is not None:
+        clock.lap("compact")
+    return level, qu, qw, d_small, d_large, n_h, k
+
+
+def _plan_batch(gview: Graph, root: int, clock: Optional[StageClock] = None):
+    """The plan pass and the pooled profile: the per-row max over the
+    lanes' descending profiles is itself descending, so it is one
+    profile that bounds every lane row by row."""
+    level, qu, qw, ds, dl, n_h, k = _lane_plan(gview, root, clock)
+    return level, qu, qw, ds.max(0).values, dl.max(0).values, n_h, k
+
+
+def _exact_batch_plan(gview: Graph, o, backend: str, *,
+                      clock: Optional[StageClock] = None):
+    """The exact path's plan pass for a batch: the pooled profile and the
+    largest lane's ``n_h`` to the host in ONE sync, then the exact plan
+    covering the first ``h_used = min(cap_h, max n_h)`` rows of every
+    lane.  Returns ``(level, qu, qw, n_h, k, h_used, h_dropped, plan)``
+    with a lane axis on the tensors."""
+    level, qu, qw, ds_pool, dl_pool, n_h, k = _plan_batch(
+        gview, int(o.root), clock)
+    S = ds_pool.shape[0]
+    host = torch.cat([ds_pool, dl_pool, n_h.max().reshape(1)]).cpu().numpy()
+    H = int(host[-1])
+    h_used = H if o.cap_h is None else min(int(o.cap_h), H)
+    row_mult = int(o.query_chunk) if o.query_chunk else o.row_mult
+    plan = plan_buckets(
+        host[:h_used], host[S:S + h_used],
+        bucket_widths=o.bucket_widths,
+        d_cap=o.d_max,
+        row_mult=row_mult,
+        backend=backend,
+        query_chunk=o.query_chunk,
+        layout="desc",
+    )
+    if clock is not None:
+        clock.lap("plan")
+    return level, qu, qw, n_h, k, h_used, h_used < H, plan
+
+
+def _run_batch(gb: GraphBatch, qu, qw, level, plan: IntersectPlan,
+               per_vertex: bool = False,
+               clock: Optional[StageClock] = None):
+    """Probe a batch's ``[B, rows]`` query blocks with one shared plan:
+    ``run_plan`` over the batch's ``LaneView`` (one probe per bucket
+    slice for all lanes).  Returns the engine's per-lane counts and,
+    with ``per_vertex``, the credit as ``[B, n_budget]``."""
+    view = LaneView.from_batch(gb)
+    eng = run_plan(view.adj, view.ids(qu), view.ids(qw), plan,
+                   level=view.levels(level), per_vertex=per_vertex,
+                   clock=clock)
+    if per_vertex:
+        eng = eng._replace(per_vertex=view.lane_credit(eng.per_vertex))
+    return eng
+
+
+def _tc_batch_fused(gb: GraphBatch, plan: IntersectPlan, root: int,
+                    per_vertex: bool = False,
+                    clock: Optional[StageClock] = None):
+    """The serving path: BFS, compaction and the probe with a plan known
+    before the BFS (the bounded plan cache).  The count makes no host
+    sync besides the BFS's one per sweep; with ``per_vertex`` each K2
+    chunk also reads its size back."""
+    level, qu, qw, _, _, n_h, k = _lane_plan(gb.lane_view(), root, clock)
+    eng = _run_batch(gb, qu, qw, level, plan, per_vertex, clock)
+    return level, n_h, k, eng
+
+
+#: default bound of a plan cache: far above any serving grid (budgets x
+#: widths x chunking), low enough that a sweep over many option sets
+#: through one engine cannot grow the dict without bound
+DEFAULT_PLAN_CACHE_CAPACITY = 256
+
+
+class PlanCache:
+    """Bounded LRU mapping for bounded ``IntersectPlan``s: ``get`` marks
+    a key recent, inserting past ``capacity`` evicts the least recently
+    used plan (``evictions`` counts them).  Eviction is a performance
+    event only: planning is a pure function of the key.
+    ``capacity=None`` leaves it unbounded."""
+
+    def __init__(self, capacity: Optional[int] = DEFAULT_PLAN_CACHE_CAPACITY):
+        if capacity is not None and int(capacity) <= 0:
+            raise ValueError(f"capacity must be positive; got {capacity}")
+        self.capacity = int(capacity) if capacity is not None else None
+        self.evictions = 0
+        self._d: dict = {}  # insertion-ordered; re-insert marks recency
+
+    def get(self, key):
+        plan = self._d.get(key)
+        if plan is not None:  # touch: move to the recent end
+            del self._d[key]
+            self._d[key] = plan
+        return plan
+
+    def __setitem__(self, key, plan) -> None:
+        self._d.pop(key, None)
+        self._d[key] = plan
+        while self.capacity is not None and len(self._d) > self.capacity:
+            self._d.pop(next(iter(self._d)))
+            self.evictions += 1
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, key) -> bool:
+        return key in self._d
+
+    def clear(self) -> None:
+        self._d.clear()
+        self.evictions = 0
+
+
+_BATCH_PLAN_CACHE = PlanCache()
+_BATCH_PLAN_STATS = {"hits": 0, "misses": 0}
+
+
+def batch_plan_for(gb: GraphBatch, *, options=None,
+                   cache: Optional[PlanCache] = None,
+                   stats: Optional[dict] = None) -> IntersectPlan:
+    """The bounded plan of a packed batch, memoized on the host.
+
+    ``plan_buckets_bounded`` lays it out from the batch's
+    ``BatchDegreeMeta`` (upper bounds on every lane's query profile,
+    known at pack time), so it is exact and needs no BFS.  The key is
+    ``(budget, meta, options.plan_view(device))``; quantized metas make
+    same-scale traffic share a key.  ``cache``/``stats`` let a
+    ``TriangleEngine`` own its cache; the module's default cache serves
+    other callers (``batch_plan_cache_stats``)."""
+    if options is None:
+        from repro_torch.api import TCOptions  # api imports this module
+
+        options = TCOptions()
+    if gb.meta is None:
+        raise ValueError(
+            "GraphBatch carries no degree metadata; pack it with "
+            "from_edges_batch(with_meta=True) or plan exact "
+            "(count_batch_raw without a plan)"
+        )
+    key_opts = options.plan_view(gb.device)
+    cache = _BATCH_PLAN_CACHE if cache is None else cache
+    stats = _BATCH_PLAN_STATS if stats is None else stats
+    key = (gb.budget, gb.meta, key_opts)
+    plan = cache.get(key)
+    if plan is None:
+        stats["misses"] += 1
+        plan = plan_buckets_bounded(
+            gb.meta.h_rows,
+            d_pad=gb.meta.d_pad,
+            exceed=gb.meta.exceed,
+            bucket_widths=key_opts.bucket_widths,
+            row_mult=key_opts.row_mult,
+            backend=key_opts.backend,
+            query_chunk=key_opts.query_chunk,
+            sort_queries=False,  # lanes arrive desc-sorted from compaction
+        )
+        cache[key] = plan
+    else:
+        stats["hits"] += 1
+    return plan
+
+
+def batch_plan_cache_stats(reset: bool = False) -> dict:
+    """``{"hits", "misses", "size", "evictions", "capacity"}`` of the
+    module's default plan cache (an engine's own cache reports through
+    ``TriangleEngine.plan_cache_stats``)."""
+    out = dict(
+        _BATCH_PLAN_STATS,
+        size=len(_BATCH_PLAN_CACHE),
+        evictions=_BATCH_PLAN_CACHE.evictions,
+        capacity=_BATCH_PLAN_CACHE.capacity,
+    )
+    if reset:
+        _BATCH_PLAN_STATS.update(hits=0, misses=0)
+    return out
+
+
+def _triangle_count_batch(gb: GraphBatch, o, *,
+                          plan: Optional[IntersectPlan] = None,
+                          clock: Optional[StageClock] = None) -> TCResult:
+    """Count every lane of a ``GraphBatch`` — ``o`` is a
+    ``repro_torch.api.TCOptions``.  Without ``plan`` the exact two-stage
+    path runs (plan pass, one host sync, probe); with one (see
+    ``batch_plan_for``) the fused path runs with the plan's own backend
+    and chunking, and ``d_max``/``cap_h`` must be unset.  Each lane's
+    result equals the graph's own count bit for bit; ``h_overflow[i]``
+    is True iff ``cap_h`` dropped real queries of lane ``i``, lane ``i``
+    has more queries than the plan covers, or it overflowed a bucket
+    width.  A ``clock`` records the bfs, compact, plan (exact path) and
+    probe stages."""
+    backend = resolve_backend(o.backend, gb.device)
+    per_vertex = bool(o.per_vertex)
+    if plan is not None:
+        if o.d_max is not None or o.cap_h is not None:
+            raise ValueError(
+                "d_max/cap_h only apply to exact planning; a precomputed "
+                "plan fixes coverage and widths"
+            )
+        level, n_h, k, eng = _tc_batch_fused(gb, plan, int(o.root),
+                                             per_vertex, clock)
+        # coverage is the plan's contract: a lane with more horizontal
+        # queries than the plan probes must flag, not undercount (a plan
+        # from this batch's own meta covers it; a reused one may not)
+        h_ovf = (n_h > plan.total_rows) | eng.overflow
+    else:
+        level, qu, qw, n_h, k, h_used, _, plan = _exact_batch_plan(
+            gb.lane_view(), o, backend, clock=clock)
+        eng = _run_batch(gb, qu, qw, level, plan, per_vertex, clock)
+        h_ovf = (n_h > h_used) | eng.overflow
+    if clock is not None:
+        clock.lap("probe")
+    return TCResult(
+        triangles=eng.c1 + eng.c2 // 3,
+        c1=eng.c1,
+        c2=eng.c2,
+        num_horizontal=n_h,
+        k=k,
+        levels=level,
+        probe_rows=plan.probe_rows,
+        probe_cells=float(np.float32(plan.probe_cells)),
+        peak_rows=plan.peak_rows,
+        h_overflow=h_ovf,
+        per_vertex=eng.per_vertex,
+        plan=plan,
+    )
+
+
+def _squeeze_lane(res: TCResult) -> TCResult:
+    """Drop the lane axis of a B=1 result (the plan's scalars pass
+    through)."""
+    return dataclasses.replace(
+        res, triangles=res.triangles[0], c1=res.c1[0], c2=res.c2[0],
+        num_horizontal=res.num_horizontal[0], k=res.k[0],
+        levels=res.levels[0], h_overflow=res.h_overflow[0],
+        per_vertex=(res.per_vertex[0] if res.per_vertex is not None
+                    else None),
     )
 
 

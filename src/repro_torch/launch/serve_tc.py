@@ -1,0 +1,591 @@
+"""Triangle-analytics serving: the batch route as a request/response
+front end (counterpart of ``repro.launch.serve_tc``).
+
+The server batches a stream of edge-list requests (the per-community,
+per-ego-net query shape of triangle analytics) over a
+``repro_torch.api.TriangleEngine``: each request is rounded onto the
+engine's ``BudgetGrid`` cell, each cell keeps its own queue, and a full
+queue flushes as one ``GraphBatch`` — BFS, compaction and the probe of
+every lane with one bounded plan from the engine's cache (one K1 launch
+per bucket for all lanes on the card).  A partial queue flushes at
+``drain`` on the smallest power-of-two lane count that holds it.
+
+Batches in flight are pipelined: a flush records a ``torch.cuda.Event``
+after its batch, and the batch is read back once the event has passed
+(``Event.query()``), when more than ``max_inflight`` are queued, or at
+``drain``.  The BFS syncs the host once per sweep inside the flush, so
+the overlap is little.  On the CPU a batch is ready when it returns.
+
+Every submitted request id receives exactly one result: a
+:class:`TriangleAnalytics`, or a :class:`RejectedRequest` for malformed
+input (``strict=True`` raises instead).  Not ported: deadlines,
+admission control, the approx degrade ladder and fault injection
+(ROADMAP Queue 1 item 8), a grid with a top cell whose over-budget
+requests go to Algorithm 2 (item 10), pre-warming from a tuned profile
+and trace recording (item 11); each raises ``NotImplementedError``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve_tc --requests 96 \\
+        --batch-sizes 1 8 16 --out serve.json
+
+It runs on the card unless ``--device cpu`` is given, and writes a file
+only when ``--out`` names one.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import math
+import os
+import time
+from collections import defaultdict, deque
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.graph import generators as gen
+from repro_torch.graph.csr import (
+    BudgetGrid,
+    ShapeBudget,
+    from_edges,
+    from_edges_batch,
+)
+
+_ROBUST_ITEM = "ROADMAP Queue 1 item 8 (approx route and robust serving)"
+_TUNE_ITEM = "ROADMAP Queue 1 item 11 (the autotuner)"
+
+
+@dataclasses.dataclass
+class TriangleAnalytics:
+    """One request's response: the paper's per-graph analytics and the
+    latency from submit to the batch's read-back.  ``route`` is
+    ``"batched"`` (a lane of a batch).  ``overflow`` is the lane's
+    width-overflow flag: False whenever the bounded plan's bounds were
+    true upper bounds; True marks the count invalid, never silently
+    wrong.  ``per_vertex`` is the request's own vertices' credit when
+    the engine runs with ``TCOptions(per_vertex=True)``."""
+
+    request_id: int
+    n_nodes: int
+    triangles: int
+    c1: Optional[int]
+    c2: Optional[int]
+    num_horizontal: int
+    k: float
+    latency_s: float
+    budget: Optional[ShapeBudget]
+    overflow: bool = False
+    route: str = "batched"
+    report: Optional[object] = None
+    approx: Optional[object] = None
+    per_vertex: Optional[np.ndarray] = None
+
+
+@dataclasses.dataclass
+class RejectedRequest:
+    """A structured answer for a request the server could not serve,
+    carrying its id, so one bad request never aborts a batch of good
+    ones.  ``reason`` is ``"malformed"``: the request did not validate
+    (the reference's ``"overloaded"`` and ``"failed"`` belong to its
+    degrade ladder, ROADMAP Queue 1 item 8)."""
+
+    request_id: int
+    reason: str
+    detail: str
+    latency_s: float = 0.0
+    route: str = "rejected"
+
+
+#: everything ``TriangleServer.results`` holds: one entry per submitted id
+ServeResult = Union[TriangleAnalytics, RejectedRequest]
+
+
+@dataclasses.dataclass
+class _Pending:
+    request_id: int
+    edges: np.ndarray
+    n_nodes: int
+    t_submit: float
+
+
+@dataclasses.dataclass
+class _InFlight:
+    reqs: list
+    budget: ShapeBudget
+    res: object  # the batch's lane-axis TCResult
+    t_flush: float
+    done: Optional[torch.cuda.Event]  # None on the CPU
+
+
+class TriangleServer:
+    """Budget-bucketed batching front end over a ``TriangleEngine``
+    (construct it with ``TriangleEngine.serve()``).
+
+    ``submit`` puts a request on its budget cell's queue and flushes the
+    queue as one batch when it holds ``batch_size`` requests; ``drain``
+    flushes the partial queues, each at the smallest power of two lanes
+    that holds it (:func:`lanes_ladder`), and reads back every batch in
+    flight.  A flush pools its batch's meta to the cell's high-water
+    mark (``engine.pool_meta``), so a cell's batches share one plan per
+    lane count, taken from the engine's plan cache.
+    """
+
+    #: EWMA smoothing of each cell's flush-to-read-back seconds
+    EWMA_ALPHA = 0.3
+
+    def __init__(self, engine, *, batch_size: int = 8, max_inflight: int = 8,
+                 strict: bool = False, faults=None, prewarm: bool = False,
+                 recorder=None):
+        if faults is not None:
+            raise NotImplementedError(
+                f"fault injection is not ported to repro_torch yet: "
+                f"{_ROBUST_ITEM}")
+        if prewarm or recorder is not None:
+            raise NotImplementedError(
+                f"prewarm and recorder are not ported to repro_torch yet: "
+                f"{_TUNE_ITEM}")
+        o = engine.options
+        if o.d_max is not None or o.cap_h is not None:
+            raise ValueError(
+                "serving runs cached bounded plans; d_max/cap_h only "
+                "apply to the local route's exact planning"
+            )
+        if engine.budgets.capped:
+            raise NotImplementedError(
+                "a server over a capped BudgetGrid sends its over-budget "
+                "requests to distributed Algorithm 2, not ported to "
+                "repro_torch yet: ROADMAP Queue 1 item 10 (distributed "
+                "Algorithm 2)")
+        if int(batch_size) <= 0 or int(max_inflight) < 0:
+            raise ValueError(f"batch_size must be positive and max_inflight "
+                             f">= 0; got {batch_size}, {max_inflight}")
+        self.engine = engine
+        self.batch_size = int(batch_size)
+        self.max_inflight = int(max_inflight)
+        self.strict = bool(strict)
+        self._pending: dict[ShapeBudget, list[_Pending]] = defaultdict(list)
+        self._inflight: deque[_InFlight] = deque()
+        self._next_id = 0
+        self.results: list[ServeResult] = []
+        self.batches_run = 0
+        self.size_flushes = 0
+        self.rejected_requests = 0
+        self._flush_ewma_s: dict[ShapeBudget, float] = {}
+        #: named live stream sessions: mutation requests address graphs
+        #: by name
+        self._sessions: dict[str, object] = {}
+        self.stream_mutations = 0
+        # plan_hit in summary() counts from here on
+        ps = engine.plan_cache_stats()
+        self._plan_baseline = (ps["hits"], ps["misses"])
+
+    @property
+    def grid(self) -> BudgetGrid:
+        return self.engine.budgets
+
+    def submit(self, edges: np.ndarray, n_nodes: int, *,
+               deadline_s: Optional[float] = None,
+               strict: Optional[bool] = None) -> int:
+        """Enqueue one graph and return its request id; flush its budget
+        cell's queue when full (results land in ``self.results``).
+
+        Malformed input (an edge array that does not parse, a negative
+        ``n_nodes``, endpoints outside ``[0, n_nodes)``) is answered with
+        a :class:`RejectedRequest` of this id; ``strict=True`` (per call
+        or server-wide) raises instead."""
+        if deadline_s is not None:
+            raise NotImplementedError(
+                f"deadlines are not ported to repro_torch yet: "
+                f"{_ROBUST_ITEM}")
+        self._poll_inflight()  # stamp finished batches BEFORE new host work
+        rid = self._next_id
+        self._next_id += 1
+        strict = self.strict if strict is None else bool(strict)
+        t_submit = time.perf_counter()
+        try:
+            edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+            n_nodes = int(n_nodes)
+            if n_nodes < 0:
+                raise ValueError(f"n_nodes must be >= 0; got {n_nodes}")
+            if edges.size and (edges.min() < 0 or edges.max() >= n_nodes):
+                raise ValueError(
+                    f"edge endpoints must lie in [0, {n_nodes}); "
+                    f"got [{edges.min()}, {edges.max()}]"
+                )
+        except (ValueError, TypeError) as exc:
+            if strict:
+                raise ValueError(f"request {rid}: {exc}") from exc
+            self.rejected_requests += 1
+            self.results.append(RejectedRequest(
+                request_id=rid, reason="malformed", detail=str(exc),
+                latency_s=time.perf_counter() - t_submit,
+            ))
+            return rid
+        budget = self.grid.budget_for(n_nodes, edges.shape[0])
+        q = self._pending[budget]
+        q.append(_Pending(rid, edges, n_nodes, t_submit))
+        if len(q) >= self.batch_size:
+            self._flush(budget)
+        return rid
+
+    # -------------------------------------------------- stream sessions
+    def stream_session(self, name: str, graph_or_edges=None, *,
+                       options=None, seed: int = 0):
+        """Open (with ``graph_or_edges``) or fetch (without) the named
+        live :class:`~repro_torch.stream.session.StreamSession` over this
+        server's engine.  Re-opening a live name raises: close it
+        first."""
+        if graph_or_edges is None:
+            try:
+                return self._sessions[name]
+            except KeyError:
+                raise KeyError(
+                    f"no open stream session named {name!r}; open one "
+                    "with stream_session(name, (edges, n_nodes))"
+                ) from None
+        if name in self._sessions:
+            raise ValueError(
+                f"stream session {name!r} is already open; "
+                "close_session() it before re-opening the name"
+            )
+        sess = self.engine.stream(graph_or_edges, options=options,
+                                  seed=seed)
+        self._sessions[name] = sess
+        return sess
+
+    def mutate(self, name: str, updates, *, refresh=None):
+        """Apply one mutation request to the named session and return
+        its ``StreamUpdate``.  Mutations run at once and never enter the
+        batch queues."""
+        up = self.stream_session(name).apply(updates, refresh=refresh)
+        self.stream_mutations += len(up.statuses)
+        return up
+
+    def stream_count(self, name: str):
+        """The named session's current ``route="stream"`` report."""
+        return self.stream_session(name).count()
+
+    def close_session(self, name: str):
+        """Close the named session and return its final ``StreamStats``."""
+        sess = self.stream_session(name)
+        del self._sessions[name]
+        return sess.stats()
+
+    # ----------------------------------------------------------- batches
+    def drain(self) -> list[ServeResult]:
+        """Flush every partial queue (right-sized), read back every
+        batch in flight, and return all results so far (the empty list
+        on a server that has seen no request)."""
+        for budget in [b for b, q in self._pending.items() if q]:
+            self._flush(budget)
+        while self._inflight:
+            self._finalize_one()
+        return self.results
+
+    def _flush(self, budget: ShapeBudget) -> None:
+        reqs = self._pending.pop(budget, [])
+        if not reqs:
+            return
+        self.size_flushes += 1
+        lanes = self.batch_size
+        if len(reqs) < lanes:  # partial flush: smallest pow2 ladder step
+            lanes = min(lanes, 1 << (len(reqs) - 1).bit_length())
+        t_flush = time.perf_counter()
+        eng = self.engine
+        gb = from_edges_batch([(r.edges, r.n_nodes) for r in reqs],
+                              budget=budget, batch_size=lanes,
+                              device=eng.device)
+        gb = dataclasses.replace(gb, meta=eng.pool_meta(budget, gb.meta))
+        res = eng.count_batch_raw(gb, plan=eng.plan_for(gb))
+        done = None
+        if eng.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(eng.device))
+        self._inflight.append(_InFlight(reqs, budget, res, t_flush, done))
+        self.batches_run += 1
+        self._poll_inflight()
+        while len(self._inflight) > self.max_inflight:
+            self._finalize_one()
+
+    @staticmethod
+    def _batch_ready(f: _InFlight) -> bool:
+        return f.done is None or f.done.query()
+
+    def _poll_inflight(self) -> None:
+        """Read back every batch in flight that has finished on the
+        device, so its requests' latency is stamped near its end."""
+        while self._inflight and self._batch_ready(self._inflight[0]):
+            self._finalize_one()
+
+    def _finalize_one(self) -> None:
+        f = self._inflight.popleft()
+        res = f.res
+        tri, c1, c2, nh, ovf = torch.stack([
+            res.triangles, res.c1, res.c2, res.num_horizontal,
+            res.h_overflow.to(torch.int32)]).cpu().numpy()
+        k = res.k.cpu().numpy()
+        pv = res.per_vertex.cpu().numpy() if res.per_vertex is not None \
+            else None
+        done = time.perf_counter()
+        sample = done - f.t_flush  # flush to read-back, per cell
+        prev = self._flush_ewma_s.get(f.budget)
+        self._flush_ewma_s[f.budget] = (
+            sample if prev is None
+            else self.EWMA_ALPHA * sample + (1 - self.EWMA_ALPHA) * prev
+        )
+        for i, r in enumerate(f.reqs):
+            self.results.append(TriangleAnalytics(
+                request_id=r.request_id, n_nodes=r.n_nodes,
+                triangles=int(tri[i]), c1=int(c1[i]), c2=int(c2[i]),
+                num_horizontal=int(nh[i]), k=float(k[i]),
+                latency_s=done - r.t_submit, budget=f.budget,
+                overflow=bool(ovf[i]),
+                # the request's own vertices out of its budget-padded lane
+                per_vertex=pv[i, :r.n_nodes] if pv is not None else None,
+            ))
+
+    def summary(self) -> dict:
+        """The ops scrape, safe at any moment, with the reference's keys.
+        Percentiles are over completed answers.  ``jit_compiles`` is
+        None: nothing is compiled.  The counters of the unported degrade
+        ladder (item 8) and distributed route (item 10) stay 0."""
+        completed = [r for r in self.results
+                     if isinstance(r, TriangleAnalytics)]
+        lat = sorted(r.latency_s for r in completed)
+        by_route: dict[str, int] = defaultdict(int)
+        for r in self.results:
+            by_route[r.route] += 1
+        ps = self.engine.plan_cache_stats()
+        hits = ps["hits"] - self._plan_baseline[0]
+        looked = hits + ps["misses"] - self._plan_baseline[1]
+        return {
+            "plan_hit": 1.0 if looked <= 0 else hits / looked,
+            "jit_compiles": None,
+            "requests": len(self.results),
+            "completed": len(completed),
+            "rejected": self.rejected_requests,
+            "by_route": dict(by_route),
+            "batches": self.batches_run,
+            "failed_batches": 0,
+            "distributed_requests": 0,
+            "distributed_timeouts": 0,
+            "distributed_retries": 0,
+            "abandoned_distributed": 0,
+            "deadline_flushes": 0,
+            "size_flushes": self.size_flushes,
+            "approx_answers": 0,
+            "stream_sessions": len(self._sessions),
+            "stream_mutations": self.stream_mutations,
+            "pending": sum(len(q) for q in self._pending.values()),
+            "inflight": len(self._inflight),
+            "flush_cost_ewma_ms": {
+                f"{b.n_budget}x{b.slot_budget}": 1e3 * v
+                for b, v in sorted(self._flush_ewma_s.items())
+            },
+            "p50_ms": _pct_ms(lat, 50),
+            "p99_ms": _pct_ms(lat, 99),
+        }
+
+
+def _pct_ms(sorted_lat: Sequence[float], p: float) -> float:
+    """Nearest-rank percentile of a sorted latency list, in ms."""
+    if not sorted_lat:
+        return 0.0
+    i = max(0, math.ceil(p / 100.0 * len(sorted_lat)) - 1)
+    return 1e3 * sorted_lat[min(len(sorted_lat) - 1, i)]
+
+
+def synth_requests(num: int, *, seed: int = 0,
+                   smoke: bool = False) -> list[tuple[np.ndarray, int]]:
+    """The reference's mixed small/medium analytics stream (the same
+    graphs for the same seed): per-community ER graphs, RMAT ego-net
+    graphs and dense cliques over 2–3 budget cells."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for _ in range(num):
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            n = int(rng.integers(24, 120))
+            reqs.append(gen.erdos_renyi(
+                n, float(rng.uniform(0.05, 0.15)),
+                seed=int(rng.integers(1 << 30)),
+            ))
+        elif kind == 1:
+            scale = int(rng.integers(5, 7 if smoke else 8))
+            reqs.append(gen.rmat(scale, 8, seed=int(rng.integers(1 << 30))))
+        else:
+            reqs.append(gen.complete(int(rng.integers(5, 14))))
+    return reqs
+
+
+def lanes_ladder(batch_size: int) -> list[int]:
+    """The lane counts a server of this ``batch_size`` can flush at:
+    1, 2, 4, ... then ``batch_size`` itself."""
+    ladder, lanes = [], 1
+    batch_size = int(batch_size)
+    while lanes < batch_size:
+        ladder.append(lanes)
+        lanes <<= 1
+    ladder.append(batch_size)
+    return ladder
+
+
+def _same(r, want) -> bool:
+    """A served answer equal to the sequential loop's (triangles, c1,
+    c2, n_h, k's float32 bits) and not flagged."""
+    return ((r.triangles, r.c1, r.c2, r.num_horizontal) == want[:4]
+            and np.float32(r.k).tobytes() == want[4] and not r.overflow)
+
+
+def measure_serve(
+    *,
+    num_requests: int = 96,
+    batch_sizes: Sequence[int] = (1, 2, 8, 16),
+    backend: str = "auto",
+    seed: int = 0,
+    smoke: bool = False,
+    device: Union[str, torch.device] = "cuda",
+    requests: Optional[Sequence[tuple[np.ndarray, int]]] = None,
+    out: Optional[str] = None,
+) -> dict:
+    """Throughput and latency of the server against the sequential loop
+    of one count per request, on one request mix (``requests``, else
+    ``synth_requests(num_requests, seed=seed, smoke=smoke)``).
+
+    The loop gets the same shapes: each graph is padded to its budget
+    cell and counted alone on the local route, its result read back.
+    Both sides run once unmeasured on the same requests first; one
+    ``TriangleEngine`` serves all of it.  ``agree`` is True iff every
+    request id's served answer equals the loop's (triangles, c1, c2,
+    n_h, k bit for bit) and no lane overflowed.  Writes the row to
+    ``out`` when given and prints one CSV line per run."""
+    from repro_torch.api import TCOptions, TriangleEngine
+
+    engine = TriangleEngine(TCOptions(backend=backend), device=device)
+    dev = engine.device
+    reqs = list(requests) if requests is not None else synth_requests(
+        num_requests, seed=seed, smoke=smoke)
+    num_requests = len(reqs)
+    budgets = [
+        engine.budgets.budget_for(n, np.asarray(e).reshape(-1, 2).shape[0])
+        for e, n in reqs
+    ]
+
+    def run_sequential():
+        lats, want = [], []
+        t0 = time.perf_counter()
+        for (e, n), b in zip(reqs, budgets):
+            t1 = time.perf_counter()
+            g = from_edges(e, b.n_budget, num_slots=b.slot_budget,
+                           device=dev)
+            r = engine.count_raw(g)
+            want.append((int(r.triangles), int(r.c1), int(r.c2),
+                         int(r.num_horizontal), r.k.cpu().numpy().tobytes()))
+            lats.append(time.perf_counter() - t1)
+        return time.perf_counter() - t0, sorted(lats), want
+
+    run_sequential()  # warm-up
+    seq_wall, seq_lats, want = run_sequential()
+    row: dict = {
+        "num_requests": num_requests,
+        "seed": seed,
+        "smoke": smoke,
+        "backend": backend,
+        "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                   else "cpu"),
+        "budget_cells": len(set(budgets)),
+        "sequential": {
+            "graphs_per_s": num_requests / seq_wall,
+            "wall_s": seq_wall,
+            "p50_ms": _pct_ms(seq_lats, 50),
+            "p99_ms": _pct_ms(seq_lats, 99),
+            "triangles_total": sum(w[0] for w in want),
+        },
+        "batched": [],
+        "agree": True,
+    }
+    print(f"serve_seq,{seq_wall / num_requests * 1e6:.0f},"
+          f"graphs_per_s={num_requests / seq_wall:.1f}"
+          f"|p50_ms={_pct_ms(seq_lats, 50):.2f}"
+          f"|p99_ms={_pct_ms(seq_lats, 99):.2f}", flush=True)
+
+    for B in batch_sizes:
+        warm = engine.serve(batch_size=B)
+        for e, n in reqs:
+            warm.submit(e, n)
+        warm.drain()  # the plan cache now holds every cell's plan
+        engine.plan_cache_stats(reset=True)
+        server = engine.serve(batch_size=B)
+        t0 = time.perf_counter()
+        for e, n in reqs:
+            server.submit(e, n)
+        server.drain()
+        wall = time.perf_counter() - t0
+        stats = server.summary()
+        plan_stats = engine.plan_cache_stats()
+        # per request id, not a stream total that errors could cancel in
+        by_id = {r.request_id: r for r in server.results}
+        agree = len(by_id) == num_requests and all(
+            _same(by_id[i], want[i]) for i in range(num_requests))
+        row["agree"] = row["agree"] and agree
+        looked = plan_stats["hits"] + plan_stats["misses"]
+        entry = {
+            "batch_size": B,
+            "graphs_per_s": num_requests / wall,
+            "wall_s": wall,
+            "p50_ms": stats["p50_ms"],
+            "p99_ms": stats["p99_ms"],
+            "batches": stats["batches"],
+            "speedup_vs_sequential": seq_wall / wall,
+            "plan_cache_hit_rate": plan_stats["hits"] / max(looked, 1),
+            "jit_compiles_measured": None,
+            "triangles_total": sum(r.triangles for r in server.results),
+            "agree": agree,
+        }
+        row["batched"].append(entry)
+        print(f"serve_b{B},{wall / num_requests * 1e6:.0f},"
+              f"graphs_per_s={entry['graphs_per_s']:.1f}"
+              f"|speedup={entry['speedup_vs_sequential']:.2f}x"
+              f"|p50_ms={entry['p50_ms']:.2f}|p99_ms={entry['p99_ms']:.2f}"
+              f"|plan_hit={entry['plan_cache_hit_rate']:.2f}"
+              f"|agree={agree}", flush=True)
+
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(row, f, indent=2)
+        print(f"serve_json,0,written={os.path.normpath(out)}")
+    return row
+
+
+def main(argv: Optional[list[str]] = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--smoke", action="store_true",
+                    help="small fixed workload: 24 requests, batch size 8")
+    ap.add_argument("--requests", type=int, default=None)
+    ap.add_argument("--batch-sizes", type=int, nargs="+", default=None)
+    ap.add_argument("--backend", default="auto")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="'cuda' (default; raises without a card) or 'cpu'")
+    ap.add_argument("--out", default=None,
+                    help="write the result row as JSON to this path")
+    args = ap.parse_args(argv)
+    num = args.requests or (24 if args.smoke else 96)
+    sizes = tuple(args.batch_sizes or ((8,) if args.smoke else (1, 2, 8, 16)))
+    row = measure_serve(
+        num_requests=num, batch_sizes=sizes, backend=args.backend,
+        seed=args.seed, smoke=args.smoke, device=args.device, out=args.out,
+    )
+    if not row["agree"]:
+        raise SystemExit(
+            "FAIL: batched serving results disagree with the sequential loop"
+        )
+    return row
+
+
+if __name__ == "__main__":
+    main()

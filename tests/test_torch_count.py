@@ -183,14 +183,27 @@ def test_stage_clock_records_every_stage():
 
 
 @pytest.mark.parametrize("route", ["batch", "distributed", "approx",
-                                   "stream"])
+                                   "stream", "auto_capped"])
 def test_unported_routes_name_their_roadmap_item(route):
-    if route == "stream":
-        # ported in slice 3: the route answers instead of refusing
-        assert tapi.TCOptions(route=route).route == "stream"
-        rep = tapi.TriangleEngine(device=CPU).count(gen.karate(),
-                                                    route=route)
-        assert (rep.route, rep.triangles) == ("stream", 45)
+    if route in ("stream", "batch"):
+        # ported in slices 3 and 9: the route answers instead of refusing,
+        # with the local route's count
+        assert tapi.TCOptions(route=route).route == route
+        eng = tapi.TriangleEngine(device=CPU)
+        rep = eng.count(gen.karate(), route=route)
+        loc = eng.count(gen.karate(), route="local")
+        assert (rep.route, rep.triangles) == (route, 45)
+        assert (rep.c1, rep.c2, rep.num_horizontal, rep.k) == (
+            loc.c1, loc.c2, loc.num_horizontal, loc.k)
+        return
+    if route == "auto_capped":
+        # "auto" past a capped grid's top cell resolves to distributed
+        eng = tapi.TriangleEngine(
+            budgets=tcsr.BudgetGrid(max_nodes=64, max_slots=256),
+            device=CPU)
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10"):
+            eng.count(gen.rmat(10, 16, seed=0), route="auto")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         tapi.TCOptions(route=route)

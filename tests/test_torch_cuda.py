@@ -10,7 +10,11 @@ items, the row walk, the length-balanced tiles, the rule) at the stream
 probes' shapes,
 on the bitmap cases, on tiles of many rows and runs of sentinel rows,
 on every rmat16 bucket and on the launches of rmat16 sessions at
-buffers of 4,096 and 65,536, each launched twice; K5 against its plain
+buffers of 4,096 and 65,536, each launched twice; the batch route
+(``count_batch`` bounded and exact, with and without credit, and the
+server) on the card equal to the CPU path, every K1 and K2 call of a
+batch's lane view equal to its plain version, one K1 launch per bucket
+for all lanes; K5 against its plain
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
 bit across launches and against its chunk-then-carry order in plain
@@ -24,6 +28,8 @@ fixture, so every worker collects the same tests; without a card each
 test skips with the reason."""
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +38,7 @@ from repro_torch.api import TCOptions, TriangleEngine
 from repro_torch.core import intersect as tint
 from repro_torch.core.edges import horizontal_queries
 from repro_torch.graph import generators as gen
+from repro_torch.graph import csr as tcsr
 from repro_torch.graph.csr import from_edges
 from repro_torch.configs import lm as tlm
 from repro_torch.kernels.flash_attention import flash_attention as tflash
@@ -41,6 +48,7 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 from repro_torch.kernels.intersect import intersect as tkern
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import serve_tc as tserve_tc
 from repro_torch.models import transformer as ttfm
 from repro_torch.kernels.intersect.ref import (
     intersect_count_ref,
@@ -851,3 +859,100 @@ def test_gatedgcn_train_step_goes_through_k4_and_matches_the_cpu(
         launched = tsegk.LAUNCHES["segment_sum"] - before
         assert launched == (0 if dev == "cpu" else 2 * cfg.n_layers)
     assert abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + losses["cpu"])
+
+
+# ------------------------------------------------------------ batch route
+
+BATCH_MIXES = {
+    "synth": lambda: tserve_tc.synth_requests(24, seed=0, smoke=True),
+    "rmat12x4": lambda: [gen.rmat(12, 16, seed=s) for s in range(4)],
+}
+
+
+def _batch_fields(reps):
+    return [(r.triangles, r.c1, r.c2, r.num_horizontal, r.k,
+             r.overflow.h, r.levels.tolist(),
+             None if r.per_vertex is None else r.per_vertex.tolist())
+            for r in reps]
+
+
+@pytest.mark.parametrize("per_vertex", [False, True], ids=["count", "pv"])
+@pytest.mark.parametrize("mix", sorted(BATCH_MIXES))
+def test_count_batch_on_the_card_equals_the_cpu(cuda_device, mix,
+                                                per_vertex):
+    """``count_batch`` on the card, bounded and exact, equals the port's
+    CPU path lane for lane (the synth mix over its several cells)."""
+    graphs = BATCH_MIXES[mix]()
+    opts = TCOptions(per_vertex=per_vertex)
+    gpu, cpu = (TriangleEngine(opts, device=d) for d in (cuda_device,
+                                                         "cpu"))
+    by_cell: dict = {}
+    for e, n in graphs:
+        by_cell.setdefault(gpu.budgets.budget_for(n, len(e)), []).append(
+            (e, n))
+    for cell in by_cell.values():
+        for exact in (False, True):
+            packed = [tcsr.from_edges_batch(cell, device=d)
+                      for d in (cuda_device, "cpu")]
+            if exact:
+                packed = [dataclasses.replace(gb, meta=None)
+                          for gb in packed]
+            g, c = gpu.count_batch(packed[0]), cpu.count_batch(packed[1])
+            assert g[0].backend == "cuda" and c[0].backend == "torch"
+            assert _batch_fields(g) == _batch_fields(c)
+
+
+def test_lane_view_launches_match_plain_and_go_once_per_bucket(
+        cuda_device):
+    """Every K1 and K2 call of a 4-lane rmat12 batch equals its plain
+    version on every row, and the count makes one K1 launch per bucket
+    of its plan for all lanes (not one per lane)."""
+    graphs = BATCH_MIXES["rmat12x4"]()
+    eng = TriangleEngine(device=cuda_device)
+    gb = tcsr.from_edges_batch(graphs, device=cuda_device)
+    plan = eng.plan_for(gb)
+    before = dict(tkern.LAUNCHES)
+    res = eng.count_batch_raw(gb, plan=plan)
+    got = {k: tkern.LAUNCHES[k] - before[k] for k in before}
+    assert got == {"intersect_levels": len(plan.buckets),
+                   "intersect_hits": 0, "intersect_count": 0}
+    assert not res.h_overflow.any()
+    for name, opts in (("intersect_levels", TCOptions()),
+                       ("intersect_hits", TCOptions(per_vertex=True))):
+        real, calls = getattr(tint, name), []
+
+        def record(*args, real=real, calls=calls, **kw):
+            calls.append((args, kw))
+            return real(*args, **kw)
+
+        setattr(tint, name, record)
+        try:
+            eng.count_batch_raw(gb, options=opts, plan=plan)
+        finally:
+            setattr(tint, name, real)
+        assert calls
+        for args, kw in calls:
+            assert args[1].shape[0] >= len(graphs)  # all lanes' rows
+            if name == "intersect_levels":
+                for x, y in zip(tkern.intersect_levels(*args, **kw),
+                                intersect_levels_ref(*args, **kw)):
+                    assert torch.equal(x, y)
+            else:
+                for x, y in zip(tkern.intersect_hits(*args, **kw),
+                                intersect_hits_ref(*args, **kw)):
+                    assert torch.equal(x, y)
+
+
+def test_server_on_the_card_equals_the_cpu(cuda_device):
+    reqs = tserve_tc.synth_requests(24, seed=0, smoke=True)
+    out = []
+    for d in (cuda_device, "cpu"):
+        srv = TriangleEngine(TCOptions(per_vertex=True),
+                             device=d).serve(batch_size=8)
+        for e, n in reqs:
+            srv.submit(e, n)
+        res = sorted(srv.drain(), key=lambda r: r.request_id)
+        out.append([(r.request_id, r.triangles, r.c1, r.c2,
+                     r.num_horizontal, r.k, r.overflow,
+                     r.per_vertex.tolist()) for r in res])
+    assert out[0] == out[1] and len(out[0]) == 24
