@@ -2,8 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
 1), triangle finding, per-vertex credit, the stream route (exact batch
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
-training and the batch route with its triangle server end to end on one
-NVIDIA H100, through the hand-written Hopper kernels K1 to K5.
+training, the batch route with its triangle server, and the approx route
+with robust serving end to end on one NVIDIA H100, through the
+hand-written Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -123,7 +124,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                requests and a mix of 64 ``rmat(s, 16)`` with s drawn from
                12-16, at batch sizes 1, 8 and 16 against the
                budget-padded sequential loop; every request id agreeing.
-  9. summary — one JSON line per kernel, the card's name and power
+  9. robust  — the approx route and robust serving.  (a) ``count(route=
+               "approx")`` at full size (8,192 wedge samples, seed 0, host
+               numpy, no launch): seconds, estimate and stderr, within 4
+               stderr of the exact count; on one rmat16 request, the
+               approx lane's seconds beside the latency of the same
+               request served exactly alone (median of 3 each).  (b) The
+               wedge baseline on the card at rmat12, equal to the local
+               count.  (c) Phase 8's two mixes as open-loop burst traces
+               through ``launch/robust.py:run_chaos`` (synth_96: bursts
+               of 12, 0.05 s gaps, deadline 0.05 s; rmat12_16_64: bursts
+               of 16, 0.5 s gaps, deadline 1.0 s), each without and with
+               a deadline, 3 replays each after one unmeasured pass
+               (the two alternating): graphs/s, p50/p99 and their spread,
+               deadline and size flushes, each cell's flush-cost EWMA; K1
+               alone, no approx answer, no failed batch, every answer
+               equal to the sequential loop's on its id.  (d) synth_96
+               under the reference smoke's batch fault classes
+               (malformed, oversized, stalls, failed dispatches) with 16
+               admission tokens: the audit ``ok``, the failed batches
+               equal to the injected faults and to the ordinal rule, the
+               exact answers equal to the loop's, every approx answer
+               equal to the CPU's ``count_approx`` at ``seed=id``.
+ 10. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -1734,7 +1757,7 @@ def serve_tc_phase(dev, main_path, runs: int) -> dict:
     from repro_torch.core.sequential import StageClock
     from repro_torch.graph import generators as gen
     from repro_torch.graph.csr import from_edges_batch
-    from repro_torch.launch.serve_tc import measure_serve
+    from repro_torch.launch.serve_tc import measure_serve, synth_requests
 
     t_phase = time.perf_counter()
     eng = TriangleEngine(device=dev)
@@ -1838,11 +1861,13 @@ def serve_tc_phase(dev, main_path, runs: int) -> dict:
         scales, minlength=hi + 1)[lo:].tolist(),
         generate_seconds=time.perf_counter() - t0)
     out["serve"] = {}
-    for name, kw in (("synth_96", dict(num_requests=96, seed=0)),
-                     (f"rmat{lo}_{hi}_{n_mix}", dict(requests=mix))):
+    # both mixes' requests, kept for phase 9's open-loop traces
+    out["requests"] = {"synth_96": synth_requests(96, seed=0),
+                       f"rmat{lo}_{hi}_{n_mix}": mix}
+    for name, reqs in out["requests"].items():
         row, secs, _, got, mem = main_path(
-            lambda c, kw=kw: measure_serve(batch_sizes=SERVE_BATCH_SIZES,
-                                           device=dev, **kw))
+            lambda c, reqs=reqs: measure_serve(
+                batch_sizes=SERVE_BATCH_SIZES, device=dev, requests=reqs))
         row = dict(row, launches=got, memory=mem, seconds=secs)
         out["serve"][name] = row
         log("serve_tc_serve", stream=name, **row)
@@ -1861,6 +1886,249 @@ def serve_tc_phase(dev, main_path, runs: int) -> dict:
                        "batches", "plan_cache_hit_rate",
                        "speedup_vs_sequential")} for e in v["batched"]]}
                for k, v in out["serve"].items()})
+    return out
+
+
+#: phase 9's open-loop traces over phase 8's two mixes: (burst length,
+#: gap seconds between bursts, deadline seconds); within a burst the
+#: requests arrive 0.1 / ROBUST_RATE_HZ apart.  synth_96 takes the
+#: reference's chaos smoke's shape
+ROBUST_TRACES = {"synth_96": (12, 0.05, 0.05),
+                 "rmat12_16_64": (16, 0.5, 1.0)}
+ROBUST_RATE_HZ = 400.0
+ROBUST_BATCH = 8
+#: replays of each trace without and with its deadline: the spread
+#: that a difference between the two must exceed
+ROBUST_REPLAYS = 3
+#: phase 9's chaos plan: the reference smoke's batch-path fault classes
+CHAOS_PLAN = dict(malformed_every=7, oversized_every=11, oversized_nodes=600,
+                  stall_batch_every=5, stall_s=0.02, fail_batch_every=6)
+CHAOS_OPTIONS = dict(deadline_s=0.05, admission_tokens=16,
+                     approx_samples=4096)
+
+
+def robust_phase(dev, main_path, scale, edges, n, n_tri, stc) -> dict:
+    """Phase 9: the approx route and robust serving (see the module's
+    docstring).  ``edges, n`` is the full-size graph of RMAT ``scale``
+    and ``n_tri`` its count, ``stc`` phase 8's summary (its request
+    lists and batch times).  Returns the phase's summary."""
+    from repro_torch.api import TCOptions, TriangleEngine
+    from repro_torch.core.wedge_baseline import wedge_triangle_count
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph.csr import from_edges, max_degree
+    from repro_torch.launch import robust
+    from repro_torch.launch.serve_tc import (
+        RejectedRequest,
+        _same,
+        sequential_loop,
+    )
+
+    t_phase = time.perf_counter()
+    eng = TriangleEngine(device=dev)
+    out = {}
+
+    # 9a. the approx route at full size: host numpy, no launch
+    rep, secs, _, got, _ = main_path(
+        lambda c: eng.count((edges, n), route="approx"))
+    est = rep.approx
+    out["approx"] = dict(seconds=secs, estimate=est.triangles,
+                         stderr=est.stderr, ci95=est.ci95,
+                         samples=est.samples, closed=est.closed,
+                         wedges=est.wedges, triangles=rep.triangles,
+                         exact_triangles=n_tri,
+                         error_in_stderr=(est.triangles - n_tri)
+                         / max(est.stderr, 1e-300),
+                         plan_id=rep.plan_id, launches=got)
+    log("robust_approx", graph=f"rmat{scale}", **out["approx"])
+    if any(got.values()) or rep.route != "approx":
+        raise SystemExit(f"robust approx: route {rep.route}, launched {got}")
+    if not abs(est.triangles - n_tri) <= 4 * est.stderr:
+        raise SystemExit(f"robust approx: estimate {est.triangles} is "
+                         f"{out['approx']['error_in_stderr']:.2f} stderr "
+                         f"from {n_tri}")
+    # one rmat16 request: the approx lane beside the same request served
+    # exactly (submitted alone, flushed at drain as one lane through K1,
+    # its latency from submit to answer); each a median of 3 after a
+    # warm-up
+    e16, n16 = gen.rmat(SERVE_SCALE, 16, seed=0)
+    local16 = eng.count((e16, n16)).triangles
+    lane_s, served_s = [], []
+    for i in range(4):
+        t0 = time.perf_counter()
+        r16 = eng.count_approx((e16, n16))
+        lane_s.append(time.perf_counter() - t0)
+        srv = eng.serve(batch_size=ROBUST_BATCH)
+        srv.submit(e16, n16)
+        (x16,) = srv.drain()
+        if x16.route != "batched" or x16.triangles != local16 or x16.overflow:
+            raise SystemExit(f"robust approx lane: the served rmat16 request "
+                             f"gave {x16.route} {x16.triangles}, local "
+                             f"{local16}")
+        served_s.append(x16.latency_s)
+    out["approx_lane"] = dict(
+        graph=f"rmat{SERVE_SCALE}", seconds=lane_s[1:],
+        median_seconds=statistics.median(lane_s[1:]), estimate=r16.triangles,
+        stderr=r16.approx.stderr, exact_triangles=local16,
+        served_exact_seconds=served_s[1:],
+        served_exact_median_seconds=statistics.median(served_s[1:]))
+    log("robust_approx_lane", **out["approx_lane"])
+
+    # 9b. the wedge baseline on the card at rmat12 against the local count
+    e12, n12 = gen.rmat(12, 16, seed=0)
+    local12 = eng.count((e12, n12)).triangles
+    g12 = from_edges(e12, n12, device=dev)
+    d12 = max_degree(g12)
+    wedge_triangle_count(g12, d_max=d12)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w12 = int(wedge_triangle_count(g12, d_max=d12))
+    out["wedge"] = dict(graph="rmat12", d_max=d12, triangles=w12,
+                        local_triangles=local12,
+                        seconds=time.perf_counter() - t0)
+    log("robust_wedge", **out["wedge"])
+    if not w12 == local12 == EXPECTED[12][0]:
+        raise SystemExit(f"robust wedge baseline: {w12}, local {local12}, "
+                         f"expected {EXPECTED[12][0]}")
+
+    def warmed(e, reqs):
+        """``e`` after one unmeasured pass of ``reqs`` (its plan cache and
+        pooled metas warm)."""
+        warm = e.serve(batch_size=ROBUST_BATCH)
+        for x in reqs:
+            warm.submit(*x)
+        warm.drain()
+        return e
+
+    def check_exact(server, want, tag):
+        """Every exact answer equal to the loop's on its id; K1 alone."""
+        exact = [r for r in server.results if r.route == "batched"]
+        bad = [r.request_id for r in exact
+               if not _same(r, want[r.request_id])]
+        if bad:
+            raise SystemExit(f"robust {tag}: ids {bad[:8]} differ from the "
+                             f"sequential loop")
+        return len(exact)
+
+    def line(audit, secs, got, mem):
+        s = audit["summary"]
+        return dict(
+            requests=audit["submitted"], wall_s=audit["wall_s"],
+            seconds=secs, graphs_per_s=audit["submitted"] / audit["wall_s"],
+            p50_ms=s["p50_ms"], p99_ms=s["p99_ms"],
+            deadline_flushes=s["deadline_flushes"],
+            size_flushes=s["size_flushes"], batches=s["batches"],
+            failed_batches=s["failed_batches"],
+            approx_answers=s["approx_answers"], rejected=s["rejected"],
+            exact=audit["exact"], approx=audit["approx"],
+            flush_cost_ewma_ms=s["flush_cost_ewma_ms"], launches=got,
+            memory=mem, ok=audit["ok"])
+
+    def k1_alone(got, tag):
+        if (got["intersect_levels"] == 0 or got["intersect_hits"]
+                or got["intersect_count"]):
+            raise SystemExit(f"robust {tag}: launched {got}; expected K1 "
+                             f"alone")
+
+    # 9c. both mixes as burst traces, without and with deadlines: one
+    # warmed engine each, ROBUST_REPLAYS replays each, the two orders
+    # alternating
+    out["deadlines"] = {}
+    for name, reqs in stc["requests"].items():
+        burst, gap, deadline = ROBUST_TRACES[name]
+        trace = robust.timed_trace(reqs, arrival="burst",
+                                   rate_hz=ROBUST_RATE_HZ, burst_len=burst,
+                                   burst_gap_s=gap, seed=0)
+        want = sequential_loop(eng, reqs)[2]
+        engines = {tag: warmed(TriangleEngine(TCOptions(deadline_s=dl),
+                                              device=dev), reqs)
+                   for tag, dl in (("no_deadline", None),
+                                   ("deadline", deadline))}
+        runs = {tag: [] for tag in engines}
+        for i in range(ROBUST_REPLAYS):
+            for tag in (list(engines) if i % 2 == 0 else list(engines)[::-1]):
+                dl = engines[tag].options.deadline_s
+                server = engines[tag].serve(batch_size=ROBUST_BATCH)
+                audit, secs, _, got, mem = main_path(
+                    lambda c, s=server, t=trace: robust.run_chaos(s, t))
+                row = dict(line(audit, secs, got, mem), deadline_s=dl,
+                           burst_len=burst, burst_gap_s=gap, replay=i)
+                runs[tag].append(row)
+                log("robust_deadlines", stream=name, run=tag, **row)
+                k1_alone(got, f"{name}/{tag}")
+                n_exact = check_exact(server, want, f"{name}/{tag}")
+                if not (audit["ok"] and n_exact == len(reqs)
+                        and row["approx_answers"] == 0
+                        and row["failed_batches"] == 0
+                        and row["rejected"] == 0
+                        and (dl is not None or row["deadline_flushes"] == 0)):
+                    raise SystemExit(f"robust {name}/{tag}: {row}")
+        for tag, rows in runs.items():
+            agg = {f: [r[f] for r in rows] for f in (
+                "graphs_per_s", "p50_ms", "p99_ms", "deadline_flushes",
+                "size_flushes")}
+            out["deadlines"][f"{name}/{tag}"] = dict(
+                agg, runs=rows, launches=sum(
+                    r["launches"]["intersect_levels"] for r in rows),
+                **{f"median_{f}": statistics.median(v)
+                   for f, v in agg.items()})
+
+    # 9d. chaos: synth_96 under the plan's batch-path fault classes
+    plan = robust.CountingFaultPlan(**CHAOS_PLAN)
+    reqs = stc["requests"]["synth_96"]
+    burst, gap, _ = ROBUST_TRACES["synth_96"]
+    trace = robust.timed_trace(reqs, arrival="burst", rate_hz=ROBUST_RATE_HZ,
+                               burst_len=burst, burst_gap_s=gap, seed=0)
+    sent = [plan.mutate(i, e, m) for i, (e, m) in enumerate(reqs)]
+    malformed = {i for i in range(len(reqs))
+                 if robust._hits(plan.malformed_every, i)}
+    loop = sequential_loop(eng, [x for i, x in enumerate(sent)
+                                 if i not in malformed])[2]
+    want = {}
+    for i in range(len(reqs)):
+        if i not in malformed:
+            want[i] = loop[len(want)]
+    server = warmed(TriangleEngine(TCOptions(**CHAOS_OPTIONS), device=dev),
+                    reqs).serve(batch_size=ROBUST_BATCH, faults=plan)
+    audit, secs, _, got, mem = main_path(
+        lambda c: robust.run_chaos(server, trace, faults=plan))
+    row = dict(line(audit, secs, got, mem), injected=len(plan.injected),
+               injected_at=list(plan.injected), plan=CHAOS_PLAN,
+               options=CHAOS_OPTIONS)
+    out["chaos"] = row
+    log("robust_chaos", stream="synth_96", **row)
+    k1_alone(got, "chaos")
+    check_exact(server, want, "chaos")
+    failed = robust.ordinal_failures(
+        plan, row["deadline_flushes"] + row["size_flushes"])
+    cpu = TriangleEngine(TCOptions(approx_samples=CHAOS_OPTIONS[
+        "approx_samples"]), device="cpu")
+    bad_approx = []
+    for r in server.results:
+        if r.route == "approx":
+            c = cpu.count_approx(sent[r.request_id], seed=r.request_id)
+            if (r.approx, r.triangles) != (c.approx, c.triangles):
+                bad_approx.append(r.request_id)
+    rejected = {r.request_id for r in server.results
+                if isinstance(r, RejectedRequest)}
+    if not (audit["ok"] and row["failed_batches"] == len(plan.injected)
+            == failed and row["batches"] == plan.fail_batch_every - 1
+            and row["exact"] and row["approx"] and rejected == malformed
+            and not bad_approx):
+        raise SystemExit(f"robust chaos: {row}; rejected {sorted(rejected)}, "
+                         f"approx differing from the CPU {bad_approx}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("robust_summary", seconds=out["seconds"],
+        approx_seconds=out["approx"]["seconds"],
+        approx_error_in_stderr=out["approx"]["error_in_stderr"],
+        deadlines={k: {f: v[f] for f in (
+            "graphs_per_s", "p50_ms", "p99_ms", "deadline_flushes",
+            "size_flushes")} for k, v in out["deadlines"].items()},
+        approx_lane_median_seconds=out["approx_lane"]["median_seconds"],
+        served_exact_median_seconds=out["approx_lane"][
+            "served_exact_median_seconds"],
+        chaos={f: row[f] for f in ("exact", "approx", "rejected",
+                                   "failed_batches", "injected")},
+        chaos_k1_launches=got["intersect_levels"])
     return out
 
 
@@ -2377,7 +2645,12 @@ def main() -> int:
     ls = stc["launch_sums"]
     stc1, stc1x, stc2 = ls["bounded"], ls["exact"], ls["per_vertex"]
 
-    # ---------------------------------------------------------- 9. summary
+    # --------------------------------------------------------- 9. robust
+    rob = robust_phase(dev, main_path, scale, edges, n, n_tri, stc)
+    rob_k1 = (sum(v["launches"] for v in rob["deadlines"].values())
+              + rob["chaos"]["launches"]["intersect_levels"])
+
+    # --------------------------------------------------------- 10. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -2398,6 +2671,13 @@ def main() -> int:
         serve_tc_graphs_per_second={
             k: {e["batch_size"]: e["graphs_per_s"] for e in v["batched"]}
             for k, v in stc["serve"].items()},
+        robust={"approx_seconds": rob["approx"]["seconds"],
+                "approx_error_in_stderr": rob["approx"]["error_in_stderr"],
+                "deadlines_median_graphs_per_second": {
+                    k: v["median_graphs_per_s"]
+                    for k, v in rob["deadlines"].items()},
+                "chaos": {f: rob["chaos"][f] for f in (
+                    "exact", "approx", "rejected", "failed_batches")}},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     k3s, big = stream["k3"], stream["buffer_65536"]
@@ -2439,10 +2719,12 @@ def main() -> int:
         "serve_tc_exact_host_paced_ms": stc1x["host_paced_ms"],
         "serve_tc_exact_plain_ms": stc1x["plain_ms"],
         "serve_tc_exact_bound_ms": stc1x["bound_ms"],
+        "robust_launches": rob_k1,
         "shape": f"rmat{scale} plan, {n_buckets} buckets; serve_tc_*: one "
                  f"batch of {SERVE_LANES} lanes of rmat{SERVE_SCALE} on its "
                  f"bounded plan, one launch per bucket over all lanes "
-                 f"(serve_tc_exact_*: on its exact plan)",
+                 f"(serve_tc_exact_*: on its exact plan); robust_launches: "
+                 f"phase 9's open-loop runs and its chaos run",
     }, {
         "name": "intersect_hits",
         "route": "cuda",

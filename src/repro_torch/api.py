@@ -3,14 +3,17 @@
 Counterpart of ``repro.api`` for the routes ported so far: the exact
 single-graph count on the local route (Algorithm 1), with per-vertex
 credit, triangle finding, the batch route (budget-padded lanes probed
-with one cached plan — the serving path) and the stream route (live
-counts under edge mutation streams).
+with one cached plan — the serving path), the stream route (live
+counts under edge mutation streams) and the approx route (a host-side
+wedge-sampled estimate with its error bar, the serving layer's degraded
+lane).
 
 * :class:`TCOptions` — the knobs of the ported routes, validated as in
   the reference; :meth:`TCOptions.plan_view` is the bounded-plan cache
   key.
-* :class:`TriangleEngine` — ``count`` on the local, batch and stream
-  routes, ``count_batch``, ``find``, ``stream`` and ``serve``, on the
+* :class:`TriangleEngine` — ``count`` on the local, batch, stream and
+  approx routes, ``count_batch``, ``count_approx``, ``find``, ``stream``
+  and ``serve``, on the
   engine's device (``"cuda"`` unless the caller asks for ``"cpu"``).  It
   owns the budget grid (``budgets=``), whose top cell ``route_for``
   reads, and the LRU bounded-plan cache.
@@ -31,8 +34,9 @@ counts under edge mutation streams).
     update = session.apply([(+1, 0, 5), (-1, 2, 3)])
     print(update.delta_triangles, session.count().triangles)
 
-The other routes of the reference (distributed, approx) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+The reference's distributed route (Algorithm 2), and with it
+``TCOptions.distributed_timeout_s``, raises ``NotImplementedError``
+naming ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import sequential as _seq
-from repro_torch.core.approx import ApproxEstimate
+from repro_torch.core.approx import ApproxEstimate, wedge_sample_estimate
 from repro_torch.core.intersect import (
     BACKENDS,
     DEFAULT_BUCKET_WIDTHS,
@@ -70,23 +74,19 @@ __all__ = [
     "TriangleReport",
 ]
 
-#: The reference's dispatch targets.  The port answers ``auto``,
-#: ``local``, ``batch`` and ``stream``; every other route names the
-#: ROADMAP item that ports it.  ``auto`` resolves per call through
-#: ``TriangleEngine.route_for``: ``local`` while the request fits the
-#: budget grid, ``distributed`` beyond its top cell.
+#: The reference's dispatch targets.  The port answers every route but
+#: ``distributed``, which names the ROADMAP item that ports it.  ``auto``
+#: resolves per call through ``TriangleEngine.route_for``: ``local``
+#: while the request fits the budget grid, ``distributed`` beyond its
+#: top cell.
 ROUTES = ("auto", "local", "batch", "distributed", "approx", "stream")
 
-_UNPORTED_ROUTES = {
-    "distributed": "ROADMAP Queue 1 item 10 (distributed Algorithm 2)",
-    "approx": "ROADMAP Queue 1 item 8 (approx route)",
-}
+_DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 10 (distributed Algorithm 2)"
+_UNPORTED_ROUTES = {"distributed": _DISTRIBUTED_ITEM}
 
-#: the reference's serving robustness knobs, which the port does not
-#: answer yet: a value other than the default raises
-_ROBUST_KNOBS = {"deadline_s": None, "admission_tokens": None,
-                 "approx_on_overload": True, "distributed_timeout_s": None}
-_ROBUST_ITEM = "ROADMAP Queue 1 item 8 (approx route and robust serving)"
+#: the reference's serving knobs of the distributed route, which the port
+#: does not answer yet: a value other than the default raises
+_ROBUST_KNOBS = {"distributed_timeout_s": None}
 
 #: edge-list input: ``(edges int[any, 2], n_nodes)``
 EdgeList = tuple
@@ -122,18 +122,31 @@ class TCOptions:
       root:           BFS root.
       compact:        ``False`` = the dense seed reference path.
       route:          default dispatch of ``TriangleEngine.count``:
-                      ``"auto"``, ``"local"``, ``"batch"`` or
-                      ``"stream"``.
+                      ``"auto"``, ``"local"``, ``"batch"``, ``"stream"``
+                      or ``"approx"``.
       grid:           :class:`~repro_torch.graph.csr.BudgetGrid` of the
                       batch route and the serving queues (``None`` = the
                       default grid; ``TriangleEngine(budgets=...)``
                       outranks it).  Plan-irrelevant: the cell is in the
                       plan-cache key already.
 
-    Serving robustness (``deadline_s``, ``admission_tokens``,
-    ``approx_on_overload``, ``distributed_timeout_s``) is not ported: a
-    value other than the default raises ``NotImplementedError`` naming
-    ROADMAP Queue 1 item 8.
+    Serving robustness (``launch/serve_tc.py``'s ``TriangleServer``):
+      deadline_s:     default per-request deadline (relative seconds); a
+                      cell's partial lane flushes once its oldest
+                      deadline's slack falls below the cell's measured
+                      flush cost.  ``None`` = no deadline (size and
+                      drain flushes only).
+      admission_tokens: bound on pending + in-flight requests per budget
+                      cell; past it the server walks the degradation
+                      ladder (approx lane, then shed).  ``None`` = no
+                      bound.
+      approx_samples: wedge samples of the approx route's estimator.
+      approx_on_overload: ``False`` skips the approx rung: overload and
+                      failed batches shed with a structured rejection.
+      distributed_timeout_s: the reference's wall-clock timeout on the
+                      distributed route; any value but ``None`` raises
+                      ``NotImplementedError`` naming ROADMAP Queue 1
+                      item 10.
 
     Stream route knobs (``repro_torch.stream``):
       stream_buffer:  mutation buffer capacity — an ``apply`` stream
@@ -166,6 +179,7 @@ class TCOptions:
     grid: Optional[BudgetGrid] = None
     deadline_s: Optional[float] = None
     admission_tokens: Optional[int] = None
+    approx_samples: int = 8192
     approx_on_overload: bool = True
     distributed_timeout_s: Optional[float] = None
     stream_buffer: int = 4096
@@ -192,7 +206,7 @@ class TCOptions:
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"TCOptions.{name} is not ported to repro_torch yet: "
-                    f"{_ROBUST_ITEM}"
+                    f"{_DISTRIBUTED_ITEM}"
                 )
         for name in ("query_chunk", "d_max", "cap_h"):
             v = getattr(self, name)
@@ -204,6 +218,17 @@ class TCOptions:
             )
         if self.row_mult <= 0:
             raise ValueError(f"row_mult must be positive; got {self.row_mult}")
+        if self.deadline_s is not None and float(self.deadline_s) <= 0:
+            raise ValueError(
+                f"deadline_s must be positive; got {self.deadline_s}")
+        if self.admission_tokens is not None and int(self.admission_tokens) <= 0:
+            raise ValueError(
+                f"admission_tokens must be positive; got {self.admission_tokens}"
+            )
+        if self.approx_samples <= 0:
+            raise ValueError(
+                f"approx_samples must be positive; got {self.approx_samples}"
+            )
         if self.stream_buffer <= 0:
             raise ValueError(
                 f"stream_buffer must be positive; got {self.stream_buffer}"
@@ -279,7 +304,13 @@ class TriangleReport:
     with pending mutations answers exactly in the level-free regime
     (``c1``/``c2`` ``None``, ``k`` ``NaN``); an over-budget session
     answers the estimate (``approx`` payload, no attribution) until its
-    next refresh."""
+    next refresh.
+
+    Approx-route reports (``route="approx"``, ``plan_id=
+    "wedge-sample/<k>"``) carry the estimate in ``approx`` and its
+    rounded point estimate in ``triangles``; ``k`` is ``NaN``,
+    ``c1``/``c2`` and ``levels`` are ``None``, ``num_horizontal`` is 0,
+    and there is no per-vertex attribution."""
 
     triangles: int
     k: float
@@ -508,7 +539,8 @@ class TriangleEngine:
         path as one lane (its ``levels`` keep the budget's length, its
         ``per_vertex``/``degrees`` the graph's); ``stream`` opens a
         one-shot session (:meth:`stream`), whose opening refresh is the
-        full local count, and answers its report.  ``auto`` goes through
+        full local count, and answers its report; ``approx`` answers
+        :meth:`count_approx` at seed 0.  ``auto`` goes through
         :meth:`route_for`.  Degenerate n=0 graphs are answered here
         without running a pipeline.  ``clock`` (a
         :class:`~repro_torch.core.sequential.StageClock`) records the
@@ -549,14 +581,19 @@ class TriangleEngine:
             )
         backend = resolve_backend(o.backend, self.device)
         if n_nodes == 0:
-            empty_pv = np.zeros((0,), np.int32) if o.per_vertex else None
+            exact = r != "approx"  # an estimate has no split, no levels
+            empty_pv = (np.zeros((0,), np.int32)
+                        if o.per_vertex and exact else None)
             return TriangleReport(
-                triangles=0, k=0.0, num_horizontal=0, c1=0, c2=0,
+                triangles=0, k=0.0, num_horizontal=0,
+                c1=0 if exact else None, c2=0 if exact else None,
                 overflow=Overflow(), route=r, backend=backend,
                 plan_id="empty", options=o,
-                levels=np.zeros((0,), np.int32),
+                levels=np.zeros((0,), np.int32) if exact else None,
                 per_vertex=empty_pv, degrees=empty_pv,
             )
+        if r == "approx":
+            return self.count_approx(graph_or_edges, options=o)
         if r == "stream":
             return self.stream(graph_or_edges, options=o).count()
         if r == "batch":
@@ -649,6 +686,44 @@ class TriangleEngine:
             for i in range(n_real)
         ]
 
+    def count_approx(
+        self,
+        graph_or_edges: Union[Graph, EdgeList],
+        *,
+        samples: Optional[int] = None,
+        seed: int = 0,
+        options: Optional[TCOptions] = None,
+    ) -> TriangleReport:
+        """The degraded lane: a host-side wedge-sampled estimate
+        (:func:`~repro_torch.core.approx.wedge_sample_estimate`) in the
+        report contract.
+
+        ``triangles`` is the rounded point estimate, ``approx`` carries
+        the full :class:`ApproxEstimate` (stderr, 95% CI), ``k`` is
+        ``NaN`` and ``c1``/``c2`` are ``None``: nothing about the answer
+        pretends the exact pipeline ran.  ``samples`` defaults to
+        ``options.approx_samples``.  The estimator never touches the
+        device (a ``Graph`` goes back to host edges first): the server
+        answers with it when the device path is saturated or failing.
+        ``backend`` is the engine's, for provenance."""
+        o = options or self.options
+        if isinstance(graph_or_edges, Graph):
+            edges, n_nodes = _host_edges(graph_or_edges)
+        else:
+            edges, n_nodes = graph_or_edges
+            edges, n_nodes = np.asarray(edges), int(n_nodes)
+        est = wedge_sample_estimate(
+            edges, n_nodes,
+            samples=int(samples) if samples else o.approx_samples,
+            seed=seed,
+        )
+        return TriangleReport(
+            triangles=int(round(est.triangles)), k=float("nan"),
+            num_horizontal=0, c1=None, c2=None, overflow=Overflow(),
+            route="approx", backend=resolve_backend(o.backend, self.device),
+            plan_id=f"wedge-sample/{est.samples}", options=o, approx=est,
+        )
+
     def find(
         self,
         graph_or_edges: Union[Graph, EdgeList],
@@ -696,10 +771,12 @@ class TriangleEngine:
               recorder=None):
         """A :class:`~repro_torch.launch.serve_tc.TriangleServer` wired to
         this engine: its budget grid buckets the queues, its plan cache
-        feeds every flush, its options govern every lane.
-        ``strict=True`` raises on a malformed ``submit``; ``faults``
-        (ROADMAP Queue 1 item 8), ``prewarm`` and ``recorder`` (item 11)
-        are not ported and raise."""
+        feeds every flush, its options govern every lane (the deadline,
+        admission and degradation knobs too).  ``strict=True`` raises on
+        a malformed ``submit``; ``faults`` is a
+        :class:`~repro_torch.launch.robust.FaultPlan` whose server-side
+        hooks the server calls; ``prewarm`` and ``recorder`` (ROADMAP
+        Queue 1 item 11) are not ported and raise."""
         from repro_torch.launch.serve_tc import TriangleServer
 
         return TriangleServer(self, batch_size=batch_size,

@@ -1,7 +1,8 @@
-"""Reservoir-sampled approximate triangle counting — the stream route's
-approximate lane (counterpart of the part of ``repro.core.approx`` a
-stream session needs: :class:`ApproxEstimate` and
-:class:`StreamingWedgeEstimator`).
+"""Wedge-sampled approximate triangle counting (counterpart of
+``repro.core.approx``): the one-shot :func:`wedge_sample_estimate`, the
+engine's ``route="approx"`` and the serving layer's degraded lane, and
+the reservoir-sampled :class:`StreamingWedgeEstimator`, the stream
+route's approximate lane.
 
 Wedge sampling (the estimator family of *Parallel Triangle Counting in
 Massive Streaming Graphs*, arXiv 1308.2166, and Seshadhri–Pinar): the
@@ -11,8 +12,11 @@ fraction ``p̂`` gives the unbiased estimate ``T̂ = p̂ · W / 3`` with a
 binomial error bar.
 
 Host numpy, as in the reference, and drawn in the same order from the
-same ``numpy.random.Generator``: the same ``seed`` and the same stream
-give the same reservoir and the same estimate in both packages.
+same ``numpy.random.Generator``: the same ``seed`` and the same input
+give the same :class:`ApproxEstimate` in both packages, field for
+field.  The degraded lane stays on the host on purpose: it answers
+while the device path is saturated or failing, so it must not join the
+device queue it routes around.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import numpy as np
 __all__ = [
     "ApproxEstimate",
     "StreamingWedgeEstimator",
+    "wedge_sample_estimate",
 ]
 
 
@@ -51,6 +56,105 @@ class ApproxEstimate:
     def rel_ci(self) -> float:
         """ci95 / max(estimate, 1) — the honest relative error bar."""
         return self.ci95 / max(self.triangles, 1.0)
+
+
+def _unique_keys(edges: np.ndarray, n_nodes: int) -> np.ndarray:
+    """The sorted unique packed keys ``lo * n + hi`` of the undirected
+    edges, self-loops dropped; raises on endpoints outside ``[0, n)``."""
+    e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    if e.size and (e.min() < 0 or e.max() >= int(n_nodes)):
+        raise ValueError(
+            f"edge endpoints must lie in [0, {int(n_nodes)}); "
+            f"got [{e.min()}, {e.max()}]"
+        )
+    e = e[e[:, 0] != e[:, 1]]
+    if not e.size:
+        return np.zeros(0, dtype=np.int64)
+    lo = np.minimum(e[:, 0], e[:, 1])
+    hi = np.maximum(e[:, 0], e[:, 1])
+    # np.unique by hand: a sort and a mask of first occurrences give the
+    # same array, and numpy 2.3's np.unique is many times slower than its
+    # sort on integer keys
+    key = np.sort(lo * np.int64(n_nodes) + hi)
+    return key[np.concatenate([[True], key[1:] != key[:-1]])]
+
+
+def _normalize_host(edges: np.ndarray, n_nodes: int) -> np.ndarray:
+    """Unique undirected ``(lo, hi)`` edges, self-loops dropped, sorted
+    by packed key — the reference's ``_normalize_host``, on the host."""
+    n = np.int64(n_nodes)
+    key = _unique_keys(edges, n_nodes)
+    return np.stack([key // n, key % n], axis=1)
+
+
+def wedge_sample_estimate(
+    edges: np.ndarray,
+    n_nodes: int,
+    *,
+    samples: int = 8192,
+    seed: int = 0,
+) -> ApproxEstimate:
+    """Estimate the triangle count of ``(edges, n_nodes)`` from
+    ``samples`` uniformly-sampled wedges.
+
+    A wedge is sampled by picking its apex ``v`` with probability
+    ``C(d_v,2)/W`` and then two distinct neighbors uniformly; closure is
+    a binary search of the sorted edge-key table.  Graphs with ``W = 0``
+    (empty graphs, matchings — no vertex of degree ≥ 2) have zero
+    triangles by construction and return the exact answer with a
+    zero-width interval.
+
+    The reference's arrays and draws, in its order: each vertex's
+    neighbour list is its higher neighbours and then its lower ones,
+    each ascending (the reference's stable argsort of the symmetrized
+    list), here from one sort of tagged keys.
+    """
+    if samples <= 0:
+        raise ValueError(f"samples must be positive; got {samples}")
+    n = int(n_nodes)
+    n64 = np.int64(n)
+    keys = _unique_keys(edges, n)  # sorted: the closure table
+    lo, hi = keys // n64, keys % n64
+    deg = (np.bincount(lo, minlength=n)
+           + np.bincount(hi, minlength=n)).astype(np.int64)
+    w_v = deg * (deg - 1) // 2
+    wedges = float(w_v.sum())
+    if wedges == 0.0:
+        return ApproxEstimate(
+            triangles=0.0, stderr=0.0, ci95=0.0, samples=0, closed=0,
+            wedges=0.0, exact=True,
+        )
+
+    # CSR adjacency of the symmetrized edge list, host-side: the tag
+    # (2 * src + 0 for a higher neighbour, + 1 for a lower one) orders
+    # each source's two halves as the reference's stable argsort does
+    tagged = np.sort(np.concatenate([(2 * lo) * n64 + hi,
+                                     (2 * hi + 1) * n64 + lo]))
+    dst = tagged % n64
+    starts = np.concatenate([[0], np.cumsum(deg)])
+
+    rng = np.random.default_rng(seed)
+    k = int(samples)
+    apex = rng.choice(n, size=k, p=w_v / w_v.sum())
+    d = deg[apex]
+    # two distinct neighbor positions, uniform over C(d, 2) pairs
+    i1 = rng.integers(0, d)
+    i2 = rng.integers(0, d - 1)
+    i2 = np.where(i2 >= i1, i2 + 1, i2)
+    u = dst[starts[apex] + i1]
+    x = dst[starts[apex] + i2]
+    q = np.minimum(u, x) * n64 + np.maximum(u, x)
+    pos = np.searchsorted(keys, q)
+    closed = int(np.sum((pos < keys.size)
+                        & (keys[np.minimum(pos, keys.size - 1)] == q)))
+
+    p_hat = closed / k
+    est = p_hat * wedges / 3.0
+    stderr = (wedges / 3.0) * math.sqrt(max(p_hat * (1.0 - p_hat), 0.0) / k)
+    return ApproxEstimate(
+        triangles=est, stderr=stderr, ci95=1.96 * stderr,
+        samples=k, closed=closed, wedges=wedges,
+    )
 
 
 class StreamingWedgeEstimator:

@@ -44,10 +44,16 @@ per-vertex credit and triangle finding:
   ragged — only each row's real candidates — and is turned into a hit
   list ``(row, candidate id)`` chunk by chunk, each chunk at most
   ``HIT_CELL_BUDGET`` candidate cells, in plan order.
+
+* **Edge membership.**  ``edge_exists`` answers "is ``(u, v)`` an edge"
+  by a bounded binary search of ``u``'s row in plain torch ops (the
+  reference's is a ``jnp`` search, no Pallas kernel): the wedge
+  baseline's closing-edge check.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,6 +64,7 @@ from repro_torch.graph.csr import (
     GraphBatch,
     _ceil_to,
     _next_pow2,
+    bounded_binary_search,
     gather_rows,
 )
 from repro_torch.graph.segment import segment_sum
@@ -767,3 +774,18 @@ def probe_common_neighbors(g: Graph, eu: torch.Tensor, ew: torch.Tensor, *,
     global max degree)."""
     return probe_block(g, eu, ew, d_cand=d_max, d_targ=d_search,
                        backend="torch")
+
+
+def edge_exists(g: Graph, qu: torch.Tensor, qv: torch.Tensor) -> torch.Tensor:
+    """Vectorized membership: is ``(qu, qv)`` an edge?  A bounded binary
+    search of each ``qu`` row for ``qv``; false for any id ``>= n``.
+    Used by the wedge baseline (the closing-edge check prior algorithms
+    communicate for)."""
+    n = g.n_nodes
+    num_steps = max(1, math.ceil(math.log2(g.num_slots + 1)))
+    deg_ext = torch.cat([g.deg, g.deg.new_zeros(1)])
+    qu_c = qu.clamp(0, n)
+    hit = bounded_binary_search(g.dst, g.row_offsets[qu_c], deg_ext[qu_c],
+                                torch.where(qv < n, qv, -1),
+                                num_steps=num_steps)
+    return hit & (qu < n) & (qv < n)

@@ -16,13 +16,37 @@ after its batch, and the batch is read back once the event has passed
 ``drain``.  The BFS syncs the host once per sweep inside the flush, so
 the overlap is little.  On the CPU a batch is ready when it returns.
 
-Every submitted request id receives exactly one result: a
-:class:`TriangleAnalytics`, or a :class:`RejectedRequest` for malformed
-input (``strict=True`` raises instead).  Not ported: deadlines,
-admission control, the approx degrade ladder and fault injection
-(ROADMAP Queue 1 item 8), a grid with a top cell whose over-budget
-requests go to Algorithm 2 (item 10), pre-warming from a tuned profile
-and trace recording (item 11); each raises ``NotImplementedError``.
+Robustness (DESIGN.md §7), governed by the engine's ``TCOptions``:
+
+* **deadlines** — a request carries a deadline (``submit(deadline_s=)``
+  or ``options.deadline_s``), and a cell's partial queue flushes once
+  its oldest deadline's slack falls below the cell's measured flush
+  cost (an EWMA of flush-to-read-back seconds, ``EWMA_PRIOR_S`` for a
+  cold cell).  The server has no thread: ``submit`` and ``drain`` pump,
+  and an open-loop driver calls :meth:`TriangleServer.pump`.
+* **admission** — with ``options.admission_tokens``, a cell holding
+  that many pending and in-flight requests degrades the next one: the
+  host-side wedge-sampled estimate (``engine.count_approx`` at
+  ``seed=request id``, ``route="approx"``), or a structured shed with
+  ``approx_on_overload=False``.
+* **failures** — a flush whose fault hook raises :class:`FaultInjected`
+  (``launch/robust.py``'s ``FaultPlan``), or whose host-side packing
+  raises ``ValueError``/``TypeError``, answers every lane of its batch
+  through the same ladder and releases the cell's tokens.  Any other
+  error — a kernel that does not build, a CUDA error at launch, at the
+  event's ``query()`` or at read-back — propagates from
+  ``submit``/``pump``/``drain``, so host answers never stand in for a
+  broken kernel.  (The reference degrades every exception.)
+
+Every submitted request id receives exactly one result — exact
+(:class:`TriangleAnalytics`, ``route="batched"``), approx, or a
+:class:`RejectedRequest` — and ``submit``/``drain`` never raise on bad
+input or an injected failure (``strict=True`` raises on malformed
+input).
+Not ported, each raising ``NotImplementedError``: a grid with a top cell
+whose over-budget requests go to Algorithm 2, with the distributed
+timeout, retry and the plan's distributed faults (ROADMAP Queue 1 item
+10); pre-warming from a tuned profile and trace recording (item 11).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke --device cpu
@@ -54,19 +78,22 @@ from repro_torch.graph.csr import (
     from_edges_batch,
 )
 
-_ROBUST_ITEM = "ROADMAP Queue 1 item 8 (approx route and robust serving)"
+_DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 10 (distributed Algorithm 2)"
 _TUNE_ITEM = "ROADMAP Queue 1 item 11 (the autotuner)"
 
 
 @dataclasses.dataclass
 class TriangleAnalytics:
     """One request's response: the paper's per-graph analytics and the
-    latency from submit to the batch's read-back.  ``route`` is
-    ``"batched"`` (a lane of a batch).  ``overflow`` is the lane's
-    width-overflow flag: False whenever the bounded plan's bounds were
-    true upper bounds; True marks the count invalid, never silently
-    wrong.  ``per_vertex`` is the request's own vertices' credit when
-    the engine runs with ``TCOptions(per_vertex=True)``."""
+    latency from submit to the answer.  ``route`` is ``"batched"`` (a
+    lane of a batch) or ``"approx"`` (the degraded lane: ``approx`` is
+    the :class:`~repro_torch.core.approx.ApproxEstimate`, ``report`` the
+    full report, ``c1``/``c2`` ``None``, ``k`` ``NaN``).  ``overflow``
+    is the lane's width-overflow flag: False whenever the bounded plan's
+    bounds were true upper bounds; True marks the count invalid, never
+    silently wrong.  ``per_vertex`` is the request's own vertices'
+    credit when the engine runs with ``TCOptions(per_vertex=True)``;
+    always ``None`` on the approx route."""
 
     request_id: int
     n_nodes: int
@@ -86,11 +113,13 @@ class TriangleAnalytics:
 
 @dataclasses.dataclass
 class RejectedRequest:
-    """A structured answer for a request the server could not serve,
-    carrying its id, so one bad request never aborts a batch of good
-    ones.  ``reason`` is ``"malformed"``: the request did not validate
-    (the reference's ``"overloaded"`` and ``"failed"`` belong to its
-    degrade ladder, ROADMAP Queue 1 item 8)."""
+    """The shed rung of the degradation ladder: a structured answer for
+    a request the server could not serve, carrying its id, so one bad
+    request never aborts a batch of good ones.  ``reason`` is
+    ``"malformed"`` (the request did not validate), ``"overloaded"``
+    (admission shed it: its cell was full and the approx rung is off)
+    or ``"failed"`` (its batch failed, and the approx rung is off or
+    failed too)."""
 
     request_id: int
     reason: str
@@ -103,12 +132,21 @@ class RejectedRequest:
 ServeResult = Union[TriangleAnalytics, RejectedRequest]
 
 
+class FaultInjected(RuntimeError):
+    """A deterministic injected failure (``launch.robust.FaultPlan``): a
+    type of its own, so chaos tests tell injected faults from real
+    failures of the paths they exercise."""
+
+
 @dataclasses.dataclass
 class _Pending:
     request_id: int
     edges: np.ndarray
     n_nodes: int
     t_submit: float
+    #: absolute ``perf_counter`` deadline (``None``: the request flushes
+    #: only on batch size or drain)
+    deadline: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -131,18 +169,33 @@ class TriangleServer:
     flight.  A flush pools its batch's meta to the cell's high-water
     mark (``engine.pool_meta``), so a cell's batches share one plan per
     lane count, taken from the engine's plan cache.
+
+    The robustness mechanics of the module docstring (deadlines and
+    :meth:`pump`, the admission tokens, the approx-or-shed ladder for
+    overload and failed batches) follow the reference's rules and
+    counters.  ``faults`` (a ``launch.robust.FaultPlan``) gets
+    ``before_batch(batches_run)`` at every flush; ``batches_run``
+    advances only on a flush that dispatched, so a plan's failure
+    ordinal repeats until the schedule moves past it, as in the
+    reference.  Only an injected fault or a packing error fails a
+    batch; a device error propagates and leaves the server unusable.
     """
 
+    #: flush-cost prior (seconds) of a budget cell before its first
+    #: measured flush: conservative, so the first deadline-carrying
+    #: request of a cold cell flushes early, not late
+    EWMA_PRIOR_S = 0.05
     #: EWMA smoothing of each cell's flush-to-read-back seconds
     EWMA_ALPHA = 0.3
 
     def __init__(self, engine, *, batch_size: int = 8, max_inflight: int = 8,
                  strict: bool = False, faults=None, prewarm: bool = False,
                  recorder=None):
-        if faults is not None:
+        if (getattr(faults, "fail_distributed_every", 0)
+                or getattr(faults, "stall_distributed_every", 0)):
             raise NotImplementedError(
-                f"fault injection is not ported to repro_torch yet: "
-                f"{_ROBUST_ITEM}")
+                f"the distributed fault classes need the distributed "
+                f"route, not ported to repro_torch yet: {_DISTRIBUTED_ITEM}")
         if prewarm or recorder is not None:
             raise NotImplementedError(
                 f"prewarm and recorder are not ported to repro_torch yet: "
@@ -155,10 +208,9 @@ class TriangleServer:
             )
         if engine.budgets.capped:
             raise NotImplementedError(
-                "a server over a capped BudgetGrid sends its over-budget "
-                "requests to distributed Algorithm 2, not ported to "
-                "repro_torch yet: ROADMAP Queue 1 item 10 (distributed "
-                "Algorithm 2)")
+                f"a server over a capped BudgetGrid sends its over-budget "
+                f"requests to distributed Algorithm 2, not ported to "
+                f"repro_torch yet: {_DISTRIBUTED_ITEM}")
         if int(batch_size) <= 0 or int(max_inflight) < 0:
             raise ValueError(f"batch_size must be positive and max_inflight "
                              f">= 0; got {batch_size}, {max_inflight}")
@@ -166,14 +218,21 @@ class TriangleServer:
         self.batch_size = int(batch_size)
         self.max_inflight = int(max_inflight)
         self.strict = bool(strict)
+        self.faults = faults
         self._pending: dict[ShapeBudget, list[_Pending]] = defaultdict(list)
         self._inflight: deque[_InFlight] = deque()
         self._next_id = 0
         self.results: list[ServeResult] = []
         self.batches_run = 0
-        self.size_flushes = 0
-        self.rejected_requests = 0
+        #: pending + in-flight requests per budget cell (the admission
+        #: ledger)
+        self._tokens: dict[ShapeBudget, int] = defaultdict(int)
         self._flush_ewma_s: dict[ShapeBudget, float] = {}
+        self.deadline_flushes = 0
+        self.size_flushes = 0
+        self.approx_answers = 0
+        self.rejected_requests = 0
+        self.failed_batches = 0
         #: named live stream sessions: mutation requests address graphs
         #: by name
         self._sessions: dict[str, object] = {}
@@ -190,17 +249,19 @@ class TriangleServer:
                deadline_s: Optional[float] = None,
                strict: Optional[bool] = None) -> int:
         """Enqueue one graph and return its request id; flush its budget
-        cell's queue when full (results land in ``self.results``).
+        cell's queue when full, or earlier when a pending deadline's
+        slack runs out (results land in ``self.results``).
 
         Malformed input (an edge array that does not parse, a negative
         ``n_nodes``, endpoints outside ``[0, n_nodes)``) is answered with
         a :class:`RejectedRequest` of this id; ``strict=True`` (per call
-        or server-wide) raises instead."""
-        if deadline_s is not None:
-            raise NotImplementedError(
-                f"deadlines are not ported to repro_torch yet: "
-                f"{_ROBUST_ITEM}")
+        or server-wide) raises instead.  A request whose cell holds
+        ``options.admission_tokens`` is answered at once through the
+        degradation ladder.  ``deadline_s`` is relative to now; ``None``
+        falls back to ``options.deadline_s`` (``None`` there too: no
+        deadline)."""
         self._poll_inflight()  # stamp finished batches BEFORE new host work
+        self._pump_deadlines()  # expiring lanes flush BEFORE new admits
         rid = self._next_id
         self._next_id += 1
         strict = self.strict if strict is None else bool(strict)
@@ -218,18 +279,83 @@ class TriangleServer:
         except (ValueError, TypeError) as exc:
             if strict:
                 raise ValueError(f"request {rid}: {exc}") from exc
-            self.rejected_requests += 1
-            self.results.append(RejectedRequest(
-                request_id=rid, reason="malformed", detail=str(exc),
-                latency_s=time.perf_counter() - t_submit,
-            ))
+            self._reject(rid, "malformed", str(exc), t_submit)
             return rid
+        o = self.engine.options
+        rel = deadline_s if deadline_s is not None else o.deadline_s
+        deadline = t_submit + float(rel) if rel is not None else None
         budget = self.grid.budget_for(n_nodes, edges.shape[0])
+        if (o.admission_tokens is not None
+                and self._tokens[budget] >= o.admission_tokens):
+            # the cell is full: the ladder's degrade rung (shed if off)
+            self._degrade(rid, edges, n_nodes, t_submit, budget=budget,
+                          why="overloaded",
+                          detail=f"budget cell {budget} at "
+                                 f"{self._tokens[budget]} tokens")
+            return rid
+        self._tokens[budget] += 1
         q = self._pending[budget]
-        q.append(_Pending(rid, edges, n_nodes, t_submit))
+        q.append(_Pending(rid, edges, n_nodes, t_submit, deadline))
         if len(q) >= self.batch_size:
-            self._flush(budget)
+            self._flush(budget, cause="size")
         return rid
+
+    # ------------------------------------------------ degradation ladder
+    def _reject(self, rid: int, reason: str, detail: str,
+                t_submit: float) -> None:
+        self.rejected_requests += 1
+        self.results.append(RejectedRequest(
+            request_id=rid, reason=reason, detail=detail,
+            latency_s=time.perf_counter() - t_submit,
+        ))
+
+    def _degrade(self, rid: int, edges: np.ndarray, n_nodes: int,
+                 t_submit: float, *, budget: Optional[ShapeBudget],
+                 why: str, detail: str) -> None:
+        """The ladder's lower rungs: answer through the host-side
+        wedge-sampled estimate (error bars attached), else shed with a
+        structured rejection.  Never raises: an estimator failure falls
+        through to the shed rung."""
+        o = self.engine.options
+        if o.approx_on_overload:
+            try:
+                report = self.engine.count_approx((edges, n_nodes),
+                                                  seed=rid, options=o)
+            except Exception as exc:  # noqa: BLE001 — the ladder must not raise
+                detail = f"{detail}; approx lane failed: {exc}"
+            else:
+                self.approx_answers += 1
+                self.results.append(TriangleAnalytics(
+                    request_id=rid, n_nodes=n_nodes,
+                    triangles=report.triangles, c1=None, c2=None,
+                    num_horizontal=0, k=float("nan"),
+                    latency_s=time.perf_counter() - t_submit,
+                    budget=budget, overflow=False, route="approx",
+                    report=report, approx=report.approx,
+                ))
+                return
+        self._reject(rid, why, detail, t_submit)
+
+    def pump(self) -> None:
+        """One poll step for open-loop drivers: read back every finished
+        batch in flight and fire any due deadline flush.  Safe at any
+        time, in any state, at any frequency."""
+        self._poll_inflight()
+        self._pump_deadlines()
+
+    def _pump_deadlines(self) -> None:
+        """Flush every partial queue whose oldest pending deadline has
+        less slack left than the cell's measured flush cost (the prior
+        for a cold cell)."""
+        now = time.perf_counter()
+        for budget in [b for b, q in self._pending.items() if q]:
+            dls = [p.deadline for p in self._pending[budget]
+                   if p.deadline is not None]
+            if not dls:
+                continue
+            cost = self._flush_ewma_s.get(budget, self.EWMA_PRIOR_S)
+            if min(dls) - now <= cost:
+                self._flush(budget, cause="deadline")
 
     # -------------------------------------------------- stream sessions
     def stream_session(self, name: str, graph_or_edges=None, *,
@@ -280,25 +406,39 @@ class TriangleServer:
         batch in flight, and return all results so far (the empty list
         on a server that has seen no request)."""
         for budget in [b for b, q in self._pending.items() if q]:
-            self._flush(budget)
+            self._flush(budget, cause="drain")
         while self._inflight:
             self._finalize_one()
         return self.results
 
-    def _flush(self, budget: ShapeBudget) -> None:
+    def _flush(self, budget: ShapeBudget, *, cause: str = "size") -> None:
+        """Dispatch a cell's queue as one batch.  ``cause`` is
+        ``"deadline"`` (counted apart), ``"size"`` or ``"drain"``.  A
+        :class:`FaultInjected` from the fault hook, or a ``ValueError``
+        or ``TypeError`` from packing, fails the batch
+        (:meth:`_fail_batch`); an error of the dispatch propagates."""
         reqs = self._pending.pop(budget, [])
         if not reqs:
             return
-        self.size_flushes += 1
+        if cause == "deadline":
+            self.deadline_flushes += 1
+        else:
+            self.size_flushes += 1
         lanes = self.batch_size
         if len(reqs) < lanes:  # partial flush: smallest pow2 ladder step
             lanes = min(lanes, 1 << (len(reqs) - 1).bit_length())
         t_flush = time.perf_counter()
         eng = self.engine
-        gb = from_edges_batch([(r.edges, r.n_nodes) for r in reqs],
-                              budget=budget, batch_size=lanes,
-                              device=eng.device)
-        gb = dataclasses.replace(gb, meta=eng.pool_meta(budget, gb.meta))
+        try:
+            if self.faults is not None:
+                self.faults.before_batch(self.batches_run)
+            gb = from_edges_batch([(r.edges, r.n_nodes) for r in reqs],
+                                  budget=budget, batch_size=lanes,
+                                  device=eng.device)
+            gb = dataclasses.replace(gb, meta=eng.pool_meta(budget, gb.meta))
+        except (FaultInjected, ValueError, TypeError) as exc:
+            self._fail_batch(reqs, budget, exc)
+            return
         res = eng.count_batch_raw(gb, plan=eng.plan_for(gb))
         done = None
         if eng.device.type == "cuda":
@@ -309,6 +449,16 @@ class TriangleServer:
         self._poll_inflight()
         while len(self._inflight) > self.max_inflight:
             self._finalize_one()
+
+    def _fail_batch(self, reqs, budget: ShapeBudget, exc: Exception) -> None:
+        """A flush failed before dispatch: release the cell's tokens and
+        answer every request of the batch through the ladder."""
+        self.failed_batches += 1
+        self._tokens[budget] -= len(reqs)
+        for r in reqs:
+            self._degrade(r.request_id, r.edges, r.n_nodes, r.t_submit,
+                          budget=budget, why="failed",
+                          detail=f"batch dispatch failed: {exc}")
 
     @staticmethod
     def _batch_ready(f: _InFlight) -> bool:
@@ -321,14 +471,16 @@ class TriangleServer:
             self._finalize_one()
 
     def _finalize_one(self) -> None:
+        """Read back the oldest batch in flight (an error of the read-back
+        is the device's, and propagates)."""
         f = self._inflight.popleft()
         res = f.res
         tri, c1, c2, nh, ovf = torch.stack([
             res.triangles, res.c1, res.c2, res.num_horizontal,
             res.h_overflow.to(torch.int32)]).cpu().numpy()
         k = res.k.cpu().numpy()
-        pv = res.per_vertex.cpu().numpy() if res.per_vertex is not None \
-            else None
+        pv = (res.per_vertex.cpu().numpy()
+              if res.per_vertex is not None else None)
         done = time.perf_counter()
         sample = done - f.t_flush  # flush to read-back, per cell
         prev = self._flush_ewma_s.get(f.budget)
@@ -336,6 +488,7 @@ class TriangleServer:
             sample if prev is None
             else self.EWMA_ALPHA * sample + (1 - self.EWMA_ALPHA) * prev
         )
+        self._tokens[f.budget] -= len(f.reqs)
         for i, r in enumerate(f.reqs):
             self.results.append(TriangleAnalytics(
                 request_id=r.request_id, n_nodes=r.n_nodes,
@@ -348,10 +501,12 @@ class TriangleServer:
             ))
 
     def summary(self) -> dict:
-        """The ops scrape, safe at any moment, with the reference's keys.
-        Percentiles are over completed answers.  ``jit_compiles`` is
-        None: nothing is compiled.  The counters of the unported degrade
-        ladder (item 8) and distributed route (item 10) stay 0."""
+        """The ops scrape, safe at any moment (before the first submit,
+        with lanes in flight, after an all-rejected storm), with the
+        reference's keys.  Percentiles are over completed (exact and
+        approx) answers.  ``jit_compiles`` is None: nothing is compiled.
+        The distributed route's counters (ROADMAP Queue 1 item 10) stay
+        0."""
         completed = [r for r in self.results
                      if isinstance(r, TriangleAnalytics)]
         lat = sorted(r.latency_s for r in completed)
@@ -369,14 +524,14 @@ class TriangleServer:
             "rejected": self.rejected_requests,
             "by_route": dict(by_route),
             "batches": self.batches_run,
-            "failed_batches": 0,
+            "failed_batches": self.failed_batches,
             "distributed_requests": 0,
             "distributed_timeouts": 0,
             "distributed_retries": 0,
             "abandoned_distributed": 0,
-            "deadline_flushes": 0,
+            "deadline_flushes": self.deadline_flushes,
             "size_flushes": self.size_flushes,
-            "approx_answers": 0,
+            "approx_answers": self.approx_answers,
             "stream_sessions": len(self._sessions),
             "stream_mutations": self.stream_mutations,
             "pending": sum(len(q) for q in self._pending.values()),
@@ -433,6 +588,26 @@ def lanes_ladder(batch_size: int) -> list[int]:
     return ladder
 
 
+def sequential_loop(engine, reqs: Sequence[tuple[np.ndarray, int]]):
+    """The budget-padded sequential loop: each request packed to its
+    budget cell on the engine's device, counted alone on the local
+    route and read back.  Returns ``(wall seconds, sorted per-request
+    seconds, answers)``, each answer ``(triangles, c1, c2, n_h, k's
+    float32 bytes)`` in request order (what :func:`_same` compares)."""
+    lats, want = [], []
+    t0 = time.perf_counter()
+    for e, n in reqs:
+        t1 = time.perf_counter()
+        b = engine.budgets.budget_for(n, np.asarray(e).reshape(-1, 2).shape[0])
+        g = from_edges(e, b.n_budget, num_slots=b.slot_budget,
+                       device=engine.device)
+        r = engine.count_raw(g)
+        want.append((int(r.triangles), int(r.c1), int(r.c2),
+                     int(r.num_horizontal), r.k.cpu().numpy().tobytes()))
+        lats.append(time.perf_counter() - t1)
+    return time.perf_counter() - t0, sorted(lats), want
+
+
 def _same(r, want) -> bool:
     """A served answer equal to the sequential loop's (triangles, c1,
     c2, n_h, k's float32 bits) and not flagged."""
@@ -473,22 +648,8 @@ def measure_serve(
         engine.budgets.budget_for(n, np.asarray(e).reshape(-1, 2).shape[0])
         for e, n in reqs
     ]
-
-    def run_sequential():
-        lats, want = [], []
-        t0 = time.perf_counter()
-        for (e, n), b in zip(reqs, budgets):
-            t1 = time.perf_counter()
-            g = from_edges(e, b.n_budget, num_slots=b.slot_budget,
-                           device=dev)
-            r = engine.count_raw(g)
-            want.append((int(r.triangles), int(r.c1), int(r.c2),
-                         int(r.num_horizontal), r.k.cpu().numpy().tobytes()))
-            lats.append(time.perf_counter() - t1)
-        return time.perf_counter() - t0, sorted(lats), want
-
-    run_sequential()  # warm-up
-    seq_wall, seq_lats, want = run_sequential()
+    sequential_loop(engine, reqs)  # warm-up
+    seq_wall, seq_lats, want = sequential_loop(engine, reqs)
     row: dict = {
         "num_requests": num_requests,
         "seed": seed,

@@ -196,6 +196,17 @@ def test_unported_routes_name_their_roadmap_item(route):
         assert (rep.c1, rep.c2, rep.num_horizontal, rep.k) == (
             loc.c1, loc.c2, loc.num_horizontal, loc.k)
         return
+    if route == "approx":
+        # ported in slice 10: the route answers the reference's estimate
+        # (seed 0, the options' samples), with no level split
+        assert tapi.TCOptions(route=route).route == route
+        rep = tapi.TriangleEngine(device=CPU).count(gen.karate(), route=route)
+        want = japi.TriangleEngine().count(gen.karate(), route=route)
+        assert (rep.route, rep.triangles, rep.plan_id) == (
+            route, want.triangles, want.plan_id)
+        assert (rep.c1, rep.c2, rep.num_horizontal) == (None, None, 0)
+        assert np.isnan(rep.k) and rep.approx.samples == 8192
+        return
     if route == "auto_capped":
         # "auto" past a capped grid's top cell resolves to distributed
         eng = tapi.TriangleEngine(

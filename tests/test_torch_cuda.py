@@ -14,7 +14,8 @@ buffers of 4,096 and 65,536, each launched twice; the batch route
 (``count_batch`` bounded and exact, with and without credit, and the
 server) on the card equal to the CPU path, every K1 and K2 call of a
 batch's lane view equal to its plain version, one K1 launch per bucket
-for all lanes; K5 against its plain
+for all lanes, and the robust server (admission, failed batches) and
+the wedge baseline equal to the CPU; K5 against its plain
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
 bit across launches and against its chunk-then-carry order in plain
@@ -956,3 +957,54 @@ def test_server_on_the_card_equals_the_cpu(cuda_device):
                      r.num_horizontal, r.k, r.overflow,
                      r.per_vertex.tolist()) for r in res])
     assert out[0] == out[1] and len(out[0]) == 24
+
+
+def test_robust_server_on_the_card_equals_the_cpu(cuda_device):
+    """A server with per-vertex credit, admission tokens and a plan that
+    fails every flush from ordinal 2 on (size and drain flushes only, so
+    the schedule is the same on both devices): the same answers by id,
+    exact (K2) and approx, and the same failed batches."""
+    from repro_torch.launch.robust import FaultPlan
+
+    reqs = tserve_tc.synth_requests(24, seed=0, smoke=True)
+    opts = TCOptions(per_vertex=True, admission_tokens=6,
+                     approx_samples=1024)
+    out = []
+    for d in (cuda_device, "cpu"):
+        before = tkern.LAUNCHES["intersect_hits"]
+        srv = TriangleEngine(opts, device=d).serve(
+            batch_size=4, max_inflight=0,
+            faults=FaultPlan(fail_batch_every=3))
+        for e, n in reqs:
+            srv.submit(e, n)
+        res = sorted(srv.drain(), key=lambda r: r.request_id)
+        if d == cuda_device:
+            assert tkern.LAUNCHES["intersect_hits"] > before
+        out.append(([(r.request_id, r.route, r.triangles, r.c1, r.c2,
+                      r.num_horizontal, r.k if r.route == "batched" else None,
+                      None if r.per_vertex is None else r.per_vertex.tolist(),
+                      r.approx) for r in res],
+                    srv.summary()["failed_batches"], srv.batches_run))
+    assert out[0] == out[1] and len(out[0][0]) == 24
+    assert out[0][1] > 0 and out[0][2] == 2
+
+
+def test_edge_exists_and_wedge_baseline_on_the_card(cuda_device, monkeypatch):
+    from repro_torch.core import wedge_baseline as wb
+
+    e, n = gen.rmat(10, 16, seed=0)
+    rng = np.random.default_rng(0)
+    qu = torch.as_tensor(rng.integers(0, n + 3, size=50_000))
+    qv = torch.as_tensor(rng.integers(0, n + 3, size=50_000))
+    got, want = [], []
+    for d, acc in ((cuda_device, got), ("cpu", want)):
+        g = from_edges(e, n, device=d)
+        acc.append(tint.edge_exists(g, qu.to(d), qv.to(d)).cpu())
+        d_max, counts = tcsr.max_degree(g), []
+        for budget in (wb.WEDGE_CELL_BUDGET, 1000 * d_max):  # 1,000 slots
+            monkeypatch.setattr(wb, "WEDGE_CELL_BUDGET", budget)
+            counts.append(int(wb.wedge_triangle_count(g, d_max=d_max)))
+        monkeypatch.undo()
+        acc.append(counts)
+    assert torch.equal(got[0], want[0])
+    assert got[1] == want[1] == [75682, 75682]

@@ -4,10 +4,11 @@ at batch sizes 1 and 8, equal by request id (triangles, c1, c2, n_h, k as
 float32 bits, overflow and per-vertex credit, bit for bit); the
 right-sized drain; malformed requests answered with a structured
 rejection; an empty drain and the summary's keys; the named stream
-sessions; the refusals of what is not ported; and ``measure_serve`` and
-the command line on the CPU."""
+sessions; the robustness knobs answered and the refusals of what is not
+ported; and ``measure_serve`` and the command line on the CPU."""
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
@@ -183,18 +184,26 @@ def test_named_sessions_match_reference():
 
 def test_unported_serving_knobs_name_their_items():
     eng = tapi.TriangleEngine(device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        eng.serve(faults=object())
+    # the item-8 knobs are ported (slice 10): a plan of batch faults and
+    # a per-request deadline are answered; the distributed fault classes
+    # wait for item 10
+    from repro_torch.launch.robust import FaultPlan
+
+    assert eng.serve(faults=FaultPlan(fail_batch_every=3)).faults is not None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        eng.serve(faults=FaultPlan(fail_distributed_every=1))
     for kw in (dict(prewarm=True), dict(recorder=object())):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             eng.serve(**kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        eng.serve().submit(*gen.karate(), deadline_s=1.0)
+    srv = eng.serve()
+    rid = srv.submit(*gen.karate(), deadline_s=1.0)
+    assert [(r.request_id, r.triangles) for r in srv.drain()] == [(rid, 45)]
     for kw in (dict(deadline_s=0.5), dict(admission_tokens=4),
-               dict(approx_on_overload=False),
-               dict(distributed_timeout_s=2.0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tapi.TCOptions(**kw)
+               dict(approx_on_overload=False)):
+        assert tapi.TCOptions(**kw) == dataclasses.replace(tapi.TCOptions(),
+                                                           **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        tapi.TCOptions(distributed_timeout_s=2.0)
     capped = tapi.TriangleEngine(
         budgets=tcsr.BudgetGrid(max_nodes=256, max_slots=2048), device=CPU)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):

@@ -303,8 +303,12 @@ def test_lossy_options_and_bad_stream_knobs_are_refused():
         eng.stream(gen.karate(), options=japi.TCOptions())
     assert tapi.TCOptions(route="stream").route == "stream"
     assert tapi.TCOptions().stream_buffer == japi.TCOptions().stream_buffer
-    with pytest.raises(NotImplementedError, match="item 8"):
-        eng.count(gen.karate(), route="approx")
+    # the approx route is ported (slice 10): it answers the reference's
+    # estimate
+    rep = eng.count(gen.karate(), route="approx")
+    want = japi.TriangleEngine().count(gen.karate(), route="approx")
+    assert (rep.route, rep.triangles, rep.plan_id) == (
+        "approx", want.triangles, want.plan_id)
 
 
 @pytest.mark.parametrize("name", ["karate", "ring_of_cliques", "rmat8"])
