@@ -2,9 +2,9 @@
 """Chip smoke of the PyTorch/CUDA port: the exact local count (Algorithm
 1), triangle finding, per-vertex credit, the stream route (exact batch
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
-training, the batch route with its triangle server, and the approx route
-with robust serving end to end on one NVIDIA H100, through the
-hand-written Hopper kernels K1 to K5.
+training, the batch route with its triangle server, the approx route
+with robust serving, and distributed Algorithm 2 end to end on one
+NVIDIA H100, through the hand-written Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -146,7 +146,37 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                equal to the injected faults and to the ordinal rule, the
                exact answers equal to the loop's, every approx answer
                equal to the CPU's ``count_approx`` at ``seed=id``.
- 10. summary — one JSON line per kernel, the card's name and power
+ 10. distributed — Algorithm 2 over ``LocalShards(8, "cuda")`` (8
+               logical shards stacked on the card).  (a) karate and
+               rmat10 in both hedge modes, with and without per-vertex
+               credit: triangles, ``per_device``, ``recv_counts``,
+               flags and comm bytes equal to the port's CPU path and to
+               the reference's pinned values, credit summing to 3T,
+               ``comm_report`` measured == tally == modeled; rmat16 at
+               p = 1, 2, 4, 8 equal to the local count (every comm
+               phase 0 at p = 1).  (b) The full-size graph at p = 8 in
+               ``allgather`` and ``ring``: each a main path (K3 alone),
+               3 timed runs (stages shard / bfs / transpose / hedge /
+               reduce), one profiled (busy share), peak memory; the
+               count, the horizontal edges and no overflow exact, the
+               three comm figures equal, the hedge bytes equal across
+               modes; one per-vertex run (the router's mode, K2 alone)
+               with credit summing to 3T, then every K2 launch of one
+               more such run timed beside its bound, its offsets held
+               against the plain version on every row and its mask on
+               a seeded sample of 4,096 rows.  (c) K3 at the hedge
+               rounds' own launch shapes: every launch of one more run
+               a mode, timed on the device and host-paced beside its
+               bound, its path logged, and held against its plain
+               version on a seeded sample of 4,096 rows (every row of a
+               smaller launch).  A disagreement in (b) or (c) ends the
+               run.  (d) A server over ``BudgetGrid(max_nodes=256,
+               max_slots=2048)``: an over-budget ``rmat(9, 8)`` answered
+               on the route, equal to the local count, also after a
+               stalled first attempt times out (retried in ring mode).
+               (e) ``parallel_wedge_triangle_count`` at rmat12, equal to
+               T, its wire bytes and paper bits beside cover-edge's.
+ 11. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -2132,6 +2162,448 @@ def robust_phase(dev, main_path, scale, edges, n, n_tri, stc) -> dict:
     return out
 
 
+#: phase 10's pinned values of the reference at p = 8 (both modes): its
+#: run under jax 0.9.0 on the CPU, eight forced host devices
+#: (tests/test_torch_distributed.py holds the port to it)
+DIST_PINNED = {
+    "karate": dict(
+        triangles=45, per_device=[23, 2, 3, 3, 5, 1, 6, 2],
+        recv_counts=[25, 13, 14, 13, 15, 15, 21, 12],
+        comm={"bfs": 9520, "splitter": 1792, "transpose": 4480,
+              "hedge": 8960, "reduce": 336}, reduce_per_vertex=2240),
+    "rmat10": dict(
+        triangles=75682,
+        per_device=[16211, 13498, 11354, 9760, 9010, 9223, 3720, 2906],
+        recv_counts=[2112, 1050, 1491, 1515, 1345, 1771, 1347, 2178],
+        comm={"bfs": 344064, "splitter": 1792, "transpose": 586880,
+              "hedge": 1173312, "reduce": 336}, reduce_per_vertex=57680),
+}
+#: phase 10's shard count: p logical shards stacked on the one card
+DIST_P = 8
+#: rows of each hedge-round K3 launch held against its plain version
+DIST_SAMPLE_ROWS = 4096
+
+
+def dist_fields(r) -> dict:
+    """A ``ParallelTCResult``'s integers and flags, host-side."""
+    return dict(
+        triangles=int(r.triangles), num_horizontal=int(r.num_horizontal),
+        k=float(r.k), per_device=r.per_device.cpu().tolist(),
+        recv_counts=r.recv_counts.cpu().tolist(),
+        overflow=[bool(r.transpose_overflow), bool(r.hedge_overflow)],
+        comm=r.comm.phase_bytes(), sweeps=r.comm.bfs_sweeps)
+
+
+def comm_agrees(r, n: int, m2: int, p: int, mode: str,
+                per_vertex: bool = False) -> dict:
+    """``comm_report`` of one run: measured (its shard group's call
+    record) == tally == modeled in every phase, else exit."""
+    from repro_torch.core.comm_instrument import comm_report
+
+    rep = comm_report(n, m2, p, sweeps=r.comm.bfs_sweeps,
+                      calls=r.collectives, mode=mode, per_vertex=per_vertex)
+    for ph, row in rep["phases"].items():
+        if not row["measured"] == row["tally"] == row["modeled"]:
+            raise SystemExit(f"distributed: comm {ph} of p={p} {mode}: "
+                             f"{row}")
+    return rep
+
+
+def time_hedge_calls(calls, tag: str, seed: int = 0) -> dict:
+    """K3 on each recorded hedge-round call (:func:`capture_counts`):
+    device milliseconds (:func:`device_ms`, the host's enqueue hidden,
+    mean of 3) and host-paced milliseconds (CUDA events, mean of 3) by
+    the rule by shape, its bound (:func:`count_bound`), and its output
+    against ``intersect_count_ref`` on every row, or on a seeded sample
+    of ``DIST_SAMPLE_ROWS`` rows where the call has more (the plain
+    version timed on the rows it checks, beside the kernel on the same
+    rows).  One log line a launch (rows, path, items, live rows and
+    cells) and the sums."""
+    from repro_torch.kernels.intersect.intersect import intersect_count
+    from repro_torch.kernels.intersect.ref import intersect_count_ref
+
+    rng = np.random.default_rng(seed)
+    k3 = dict(launches=len(calls), rows=0, cells=0, checked_rows=0,
+              max_abs_err=0, device_ms=0.0, host_paced_ms=0.0,
+              bound_ms=0.0, search_bound_ms=0.0, sample_ms=0.0,
+              sample_plain_ms=0.0, rule_paths={}, bound_by=[])
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        q = ops[0].shape[0]
+        want = intersect_count(flat, *ops, **kw)
+        if q > DIST_SAMPLE_ROWS:
+            idx = torch.from_numpy(np.sort(rng.choice(
+                q, DIST_SAMPLE_ROWS, replace=False))).to(flat.device)
+        else:
+            idx = torch.arange(q, device=flat.device)
+        sub = tuple(x[idx] for x in ops)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain = intersect_count_ref(flat, *sub, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(stop)
+        s_ms = cuda_ms(lambda: intersect_count(flat, *sub, **kw))
+        err = int((want[idx] - plain).abs().max().item()) if q else 0
+        again = intersect_count(flat, *ops, **kw)
+        err = max(err, int((again - want).abs().max().item()) if q else 0)
+        d_ms = device_ms(lambda: intersect_count(flat, *ops, **kw), reps=3,
+                         spin=K3_SPIN)
+        h_ms = cuda_ms(lambda: intersect_count(flat, *ops, **kw))
+        bd = count_bound(flat, ops, d_cand, d_targ)
+        st = layout_stats(ops, SimpleNamespace(d_cand=d_cand, d_targ=d_targ),
+                          k3=True)
+        k3["rule_paths"][st["path"]] = k3["rule_paths"].get(st["path"],
+                                                            0) + 1
+        for key, v in (("device_ms", d_ms), ("host_paced_ms", h_ms),
+                       ("bound_ms", bd["bound_ms"]),
+                       ("search_bound_ms", bd["search_bound_ms"]),
+                       ("sample_ms", s_ms), ("sample_plain_ms", p_ms),
+                       ("rows", q), ("cells", st["live_cells"]),
+                       ("checked_rows", len(idx))):
+            k3[key] += v
+        k3["max_abs_err"] = max(k3["max_abs_err"], err)
+        k3["bound_by"].append((bd["bound_ms"], bd["bound_by"]))
+        log("dist_k3_launch", mode=tag, launch=i, rows=q, d_cand=d_cand,
+            d_targ=d_targ, flat_slots=flat.numel(), device_ms=d_ms,
+            host_paced_ms=h_ms, checked_rows=len(idx), sample_ms=s_ms,
+            sample_plain_ms=p_ms, max_abs_err=err, **bd, **st)
+        del want, again, plain, sub
+    k3["bound_by"] = max(k3["bound_by"])[1] if k3["bound_by"] else None
+    return k3
+
+
+def time_dist_hits_calls(calls, seed: int = 0) -> dict:
+    """K2 on each recorded call of the distributed per-vertex run
+    (:func:`capture_counts` with ``"intersect_hits"``): the device
+    milliseconds of one profiled call and host-paced milliseconds (CUDA
+    events, mean of 3; the call reads its size back), its bound
+    (:func:`hits_bound`), and its ragged mask against
+    ``intersect_hits_ref``: the offsets of every row, and the hits of
+    every row or of a seeded sample of ``DIST_SAMPLE_ROWS`` rows where
+    the call has more (the plain version timed on the rows it checks).
+    A second launch equal to the first.  One log line a launch and the
+    sums."""
+    from repro_torch.kernels.intersect.intersect import intersect_hits
+    from repro_torch.kernels.intersect.ref import intersect_hits_ref
+
+    rng = np.random.default_rng(seed)
+    k2 = dict(launches=len(calls), rows=0, cells=0, checked_rows=0,
+              max_abs_err=0, ms=0.0, host_paced_ms=0.0, bound_ms=0.0,
+              search_bound_ms=0.0, sample_plain_ms=0.0, rule_paths={},
+              bound_by=[])
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        ops = ops[:4]
+        q = ops[0].shape[0]
+        offs, hits = intersect_hits(flat, *ops, **kw)
+        if q > DIST_SAMPLE_ROWS:
+            idx = torch.from_numpy(np.sort(rng.choice(
+                q, DIST_SAMPLE_ROWS, replace=False))).to(flat.device)
+        else:
+            idx = torch.arange(q, device=flat.device)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ro, rh = intersect_hits_ref(flat, *(x[idx] for x in ops), **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(stop)
+        # every row's offset: its clamped candidates, summed
+        want_offs = torch.zeros(q + 1, dtype=torch.int64, device=flat.device)
+        want_offs[1:] = ops[1].clamp(0, d_cand).to(torch.int64).cumsum(0)
+        err = int(not torch.equal(offs, want_offs))
+        # the sampled rows' hits, read out of the launch's own mask
+        ln = offs[idx + 1] - offs[idx]
+        if not torch.equal(ln, ro.diff()):
+            err = 1
+        elif rh.numel():
+            pos = (torch.repeat_interleave(offs[idx] - ro[:-1], ln)
+                   + torch.arange(rh.numel(), device=flat.device))
+            err = max(err, int((hits[pos].to(torch.int8)
+                                - rh.to(torch.int8)).abs().max().item()))
+        again = intersect_hits(flat, *ops, **kw)
+        if not (torch.equal(again[0], offs) and torch.equal(again[1], hits)):
+            err = max(err, 1)
+        h_ms = cuda_ms(lambda: intersect_hits(flat, *ops, **kw))
+        d_ms = profiled_ms(lambda: intersect_hits(flat, *ops, **kw))[0]
+        bd = hits_bound(flat, ops, d_cand, d_targ)
+        st = layout_stats(ops, SimpleNamespace(d_cand=d_cand, d_targ=d_targ))
+        k2["rule_paths"][st["path"]] = k2["rule_paths"].get(st["path"],
+                                                            0) + 1
+        for key, v in (("ms", d_ms), ("host_paced_ms", h_ms),
+                       ("bound_ms", bd["bound_ms"]),
+                       ("search_bound_ms", bd["search_bound_ms"]),
+                       ("sample_plain_ms", p_ms), ("rows", q),
+                       ("cells", bd["cells"]), ("checked_rows", len(idx))):
+            k2[key] += v
+        k2["max_abs_err"] = max(k2["max_abs_err"], err)
+        k2["bound_by"].append((bd["bound_ms"], bd["bound_by"]))
+        log("dist_k2_launch", launch=i, rows=q, d_cand=d_cand,
+            d_targ=d_targ, flat_slots=flat.numel(), device_ms=d_ms,
+            host_paced_ms=h_ms, checked_rows=len(idx), sample_plain_ms=p_ms,
+            hits=int(hits.sum().item()), max_abs_err=err, **bd, **st)
+        del offs, hits, again, ro, rh
+    k2["bound_by"] = max(k2["bound_by"])[1] if k2["bound_by"] else None
+    return k2
+
+
+def distributed_phase(dev, main_path, runs: int, scale: int, edges, n: int,
+                      expect) -> dict:
+    """Phase 10, distributed Algorithm 2 (module docstring) over
+    ``LocalShards`` on the card; ``edges``/``n`` the full-size graph and
+    ``expect`` its (triangles, horizontal queries).  Returns the phase's
+    summary; exits on any disagreement."""
+    from repro_torch.api import TCOptions, TriangleEngine
+    from repro_torch.core.comm_model import (
+        cover_edge_comm,
+        wedge_comm_bits,
+    )
+    from repro_torch.core.comm_instrument import measured_phase_bytes
+    from repro_torch.core.sequential import StageClock
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.core.wedge_baseline import (
+        parallel_wedge_triangle_count,
+        wedge_count,
+    )
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph.csr import BudgetGrid, from_edges
+    from repro_torch.launch.robust import FaultPlan
+
+    t_phase = time.perf_counter()
+    out = {}
+
+    def engine(p, where=dev, **kw):
+        return TriangleEngine(device=where, mesh=LocalShards(p, where), **kw)
+
+    # (a) small graphs at p = 8, both modes, with and without credit:
+    # the card equal to the port's CPU path and to the pinned values
+    small = []
+    for name, (e, nn) in (("karate", gen.karate()),
+                          ("rmat10", gen.rmat(10, 16, seed=0))):
+        pin = DIST_PINNED[name]
+        m2 = int(from_edges(e, nn, device=dev).n_edges_dir.item())
+        for mode in ("allgather", "ring"):
+            for pv in (False, True):
+                o = TCOptions(mode=mode, per_vertex=pv)
+                a = engine(DIST_P).count_distributed_raw((e, nn), options=o)
+                b = engine(DIST_P, "cpu").count_distributed_raw((e, nn),
+                                                                options=o)
+                fa, fb = dist_fields(a), dist_fields(b)
+                want_comm = dict(pin["comm"])
+                if pv:
+                    want_comm["reduce"] = pin["reduce_per_vertex"]
+                ok = (fa == fb and fa["triangles"] == pin["triangles"]
+                      and fa["per_device"] == pin["per_device"]
+                      and fa["recv_counts"] == pin["recv_counts"]
+                      and fa["comm"] == want_comm
+                      and not any(fa["overflow"]))
+                if pv:
+                    ca, cb = a.per_vertex.cpu(), b.per_vertex
+                    ok = ok and torch.equal(ca, cb) and int(
+                        ca.sum()) == 3 * fa["triangles"]
+                comm_agrees(a, nn, m2, DIST_P, mode, pv)
+                log("dist_small", graph=name, p=DIST_P, mode=mode,
+                    per_vertex=pv, agree_cpu_and_pinned=ok, **fa)
+                if not ok:
+                    raise SystemExit(f"distributed: {name} {mode} pv={pv} "
+                                     f"card {fa} != cpu {fb} or the pins")
+                small.append(fa["triangles"])
+    # rmat16 at p = 1, 2, 4, 8 equal to the local count
+    e16, n16 = gen.rmat(16, 16, seed=0)
+    local16 = TriangleEngine(device=dev).count((e16, n16)).triangles
+    for p in (1, 2, 4, 8):
+        for mode in ("allgather", "ring"):
+            r = engine(p).count((e16, n16), route="distributed",
+                                options=TCOptions(mode=mode))
+            zero = p > 1 or r.comm.total == 0
+            log("dist_rmat16", p=p, mode=mode, triangles=r.triangles,
+                local=local16, comm=r.comm.phase_bytes(),
+                per_device=r.per_device.tolist())
+            if r.triangles != local16 or r.overflow.any or not zero:
+                raise SystemExit(f"distributed: rmat16 p={p} {mode}: "
+                                 f"{r.triangles} != {local16}")
+    out["small_seconds"] = time.perf_counter() - t_phase
+
+    # (b) full width: rmat{scale} on DIST_P shards of the card
+    eng8 = engine(DIST_P)
+    g = from_edges(edges, n, device=dev)
+    m2 = int(g.n_edges_dir.item())
+    full, comm_by_mode = {}, {}
+    for mode in ("allgather", "ring"):
+        o = TCOptions(mode=mode)
+
+        def run(clock, o=o):
+            return eng8.count_distributed_raw(g, options=o, clock=clock)
+
+        res, warm_s, clock, launched, mem = main_path(run)
+        f = dist_fields(res)
+        rep = comm_agrees(res, n, m2, DIST_P, mode)
+        comm_by_mode[mode] = f["comm"]
+        log("dist_main_path", graph=f"rmat{scale}", p=DIST_P, mode=mode,
+            seconds=warm_s, stages=clock.seconds, launches=launched,
+            memory=mem, comm_report=rep, **f)
+        if not (f["triangles"] == expect[0]
+                and f["num_horizontal"] == expect[1]
+                and not any(f["overflow"])):
+            raise SystemExit(f"distributed: rmat{scale} {mode}: {f}")
+        if (launched["intersect_count"] == 0
+                or launched["intersect_levels"] or launched["intersect_hits"]):
+            raise SystemExit(f"distributed: {mode} main path launched "
+                             f"{launched}; K3 alone expected")
+        timed = []
+        for i in range(runs):
+            clock = StageClock(dev)
+            t0 = time.perf_counter()
+            r = run(clock)
+            dt = time.perf_counter() - t0
+            if int(r.triangles) != expect[0]:
+                raise SystemExit(f"distributed: timed {mode} run {i}")
+            timed.append((dt, clock.seconds))
+            log("dist_timed_run", mode=mode, run=i, seconds=dt,
+                stages=clock.seconds)
+            del r
+        busy, wall, top, _ = device_busy(lambda: run(None))
+        med = sorted(timed, key=lambda x: x[0])[len(timed) // 2]
+        full[mode] = dict(
+            median_seconds=statistics.median(dt for dt, _ in timed),
+            seconds=[dt for dt, _ in timed], median_run_stages=med[1],
+            launches=launched["intersect_count"], memory=mem,
+            device_busy_ms=busy, profiled_wall_s=wall,
+            busy_share=busy / 1e3 / wall, top_device_ms=top,
+            sweeps=f["sweeps"], comm=f["comm"],
+            hedge_round_buffer_bytes=rep["hedge_round_buffer_bytes"])
+        log("dist_end_to_end", mode=mode, graph=f"rmat{scale}", p=DIST_P,
+            **full[mode])
+        del res
+        torch.cuda.empty_cache()
+    if comm_by_mode["allgather"]["hedge"] != comm_by_mode["ring"]["hedge"]:
+        raise SystemExit(f"distributed: hedge bytes differ {comm_by_mode}")
+    # one per-vertex run (mode auto: the router's choice), credit = 3T
+    pv_rep, pv_s, pv_clock, pv_launched, pv_mem = main_path(
+        lambda c: eng8.count(g, route="distributed",
+                             options=TCOptions(per_vertex=True), clock=c))
+    pv_sum = int(pv_rep.per_vertex.astype(np.int64).sum())
+    log("dist_per_vertex", mode=pv_rep.options.mode, seconds=pv_s,
+        stages=pv_clock.seconds, launches=pv_launched, memory=pv_mem,
+        triangles=pv_rep.triangles, credit_sum=pv_sum)
+    if pv_rep.triangles != expect[0] or pv_sum != 3 * expect[0]:
+        raise SystemExit("distributed: per-vertex credit")
+    if (pv_launched["intersect_hits"] == 0 or pv_launched["intersect_levels"]
+            or pv_launched["intersect_count"]):
+        raise SystemExit(f"distributed: the per-vertex main path launched "
+                         f"{pv_launched}; K2 alone expected")
+    pv_mode = pv_rep.options.mode
+    del pv_rep
+    torch.cuda.empty_cache()
+    # K2 at the per-vertex run's own launch shapes, one more run
+    pv_o = TCOptions(per_vertex=True)
+    res, calls = capture_counts(lambda: eng8.count(
+        g, route="distributed", options=pv_o), name="intersect_hits")
+    if res.triangles != expect[0]:
+        raise SystemExit("distributed: captured per-vertex run")
+    del res
+    k2 = time_dist_hits_calls(calls)
+    del calls
+    torch.cuda.empty_cache()
+    log("dist_k2", **k2)
+    if k2["max_abs_err"] or k2["launches"] == 0:
+        raise SystemExit(f"distributed: K2 at the per-vertex hedge rounds' "
+                         f"shapes differs from its plain version: {k2}")
+    out["per_vertex"] = dict(mode=pv_mode, seconds=pv_s,
+                             launches=pv_launched, memory=pv_mem)
+    out["k2"] = k2
+    out["full"] = full
+
+    # (c) K3 at the hedge rounds' own launch shapes, one more run a mode
+    k3 = {}
+    for mode in ("allgather", "ring"):
+        res, calls = capture_counts(lambda: eng8.count_distributed_raw(
+            g, options=TCOptions(mode=mode)))
+        if int(res.triangles) != expect[0]:
+            raise SystemExit(f"distributed: captured {mode} run")
+        del res
+        k3[mode] = time_hedge_calls(calls, mode)
+        del calls
+        torch.cuda.empty_cache()
+        log("dist_k3", mode=mode, **k3[mode])
+        if k3[mode]["max_abs_err"] or k3[mode]["launches"] == 0:
+            raise SystemExit(f"distributed: K3 at the {mode} hedge rounds' "
+                             f"shapes differs from its plain version: "
+                             f"{k3[mode]}")
+    out["k3"] = k3
+    del g
+    torch.cuda.empty_cache()
+
+    # (d) serving: an over-budget request on the route, and a stalled
+    # first attempt retried in ring mode under a timeout
+    class StallFirst(FaultPlan):
+        def before_distributed(self, rid, attempt):
+            if attempt == 0:
+                super().before_distributed(rid, attempt)
+
+    big = gen.rmat(9, 8, seed=0)
+    local9 = TriangleEngine(device=dev).count(big).triangles
+    grid = BudgetGrid(max_nodes=256, max_slots=2048)
+    served = {}
+    for tag, opts, faults in (
+            ("plain", TCOptions(), None),
+            ("stalled", TCOptions(distributed_timeout_s=2.0),
+             StallFirst(stall_distributed_every=1, distributed_stall_s=2.3))):
+        srv = engine(DIST_P, budgets=grid, options=opts).serve(
+            faults=faults)
+        t0 = time.perf_counter()
+        srv.submit(*big)
+        srv.submit(*gen.karate())
+        res = {r.request_id: r for r in srv.drain()}
+        s = srv.summary()
+        counters = {k: s[k] for k in (
+            "distributed_requests", "distributed_timeouts",
+            "distributed_retries", "abandoned_distributed")}
+        served[tag] = dict(seconds=time.perf_counter() - t0,
+                           routes=[res[0].route, res[1].route],
+                           triangles=[res[0].triangles, res[1].triangles],
+                           **counters)
+        log("dist_serve", case=tag, local=local9, **served[tag])
+        want = (1, 1, 1, 1) if tag == "stalled" else (1, 0, 0, 0)
+        if (res[0].route != "distributed" or res[0].triangles != local9
+                or res[1].triangles != 45
+                or tuple(counters.values()) != want):
+            raise SystemExit(f"distributed: serving {tag}: {served[tag]}")
+    out["serve"] = served
+    time.sleep(0.5)  # the abandoned attempt runs to its end
+
+    # (e) the wedge baseline at rmat12 beside cover-edge, same model
+    e12, n12 = gen.rmat(12, 16, seed=0)
+    g12 = from_edges(e12, n12, device=dev)
+    t0 = time.perf_counter()
+    w = parallel_wedge_triangle_count(g12, LocalShards(DIST_P, dev))
+    w_s = time.perf_counter() - t0
+    ce = engine(DIST_P).count_distributed_raw(
+        g12, options=TCOptions(mode="allgather"))
+    wires = measured_phase_bytes(w.collectives, n=n12, p=DIST_P)
+    wedges = float(wedge_count(g12).item())
+    m12 = int(g12.n_edges_dir.item()) // 2
+    paper_ce = cover_edge_comm(n12, m12, float(ce.k), DIST_P).total_bits / 8
+    paper_w = wedge_comm_bits(wedges, n12) / 8
+    out["wedge"] = dict(
+        seconds=w_s, triangles=int(w.triangles),
+        wedges_routed=int(w.wedges_routed), overflow=bool(w.overflow),
+        wedge_wire_bytes=sum(wires.values()),
+        cover_edge_wire_bytes=ce.comm.total,
+        wedge_paper_bytes=paper_w, cover_edge_paper_bytes=paper_ce,
+        paper_ratio=paper_w / paper_ce)
+    log("dist_wedge", graph="rmat12", p=DIST_P, **out["wedge"])
+    if not (int(w.triangles) == int(ce.triangles) == EXPECTED[12][0]
+            and not bool(w.overflow)):
+        raise SystemExit(f"distributed: wedge baseline {out['wedge']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("dist_summary", seconds=out["seconds"],
+        small_seconds=out["small_seconds"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -2650,7 +3122,13 @@ def main() -> int:
     rob_k1 = (sum(v["launches"] for v in rob["deadlines"].values())
               + rob["chaos"]["launches"]["intersect_levels"])
 
-    # --------------------------------------------------------- 10. summary
+    # ---------------------------------------------------- 10. distributed
+    dist = distributed_phase(dev, main_path, args.runs, scale, edges, n,
+                             expect)
+    dk3, dk2 = dist["k3"], dist["k2"]
+    dk2_launches = dist["per_vertex"]["launches"]["intersect_hits"]
+
+    # --------------------------------------------------------- 11. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -2678,11 +3156,15 @@ def main() -> int:
                     for k, v in rob["deadlines"].items()},
                 "chaos": {f: rob["chaos"][f] for f in (
                     "exact", "approx", "rejected", "failed_batches")}},
+        distributed={mode: {k: v[k] for k in (
+            "median_seconds", "median_run_stages", "launches", "memory",
+            "busy_share", "comm")} for mode, v in dist["full"].items()},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     k3s, big = stream["k3"], stream["buffer_65536"]
     k3b = big["k3"]
-    k3_err = max(max_err_count, k3s["max_abs_err"], k3b["max_abs_err"])
+    k3_err = max(max_err_count, k3s["max_abs_err"], k3b["max_abs_err"],
+                 *(v["max_abs_err"] for v in dk3.values()))
     kernels = [{
         "name": "intersect_levels",
         "route": "cuda",
@@ -2733,11 +3215,14 @@ def main() -> int:
         "replaces_function":
             "repro.kernels.intersect.intersect.intersect_pallas_hits",
         "launches": (find_launches["intersect_hits"]
-                     + pv_launches["intersect_hits"]),
+                     + pv_launches["intersect_hits"] + dk2_launches),
         "launches_find": find_launches["intersect_hits"],
         "launches_per_vertex": pv_launches["intersect_hits"],
-        "matches_plain": max(max_err_hits, stc2["max_abs_err"]) == 0,
-        "max_abs_err": max(max_err_hits, stc2["max_abs_err"]),
+        "launches_distributed_per_vertex": dk2_launches,
+        "matches_plain": max(max_err_hits, stc2["max_abs_err"],
+                             dk2["max_abs_err"]) == 0,
+        "max_abs_err": max(max_err_hits, stc2["max_abs_err"],
+                           dk2["max_abs_err"]),
         "ms": tot_h["ms"],
         "plain_ms": tot_h["plain_ms"],
         "sample_rows": tot_h["sample_rows"],
@@ -2757,11 +3242,19 @@ def main() -> int:
         "serve_tc_plain_ms": stc2["plain_ms"],
         "serve_tc_bound_ms": stc2["bound_ms"],
         "serve_tc_bound_by": stc2["bound_by"],
+        **{f"distributed_per_vertex_{key}": dk2[key] for key in (
+            "launches", "ms", "host_paced_ms", "bound_ms", "bound_by",
+            "search_bound_ms", "sample_plain_ms", "checked_rows", "rows",
+            "cells", "rule_paths", "max_abs_err")},
         "shape": f"rmat{scale} plan, {n_buckets} buckets, "
                  f"{tot_h['launches']} launches at the main path's chunk "
                  f"shapes; serve_tc_*: the per-vertex count of one batch "
                  f"of {SERVE_LANES} lanes of rmat{SERVE_SCALE}, one launch "
-                 f"per chunk of the cell budget over all lanes",
+                 f"per chunk of the cell budget over all lanes; "
+                 f"distributed_per_vertex_*: the per-vertex hedge rounds "
+                 f"of Algorithm 2 at rmat{scale} on {DIST_P} shards of the "
+                 f"card, each launch of one more run timed, bounded and "
+                 f"its mask sampled against the plain version",
     }, {
         "name": "intersect_count",
         "route": "cuda",
@@ -2813,6 +3306,13 @@ def main() -> int:
         "full_width_bound_by": max(bound_by_c)[1],
         "full_width_row_bytes_bound_ms": tot_c["row_bytes_bound_ms"],
         "full_width_max_abs_err": max_err_count,
+        **{f"distributed_{mode}_{key}": v[key] for mode, v in dk3.items()
+           for key in ("launches", "device_ms", "host_paced_ms", "bound_ms",
+                       "bound_by", "search_bound_ms", "sample_ms",
+                       "sample_plain_ms", "checked_rows", "rows",
+                       "rule_paths", "max_abs_err")},
+        **{f"distributed_{mode}_main_path_launches": v["launches"]
+           for mode, v in dist["full"].items()},
         "shape": f"rmat{scale} stream probes: the {k3s['launches']} "
                  f"launches of 8 applies of {STREAM_BATCH} mixed updates "
                  f"(launches: the main path's 8 timed applies), each on "
@@ -2820,7 +3320,11 @@ def main() -> int:
                  f"on every row; buffer_65536_*: the {k3b['launches']} "
                  f"launches of one apply of {BIG_BUFFER} at that buffer; "
                  f"full_width_*: the count's plan run level-free, "
-                 f"{n_buckets} buckets, one launch each",
+                 f"{n_buckets} buckets, one launch each; distributed_*: "
+                 f"the hedge rounds of Algorithm 2 at rmat{scale} on "
+                 f"{DIST_P} shards of the card (main_path_launches: the "
+                 f"warm-up run's; the rest: each launch of one more run, "
+                 f"timed, bounded and sampled against the plain version)",
     }, gnn["kernel"], lm["kernel"]]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",

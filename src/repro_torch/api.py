@@ -11,10 +11,11 @@ lane).
 * :class:`TCOptions` — the knobs of the ported routes, validated as in
   the reference; :meth:`TCOptions.plan_view` is the bounded-plan cache
   key.
-* :class:`TriangleEngine` — ``count`` on the local, batch, stream and
-  approx routes, ``count_batch``, ``count_approx``, ``find``, ``stream``
-  and ``serve``, on the
-  engine's device (``"cuda"`` unless the caller asks for ``"cpu"``).  It
+* :class:`TriangleEngine` — ``count`` on the local, batch, distributed,
+  stream and approx routes, ``count_batch``, ``count_distributed_raw``,
+  ``count_approx``, ``find``, ``stream`` and ``serve``, on the engine's
+  device (``"cuda"`` unless the caller asks for ``"cpu"``) and, for the
+  distributed route, its shard group (``mesh=``).  It
   owns the budget grid (``budgets=``), whose top cell ``route_for``
   reads, and the LRU bounded-plan cache.
 * :class:`TriangleReport` — the result contract: ``triangles``, ``k``,
@@ -34,9 +35,16 @@ lane).
     update = session.apply([(+1, 0, 5), (-1, 2, 3)])
     print(update.delta_triangles, session.count().triangles)
 
-The reference's distributed route (Algorithm 2), and with it
-``TCOptions.distributed_timeout_s``, raises ``NotImplementedError``
-naming ROADMAP Queue 1 item 10.
+The distributed route (Algorithm 2, ``core/parallel_tc.py``) runs over
+the engine's shard group (``mesh=``): ``LocalShards(p, "cuda")`` puts p
+logical shards on one card, ``GroupShards`` one shard a rank of a
+``torch.distributed`` group.
+
+    from repro_torch.core.shards import LocalShards
+
+    engine = TriangleEngine(mesh=LocalShards(8, "cuda"))
+    report = engine.count((edges, n_nodes), route="distributed")
+    print(report.triangles, report.per_device, report.comm.phase_bytes())
 """
 from __future__ import annotations
 
@@ -46,14 +54,17 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core import parallel_tc as _ptc
 from repro_torch.core import sequential as _seq
 from repro_torch.core.approx import ApproxEstimate, wedge_sample_estimate
+from repro_torch.core.comm_instrument import CommTally, choose_hedge_mode
 from repro_torch.core.intersect import (
     BACKENDS,
     DEFAULT_BUCKET_WIDTHS,
     IntersectPlan,
     resolve_backend,
 )
+from repro_torch.core.shards import ShardGroup, as_shards
 from repro_torch.device import resolve_device
 from repro_torch.graph.csr import (
     DEFAULT_BUDGET_GRID,
@@ -74,19 +85,13 @@ __all__ = [
     "TriangleReport",
 ]
 
-#: The reference's dispatch targets.  The port answers every route but
-#: ``distributed``, which names the ROADMAP item that ports it.  ``auto``
-#: resolves per call through ``TriangleEngine.route_for``: ``local``
-#: while the request fits the budget grid, ``distributed`` beyond its
-#: top cell.
+#: The reference's dispatch targets, all answered.  ``auto`` resolves
+#: per call through ``TriangleEngine.route_for``: ``local`` while the
+#: request fits the budget grid, ``distributed`` beyond its top cell.
 ROUTES = ("auto", "local", "batch", "distributed", "approx", "stream")
 
-_DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 10 (distributed Algorithm 2)"
-_UNPORTED_ROUTES = {"distributed": _DISTRIBUTED_ITEM}
-
-#: the reference's serving knobs of the distributed route, which the port
-#: does not answer yet: a value other than the default raises
-_ROBUST_KNOBS = {"distributed_timeout_s": None}
+_HEDGE_MODES = ("auto", "allgather", "ring")
+_FRONTIER_DTYPES = ("int32", "uint8")
 
 #: edge-list input: ``(edges int[any, 2], n_nodes)``
 EdgeList = tuple
@@ -95,11 +100,6 @@ EdgeList = tuple
 def _check_route(route: str) -> None:
     if route not in ROUTES:
         raise ValueError(f"route must be one of {ROUTES}; got {route!r}")
-    if route in _UNPORTED_ROUTES:
-        raise NotImplementedError(
-            f"route {route!r} is not ported to repro_torch yet: "
-            f"{_UNPORTED_ROUTES[route]}"
-        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,9 +121,21 @@ class TCOptions:
       cap_h:          cap on the compacted horizontal-query block.
       root:           BFS root.
       compact:        ``False`` = the dense seed reference path.
+
+    Distributed route (Algorithm 2):
+      mode:           hedge exchange — ``"auto"`` picks allgather vs ring
+                      by live-buffer size (``choose_hedge_mode``).
+      slack:          transpose sample-sort capacity slack.
+      d_pad:          hedge-plan pad width (``None`` = graph max degree).
+      hedge_chunk:    hedge plan's probe slice / bucket granularity.
+      frontier_dtype: BFS frontier wire dtype (``"uint8"`` = 4x fewer
+                      BFS bytes a sweep).
+      gather_buffer_limit_bytes: allgather live-buffer bound for
+                      ``mode="auto"``.
+
       route:          default dispatch of ``TriangleEngine.count``:
-                      ``"auto"``, ``"local"``, ``"batch"``, ``"stream"``
-                      or ``"approx"``.
+                      ``"auto"``, ``"local"``, ``"batch"``,
+                      ``"distributed"``, ``"stream"`` or ``"approx"``.
       grid:           :class:`~repro_torch.graph.csr.BudgetGrid` of the
                       batch route and the serving queues (``None`` = the
                       default grid; ``TriangleEngine(budgets=...)``
@@ -143,10 +155,10 @@ class TCOptions:
       approx_samples: wedge samples of the approx route's estimator.
       approx_on_overload: ``False`` skips the approx rung: overload and
                       failed batches shed with a structured rejection.
-      distributed_timeout_s: the reference's wall-clock timeout on the
-                      distributed route; any value but ``None`` raises
-                      ``NotImplementedError`` naming ROADMAP Queue 1
-                      item 10.
+      distributed_timeout_s: wall-clock timeout of one attempt on the
+                      server's distributed route; a timed-out or failed
+                      attempt retries once in ``ring`` mode, then
+                      degrades.
 
     Stream route knobs (``repro_torch.stream``):
       stream_buffer:  mutation buffer capacity — an ``apply`` stream
@@ -175,6 +187,12 @@ class TCOptions:
     cap_h: Optional[int] = None
     root: int = 0
     compact: bool = True
+    mode: str = "auto"
+    slack: float = 4.0
+    d_pad: Optional[int] = None
+    hedge_chunk: Optional[int] = None
+    frontier_dtype: str = "int32"
+    gather_buffer_limit_bytes: int = 64 << 20
     route: str = "auto"
     grid: Optional[BudgetGrid] = None
     deadline_s: Optional[float] = None
@@ -196,19 +214,23 @@ class TCOptions:
             raise ValueError(
                 f"backend must be one of {BACKENDS}; got {self.backend!r}"
             )
+        if self.mode not in _HEDGE_MODES:
+            raise ValueError(
+                f"mode must be one of {_HEDGE_MODES}; got {self.mode!r}"
+            )
+        if self.frontier_dtype not in _FRONTIER_DTYPES:
+            raise ValueError(
+                f"frontier_dtype must be one of {_FRONTIER_DTYPES}; "
+                f"got {self.frontier_dtype!r}"
+            )
         _check_route(self.route)
         if self.grid is not None and not isinstance(self.grid, BudgetGrid):
             raise TypeError(
                 f"grid must be a BudgetGrid or None; "
                 f"got {type(self.grid).__name__}"
             )
-        for name, default in _ROBUST_KNOBS.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"TCOptions.{name} is not ported to repro_torch yet: "
-                    f"{_DISTRIBUTED_ITEM}"
-                )
-        for name in ("query_chunk", "d_max", "cap_h"):
+        for name in ("query_chunk", "d_max", "cap_h", "d_pad",
+                     "hedge_chunk"):
             v = getattr(self, name)
             if v is not None and int(v) <= 0:
                 raise ValueError(f"{name} must be positive; got {v}")
@@ -218,9 +240,14 @@ class TCOptions:
             )
         if self.row_mult <= 0:
             raise ValueError(f"row_mult must be positive; got {self.row_mult}")
-        if self.deadline_s is not None and float(self.deadline_s) <= 0:
-            raise ValueError(
-                f"deadline_s must be positive; got {self.deadline_s}")
+        if self.slack <= 0:
+            raise ValueError(f"slack must be positive; got {self.slack}")
+        if self.gather_buffer_limit_bytes <= 0:
+            raise ValueError("gather_buffer_limit_bytes must be positive")
+        for name in ("deadline_s", "distributed_timeout_s"):
+            v = getattr(self, name)
+            if v is not None and float(v) <= 0:
+                raise ValueError(f"{name} must be positive; got {v}")
         if self.admission_tokens is not None and int(self.admission_tokens) <= 0:
             raise ValueError(
                 f"admission_tokens must be positive; got {self.admission_tokens}"
@@ -270,7 +297,8 @@ class Overflow:
     """Every way a count can be less than exact, normalized into one
     struct.  ``h``: horizontal queries dropped (``cap_h``), or a width
     clamp (``d_max``) truncated candidate lists.  ``transpose`` /
-    ``hedge`` belong to the distributed route and stay False here."""
+    ``hedge``: the distributed route's transpose chunk or horizontal
+    buffer (or a hedge bucket's width) overflowed."""
 
     h: bool = False
     transpose: bool = False
@@ -310,7 +338,13 @@ class TriangleReport:
     "wedge-sample/<k>"``) carry the estimate in ``approx`` and its
     rounded point estimate in ``triangles``; ``k`` is ``NaN``,
     ``c1``/``c2`` and ``levels`` are ``None``, ``num_horizontal`` is 0,
-    and there is no per-vertex attribution."""
+    and there is no per-vertex attribution.
+
+    Distributed-route reports (``plan_id="hedge/{mode}/p{p}"``) have
+    ``c1``/``c2`` and ``levels`` ``None`` (Algorithm 2 has no apex-level
+    split), ``comm`` (the run's
+    :class:`~repro_torch.core.comm_instrument.CommTally`) and
+    ``per_device`` (each shard's t_i, int32[p])."""
 
     triangles: int
     k: float
@@ -327,6 +361,8 @@ class TriangleReport:
     per_vertex: Optional[np.ndarray] = None
     degrees: Optional[np.ndarray] = None
     stream: Optional[StreamStats] = None
+    comm: Optional[CommTally] = None
+    per_device: Optional[np.ndarray] = None
 
     def _require_per_vertex(self) -> None:
         if self.per_vertex is None or self.degrees is None:
@@ -403,13 +439,19 @@ class TriangleEngine:
         A CUDA device on a host without a card raises here.
       plan_cache_capacity: LRU bound of the engine's bounded-plan cache
         (``None`` = unbounded).
+      mesh: the distributed route's shard group
+        (:class:`~repro_torch.core.shards.LocalShards` or
+        :class:`~repro_torch.core.shards.GroupShards`) on the engine's
+        device type; ``None`` is one shard on the engine's device (p = 1,
+        one H100).
     """
 
     def __init__(self, options: Optional[TCOptions] = None, *,
                  budgets: Optional[BudgetGrid] = None,
                  device: Union[str, torch.device] = "cuda",
                  plan_cache_capacity: Optional[int] = (
-                     _seq.DEFAULT_PLAN_CACHE_CAPACITY)):
+                     _seq.DEFAULT_PLAN_CACHE_CAPACITY),
+                 mesh: Optional[ShardGroup] = None):
         if options is not None and not isinstance(options, TCOptions):
             raise TypeError(
                 f"options must be a TCOptions, got {type(options).__name__}"
@@ -420,6 +462,7 @@ class TriangleEngine:
         self._plan_cache = _seq.PlanCache(plan_cache_capacity)
         self._plan_stats = {"hits": 0, "misses": 0}
         self._meta_ceiling: dict = {}  # ShapeBudget -> BatchDegreeMeta
+        self.mesh = as_shards(mesh, self.device)
 
     def _graph(self, graph_or_edges, clock=None) -> Graph:
         if isinstance(graph_or_edges, Graph):
@@ -442,8 +485,8 @@ class TriangleEngine:
                   route: Optional[str] = None) -> str:
         """Resolve ``auto`` for a request of this size: ``local`` while
         the request's grid cell fits the budget grid's top cell,
-        ``distributed`` beyond it (the reference's one dispatch policy;
-        the port's distributed route is ROADMAP Queue 1 item 10)."""
+        ``distributed`` beyond it (the reference's one dispatch
+        policy)."""
         r = route or self.options.route
         if r not in ROUTES:
             raise ValueError(f"route must be one of {ROUTES}; got {r!r}")
@@ -522,6 +565,36 @@ class TriangleEngine:
         return _seq._triangle_count_batch(gb, options or self.options,
                                           plan=plan, clock=clock)
 
+    def count_distributed_raw(self, graph_or_edges, *,
+                              mesh: Optional[ShardGroup] = None,
+                              options: Optional[TCOptions] = None,
+                              clock: Optional[_seq.StageClock] = None,
+                              ) -> _ptc.ParallelTCResult:
+        """Distributed (Algorithm 2) count returning the raw
+        ``ParallelTCResult``, over ``mesh`` (default: the engine's shard
+        group).  Resolves ``mode="auto"`` here: the hedge exchange is
+        routing policy, and policy lives in the engine.  ``clock``
+        records the stages ``shard``, ``bfs``, ``transpose``, ``hedge``
+        and ``reduce``."""
+        o = options or self.options
+        shards = self.mesh if mesh is None else as_shards(mesh, self.device)
+        g = self._graph(graph_or_edges, clock)
+        o = self._resolve_hedge_mode(g, shards, o)
+        return _ptc._parallel_triangle_count(g, shards, options=o,
+                                             clock=clock)
+
+    def _resolve_hedge_mode(self, g: Graph, shards: ShardGroup,
+                            o: TCOptions) -> TCOptions:
+        """``mode="auto"`` -> allgather vs ring by the live gathered
+        buffer's size (``choose_hedge_mode``)."""
+        if o.mode != "auto":
+            return o
+        return dataclasses.replace(o, mode=choose_hedge_mode(
+            int(g.n_edges_dir.item()), shards.p,
+            gather_buffer_limit_bytes=o.gather_buffer_limit_bytes,
+            slack=o.slack,
+        ))
+
     # ------------------------------------------------------ public API
     def count(
         self,
@@ -537,7 +610,8 @@ class TriangleEngine:
         ``local`` runs the graph at its own shape; ``batch`` rounds it
         onto the engine's budget grid and runs the cached-plan batch
         path as one lane (its ``levels`` keep the budget's length, its
-        ``per_vertex``/``degrees`` the graph's); ``stream`` opens a
+        ``per_vertex``/``degrees`` the graph's); ``distributed`` runs
+        Algorithm 2 over the engine's shard group; ``stream`` opens a
         one-shot session (:meth:`stream`), whose opening refresh is the
         full local count, and answers its report; ``approx`` answers
         :meth:`count_approx` at seed 0.  ``auto`` goes through
@@ -573,7 +647,6 @@ class TriangleEngine:
             elif edges.size:
                 m_und = edges.reshape(-1, 2).shape[0]
         r = self.route_for(n_nodes, m_und, route=route or o.route)
-        _check_route(r)
         if r == "batch" and (o.d_max is not None or o.cap_h is not None):
             raise ValueError(
                 "route='batch' uses cached bounded plans; d_max/cap_h "
@@ -581,15 +654,16 @@ class TriangleEngine:
             )
         backend = resolve_backend(o.backend, self.device)
         if n_nodes == 0:
-            exact = r != "approx"  # an estimate has no split, no levels
+            # an estimate and Algorithm 2 have no split and no levels
+            split = r not in ("distributed", "approx")
             empty_pv = (np.zeros((0,), np.int32)
-                        if o.per_vertex and exact else None)
+                        if o.per_vertex and r != "approx" else None)
             return TriangleReport(
                 triangles=0, k=0.0, num_horizontal=0,
-                c1=0 if exact else None, c2=0 if exact else None,
+                c1=0 if split else None, c2=0 if split else None,
                 overflow=Overflow(), route=r, backend=backend,
                 plan_id="empty", options=o,
-                levels=np.zeros((0,), np.int32) if exact else None,
+                levels=np.zeros((0,), np.int32) if split else None,
                 per_vertex=empty_pv, degrees=empty_pv,
             )
         if r == "approx":
@@ -617,6 +691,12 @@ class TriangleEngine:
                                       plan_id=_plan_id(plan, "bounded"),
                                       deg=gb.deg[0], n=n_nodes)
         g = self._graph((edges, n_nodes) if g is None else g, clock)
+        if r == "distributed":
+            # resolve the hedge mode BEFORE the report, so its provenance
+            # (options.mode, plan_id) names the mode that ran
+            o = self._resolve_hedge_mode(g, self.mesh, o)
+            res = self.count_distributed_raw(g, options=o, clock=clock)
+            return self._report_distributed(res, o, self.mesh, deg=g.deg)
         res = _seq._triangle_count(g, o, clock=clock)
         return self._report_local(res, o, route="local",
                                   plan_id=f"exact/{backend}", deg=g.deg)
@@ -805,6 +885,32 @@ class TriangleEngine:
             route=route, backend=resolve_backend(o.backend, self.device),
             plan_id=plan_id, options=o, levels=res.levels.cpu().numpy(),
             per_vertex=pv, degrees=degs,
+        )
+
+    def _report_distributed(self, res: _ptc.ParallelTCResult, o: TCOptions,
+                            shards: ShardGroup, *,
+                            deg: torch.Tensor) -> TriangleReport:
+        """The report of one Algorithm 2 result over ``shards``:
+        ``c1``/``c2`` ``None`` (no apex-level split), overflow
+        ``transpose``/``hedge``, the backend the shard group's device
+        resolves to."""
+        ints = torch.stack([
+            res.triangles.to(torch.int64), res.num_horizontal.to(torch.int64),
+            res.transpose_overflow.to(torch.int64),
+            res.hedge_overflow.to(torch.int64)]).cpu().numpy()
+        tri, nh, t_ovf, h_ovf = (int(x) for x in ints)
+        pd = res.per_device.cpu().numpy()
+        pv = degs = None
+        if res.per_vertex is not None:
+            pv, degs = res.per_vertex.cpu().numpy(), deg.cpu().numpy()
+        return TriangleReport(
+            triangles=tri, k=float(res.k.item()), num_horizontal=nh,
+            c1=None, c2=None,
+            overflow=Overflow(transpose=bool(t_ovf), hedge=bool(h_ovf)),
+            route="distributed",
+            backend=resolve_backend(o.backend, shards.device),
+            plan_id=f"hedge/{o.mode}/p{pd.shape[0]}", options=o,
+            comm=res.comm, per_device=pd, per_vertex=pv, degrees=degs,
         )
 
     #: the reference's ``find_raw`` returns device arrays where its

@@ -22,6 +22,8 @@ its diameters.
 The same loop runs a batch's lanes at once (:func:`bfs_levels_batch`):
 every tensor gains a leading lane axis, each gather and cumsum runs
 along the last one, and one host sync per sweep serves all lanes.
+:func:`bfs_levels_sharded` runs it over Algorithm 2's edge shards, one
+``pmax`` of the frontier a sweep.
 """
 from __future__ import annotations
 
@@ -131,3 +133,77 @@ def bfs_levels(
     return bfs_levels_iters(
         src, dst, n_nodes, root, row_offsets=row_offsets
     )[0]
+
+
+def bfs_levels_sharded(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    n_nodes: int,
+    root: int = 0,
+    *,
+    shards,
+    frontier_dtype: str = "int32",
+) -> torch.Tensor:
+    """Level of every vertex, int32[n_nodes] (replicated), from the
+    shards' edge lists ``int32[local, cap]`` (``graph/partition.py:
+    shard_edges``: each shard a run of CSR rows, sorted by ``(src,
+    dst)``, sentinel-padded with ``n_nodes``) over a shard group
+    (``core/shards.py``) — counterpart of ``repro.core.bfs.bfs_levels``
+    with ``axis_name``.
+
+    The reference's rules, levels bit for bit: edge-less vertices seeded
+    at level 0 (one int32 ``pmax`` of the has-edge vector), then ``root``;
+    each sweep is one ``pmax`` of the reachability vector in
+    ``frontier_dtype`` (``"uint8"`` changes the exchange's wire width
+    and its tally, not the levels); the smallest unvisited vertex is
+    reseeded when the frontier dies.  A shard reads its own part of the
+    frontier with the CSR cumsum of ``bfs_levels_iters`` over its local
+    row offsets (v reached when a neighbour in v's slice of this shard
+    is on the frontier); the graph is symmetric, so the ``pmax`` over
+    shards is the reference's scatter over in-edges.  The local shards'
+    slots are scanned as ONE flat cumsum, each shard's slices read at
+    its own offset (a scan along a short leading axis of long rows is
+    PyTorch's slow innermost-dimension scan).  One host sync a sweep, as
+    on the local route."""
+    dev = dst.device
+    n = int(n_nodes)
+    local, cap = dst.shape
+    dst_c = dst.clamp(0, n)
+    ids = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    off = torch.searchsorted(src.clamp(0, n).contiguous(),
+                             ids.expand(local, -1).contiguous(),
+                             out_int32=True)
+    has_edge = shards.pmax((off[:, 1:] > off[:, :-1]).to(torch.int32))
+    # each shard's row slices in the flat slot numbering
+    base = torch.arange(local, dtype=torch.int64, device=dev)[:, None] * cap
+    lo, hi = off[:, :-1] + base, off[:, 1:] + base
+    scan = torch.int32 if local * cap < 2**31 else torch.int64
+    level = torch.where(
+        has_edge > 0,
+        torch.tensor(UNVISITED, dtype=torch.int32, device=dev),
+        torch.tensor(0, dtype=torch.int32, device=dev),
+    )
+    level[root] = 0
+    wire = getattr(torch, frontier_dtype)
+    unv_pad = torch.full((1,), UNVISITED, dtype=torch.int32, device=dev)
+    zero1 = torch.zeros((1,), dtype=scan, device=dev)
+    cur = 0
+    progressed = True
+    with shards.bfs_loop():
+        while progressed and cur < n + 1:
+            lev_ext = torch.cat([level, unv_pad])
+            active = (lev_ext[dst_c] == cur).reshape(-1)
+            csum = torch.cat([zero1, torch.cumsum(active, 0, dtype=scan)])
+            mine = (csum[hi] - csum[lo]) > 0
+            reached = shards.pmax(mine.to(wire))
+            newly = (level == UNVISITED) & (reached > 0)
+            any_new = newly.any()
+            level = torch.where(newly, cur + 1, level)
+            still = level == UNVISITED
+            need_seed = ~any_new & still.any()
+            seed = torch.argmax(still.to(torch.int32))
+            level = torch.where(need_seed & (ids[:n] == seed), cur + 1,
+                                level)
+            progressed = bool((any_new | need_seed).item())
+            cur += 1
+    return level

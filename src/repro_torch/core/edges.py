@@ -10,7 +10,6 @@ sums run along the last axis, lane by lane.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from repro_torch.core.bfs import UNVISITED, _take
@@ -81,34 +80,40 @@ def horizontal_queries(g: Graph, level: torch.Tensor, *, order: str = "asc"):
     return qu, qw, d_small, d_large, n_h
 
 
-def mindeg_per_slot(src, dst, deg):
-    """Host-side ``(und, mind)`` per edge slot (numpy): ``und`` marks the
-    undirected (``src < dst``) slots — sentinel pads have ``src == dst``
-    and drop out — and ``mind`` their smaller endpoint's degree (0
-    elsewhere).  Any slot layout; the shape is kept.  Every bound the
-    bucket planners read counts ``mind > w`` strictly: a query with
-    ``d_small == w`` fits a ``w``-wide bucket."""
-    und = src < dst
-    if deg.shape[0] == 0:
-        return und, np.zeros_like(src)
+def mindeg_slots(src: torch.Tensor, dst: torch.Tensor,
+                 deg: torch.Tensor) -> torch.Tensor:
+    """Each undirected (``src < dst``) slot's smaller endpoint degree, 0
+    elsewhere (sentinel pads have ``src == dst`` and drop out), any slot
+    layout, on the edge tensors' device.  Every bound the bucket
+    planners read counts ``mind > w`` strictly: a query with ``d_small
+    == w`` fits a ``w``-wide bucket."""
     hi = deg.shape[0] - 1
-    mind = np.where(
-        und,
-        np.minimum(deg[np.clip(src, 0, hi)], deg[np.clip(dst, 0, hi)]),
-        0,
-    )
-    return und, mind
+    if hi < 0:
+        return torch.zeros_like(src)
+    return torch.where(src < dst, torch.minimum(deg[src.clamp(0, hi)],
+                                                deg[dst.clamp(0, hi)]), 0)
+
+
+def exceed_counts(mind: torch.Tensor, widths, *, per_row: bool = False
+                  ) -> tuple[int, ...]:
+    """For each width ``w``, how many slots of ``mind`` exceed it (the
+    largest row's count with ``per_row``), read back in one copy."""
+    if not len(widths):
+        return ()
+    counts = torch.stack([
+        ((mind > int(w)).sum(-1).amax() if per_row else (mind > int(w)).sum())
+        for w in widths])
+    return tuple(int(c) for c in counts.tolist())
 
 
 def mindeg_exceedance(g: Graph, widths) -> tuple[int, ...]:
     """For each width ``w``, the number of undirected edges whose
-    smaller endpoint has degree > ``w`` (one read-back of the graph).
-    The horizontal queries of any BFS are a subset of the undirected
-    edges, so these counts bound every bucket's occupancy whatever the
-    root — what ``plan_buckets_bounded`` is laid out from."""
-    _, mind = mindeg_per_slot(g.src.cpu().numpy(), g.dst.cpu().numpy(),
-                              g.deg.cpu().numpy())
-    return tuple(int((mind > int(w)).sum()) for w in widths)
+    smaller endpoint has degree > ``w`` (computed on the graph's device,
+    the counts read back once).  The horizontal queries of any BFS are a
+    subset of the undirected edges, so these counts bound every bucket's
+    occupancy whatever the root — what ``plan_buckets_bounded`` is laid
+    out from."""
+    return exceed_counts(mindeg_slots(g.src, g.dst, g.deg), widths)
 
 
 def classify_edges(src, dst, level, n_nodes):

@@ -3,15 +3,19 @@
 Counterpart of ``repro.core.intersect`` for the exact local count, its
 per-vertex credit and triangle finding:
 
-* **Adjacency view.**  ``CsrAdjacency`` reads a ``Graph``'s CSR arrays
-  and exposes ``bounds(v) -> (starts, lens)`` into one flat sorted array.
+* **Adjacency views.**  ``CsrAdjacency`` reads a ``Graph``'s CSR arrays
+  and ``PairListAdjacency`` Algorithm 2's lex-sorted ``(owner, value)``
+  pairs; each exposes ``bounds(v) -> (starts, lens)`` into one flat
+  sorted array.
 * **Plans.**  ``plan_buckets`` (exact, from a degree profile) and
   ``plan_buckets_bounded`` (from upper bounds known before the BFS, the
   batch route's cached plans) — host numpy, verbatim from the
   reference, so the plan work counts match — lay out contiguous
   query-row buckets, each with a row count and candidate/target widths.
 * **Execution.**  ``run_plan`` probes each bucket — whole, or in
-  ``query_chunk`` slices — through one of two backends:
+  ``query_chunk`` slices — through one of two backends, after sorting
+  the block by descending min-degree when the plan asks
+  (``sort_queries``, Algorithm 2's blocks):
 
   - ``"cuda"``: the Hopper kernel K1 (``kernels/intersect``), which reads
     the candidate and target slices straight from the CSR array, clamped
@@ -33,7 +37,7 @@ per-vertex credit and triangle finding:
   stay per lane; only the probe sees one index space.
 
 * **Level-free probes.**  Without ``level`` (the stream route's batch
-  deltas) every hit counts once: ``c1`` is the raw hit total and ``c2``
+  deltas, Algorithm 2's hedge rounds) every hit counts once: ``c1`` is the raw hit total and ``c2``
   is 0.  The ``cuda`` backend counts with K3, the Hopper port of
   ``intersect_pallas_count``.
 
@@ -93,14 +97,6 @@ BACKENDS = ("auto", "torch", "cuda")
 #: hit, so this bounds a chunk's memory to a few GB.
 HIT_CELL_BUDGET = 1 << 28
 
-#: the item that ports the in-run query sort ``sort_queries`` asks for
-_SORT_QUERIES_ITEM = (
-    "IntersectPlan(sort_queries=True) sorts the query block in the run, "
-    "which only Algorithm 2 needs: ROADMAP Queue 1 item 10 (distributed "
-    "Algorithm 2)"
-)
-
-
 # --------------------------------------------------------------- views
 
 
@@ -134,15 +130,34 @@ class CsrAdjacency:
         return self.row_offsets[vc], torch.where(v < n, deg_ext[vc], 0)
 
 
+@dataclasses.dataclass(frozen=True)
 class PairListAdjacency:
-    """The reference's adjacency over Algorithm 2's lex-sorted ``(owner,
-    value)`` pair lists, which the local and batch routes do not use:
-    ROADMAP Queue 1 item 10 (distributed Algorithm 2)."""
+    """Adjacency view over lex-sorted ``(owner, value)`` pairs — the shard
+    Algorithm 2 receives from its all-to-all transpose
+    (``core/sampling.py:repartition_by_value``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PairListAdjacency is not ported to repro_torch yet: ROADMAP "
-            "Queue 1 item 10 (distributed Algorithm 2)")
+    ``owners`` is sorted ascending (padding owners sort last: the
+    sentinel exceeds every real vertex id) and ``values`` is co-sorted,
+    so the sublist of vertex ``v`` is a contiguous, sorted slice found by
+    two ``searchsorted`` probes.  ``flat`` is ``values``: the kernels
+    read it as they read a CSR array."""
+
+    owners: torch.Tensor
+    values: torch.Tensor
+    n_nodes: int
+
+    @property
+    def flat(self) -> torch.Tensor:
+        return self.values
+
+    def bounds(self, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(starts, lens)`` of each vertex's sublist; any ``v >=
+        n_nodes`` (sentinel or transpose padding) gets length 0."""
+        owners = self.owners.contiguous()
+        vv = v.contiguous()
+        lo = torch.searchsorted(owners, vv, right=False, out_int32=True)
+        hi = torch.searchsorted(owners, vv, right=True, out_int32=True)
+        return lo, torch.where(v < self.n_nodes, hi - lo, 0)
 
 
 # --------------------------------------------------------------- plans
@@ -171,7 +186,7 @@ class IntersectPlan:
     the host once (``plan_buckets`` / ``plan_buckets_bounded``) and
     executed by ``run_plan``.  ``sort_queries`` asks the run to sort the
     block by descending min-degree first (Algorithm 2's blocks, which
-    the host could not sort); ``run_plan`` refuses it until item 10."""
+    the host could not sort)."""
 
     buckets: tuple[PlanBucket, ...]
     backend: str = "torch"
@@ -552,10 +567,13 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
 def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
     """Yield ``(bucket, base, qu, qw, bounds)`` for every slice
     ``run_plan`` probes, in its order: each bucket whole, or in
-    ``query_chunk`` slices.  ``qu``/``qw`` are padded to the plan's
-    total rows with the sentinel first.  Given ``[B, rows]`` blocks (a
-    lane view's), each slice is the B lanes' rows one after another,
-    flattened."""
+    ``query_chunk`` slices (the last slice of a bucket may be shorter;
+    the sums do not depend on the slicing).  ``qu``/``qw`` are padded to
+    the plan's total rows with the sentinel first and, for a
+    ``sort_queries`` plan, sorted by descending min-degree.  Given
+    ``[B, rows]`` blocks (a lane view's), each slice is the B lanes'
+    rows one after another, flattened, and each lane is sorted on its
+    own."""
     n = adj.n_nodes
     need = plan.total_rows
     if qu.shape[-1] < need:
@@ -566,15 +584,18 @@ def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
     # endpoint bounds once per block, then sliced per bucket
     su, lu = adj.bounds(qu)
     sw, lw = adj.bounds(qw)
+    if plan.sort_queries:
+        # descending min-degree, invalid rows last; stable, as the
+        # reference's argsort is, so credit and overflow see its order
+        valid = (qu < n) & (qw < n)
+        key = torch.where(valid, torch.minimum(lu, lw), -1)
+        order = torch.sort(-key, dim=-1, stable=True).indices
+        qu, qw, su, lu, sw, lw = (x.gather(-1, order)
+                                  for x in (qu, qw, su, lu, sw, lw))
     for b in plan.buckets:
         chunk = min(plan.query_chunk or b.rows, b.rows)
-        if b.rows % chunk:
-            raise ValueError(
-                f"bucket rows={b.rows} not a multiple of "
-                f"query_chunk={chunk} (plan the rows with row_mult=chunk)"
-            )
         for base in range(0, b.rows, chunk):
-            lo, hi = b.start + base, b.start + base + chunk
+            lo, hi = b.start + base, b.start + min(base + chunk, b.rows)
             qu_c, qw_c, *bounds = (x[..., lo:hi].reshape(-1)
                                    for x in (qu, qw, su, lu, sw, lw))
             yield b, base, qu_c, qw_c, tuple(bounds)
@@ -583,16 +604,20 @@ def bucket_slices(adj: CsrAdjacency, qu, qw, plan: IntersectPlan):
 def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
              level: Optional[torch.Tensor], per_vertex: bool = False,
              clock=None) -> EngineCounts:
-    """Execute a bucket plan against an adjacency view.
+    """Execute a bucket plan against an adjacency view (a
+    :class:`CsrAdjacency`, a :class:`PairListAdjacency`, or a lane or
+    shard view's).
 
     ``qu``/``qw`` are the query endpoints (entries ``>= adj.n_nodes`` are
     sentinels and never counted).  Coverage is the planner's contract:
     rows beyond ``plan.total_rows`` are not probed (that is how the
     sequential pipeline skips the non-horizontal tail and how ``cap_h``
-    truncates).  With ``level``, hits are split into the paper's ``(c1,
-    c2)`` by apex level; with ``level=None`` every hit counts once into
-    ``c1`` and ``c2`` is 0 (the stream route's level-free probes).  Sums
-    are int32, as in the reference.
+    truncates).  A ``sort_queries`` plan sorts the block by descending
+    min-degree first (:func:`bucket_slices`).  With ``level``, hits are
+    split into the paper's ``(c1, c2)`` by apex level; with
+    ``level=None`` every hit counts once into ``c1`` and ``c2`` is 0 (the
+    stream route's probes and Algorithm 2's hedge rounds, after N-hat's
+    dedup).  Sums are int32, as in the reference.
 
     Given ``[B, rows]`` query blocks in a :class:`LaneView`'s ids (and
     its levels), the plan covers every lane: each bucket slice is one
@@ -606,8 +631,6 @@ def run_plan(adj: CsrAdjacency, qu, qw, plan: IntersectPlan, *,
     without it every hit credits all three corners).  A ``clock``
     (``core.sequential.StageClock``) splits that path's stages.
     """
-    if plan.sort_queries:
-        raise NotImplementedError(_SORT_QUERIES_ITEM)
     dev = qu.device
     n = adj.n_nodes
     lanes = qu.shape[0] if qu.dim() == 2 else None

@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -38,6 +39,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: one build or load at a time: the server's distributed attempts run on
+#: worker threads, and two builds of one source would share a temp file
+_LIB_LOCK = threading.Lock()
 
 #: name -> (seconds, nvcc's stderr: register / shared-memory report)
 BUILD_LOG: dict[str, tuple[float, str]] = {}
@@ -96,9 +100,12 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of source ``name``, built if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        out = _target(name)
-        if not out.exists():
-            _build(name, out)
-        lib = ctypes.CDLL(str(out))
-        _LIBS[name] = lib
+        with _LIB_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                out = _target(name)
+                if not out.exists():
+                    _build(name, out)
+                lib = ctypes.CDLL(str(out))
+                _LIBS[name] = lib
     return lib

@@ -119,15 +119,19 @@ def split_counts(flat, s_s, l_s, s_l, l_search, level, lev_u, *,
 def found_counts(flat, s_s, l_s, s_l, l_search, *, d_cand: int,
                  num_steps: int):
     """Per-row hit count int32[Q]: the row sums of :func:`_found_chunks`
-    (no level split) — the reference's jnp probe without ``level``."""
+    (no level split) — the reference's jnp probe without ``level``.  Only
+    the rows with candidates are probed (a row without any counts 0):
+    Algorithm 2's hedge blocks are mostly padding."""
     q = s_s.shape[0]
     cnt = torch.zeros(q, dtype=torch.int32, device=s_s.device)
     if q == 0 or d_cand <= 0:
         return cnt
+    live = (l_s > 0).nonzero().squeeze(1)
+    s_s, l_s, s_l, l_search = (x[live] for x in (s_s, l_s, s_l, l_search))
     for r0, r1, _, _, found in _found_chunks(
         flat, s_s, l_s, s_l, l_search, d_cand=d_cand, num_steps=num_steps
     ):
-        cnt[r0:r1] = found.sum(dim=1, dtype=torch.int32)
+        cnt[live[r0:r1]] = found.sum(dim=1, dtype=torch.int32)
     return cnt
 
 

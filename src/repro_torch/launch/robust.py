@@ -11,11 +11,9 @@ error is not degraded: it propagates (``serve_tc``'s module docstring).
 
 * :class:`FaultPlan` — a frozen schedule keyed on trace ordinals and
   batch ordinals (malformed requests, oversized graphs, stalls and
-  injected failures at batch dispatch).  The same plan and the same
-  trace give the same faults, so a chaos failure reproduces.  Its
-  distributed classes (``fail_distributed_*``, ``stall_distributed_*``)
-  and the ``before_distributed`` hook wait for the distributed route,
-  ROADMAP Queue 1 item 10: a server refuses a plan that sets them.
+  injected failures at batch dispatch, stalls and failures of the
+  distributed route's attempts).  The same plan and the same trace give
+  the same faults, so a chaos failure reproduces.
   :class:`CountingFaultPlan` records the faults it injects, so a driver
   holds ``failed_batches`` to them.
 * :func:`synth_requests` / :func:`timed_trace` — the open-loop trace:
@@ -93,12 +91,18 @@ class FaultPlan:
                         does not advance on a failed flush, so from
                         ordinal ``fail_batch_every - 1`` on every flush
                         fails, as in the reference.
-      fail_distributed_every / fail_distributed_attempts /
-      stall_distributed_every / distributed_stall_s: the reference's
-                        faults of the distributed route (ROADMAP Queue 1
-                        item 10); :meth:`before_distributed` keeps their
-                        rule, and a server refuses a plan that sets
-                        them.
+      fail_distributed_every / fail_distributed_attempts: raise
+                        :class:`FaultInjected` in the first
+                        ``fail_distributed_attempts`` attempts of every
+                        ``fail_distributed_every``-th request id on the
+                        distributed route (the server calls
+                        :meth:`before_distributed` per attempt): one
+                        attempt fails and the ring retry answers; two
+                        fail and the request degrades.
+      stall_distributed_every / distributed_stall_s: sleep before each
+                        attempt of those request ids (with
+                        ``distributed_timeout_s`` below the stall, each
+                        attempt times out and is abandoned).
     """
 
     malformed_every: int = 0
@@ -132,9 +136,7 @@ class FaultPlan:
             raise FaultInjected(f"injected device failure @ batch {batch_idx}")
 
     def before_distributed(self, rid: int, attempt: int) -> None:
-        """The reference's hook per distributed attempt; nothing calls it
-        until the distributed route is ported (ROADMAP Queue 1 item
-        10)."""
+        """TriangleServer hook: called per distributed attempt."""
         if _hits(self.stall_distributed_every, rid):
             time.sleep(self.distributed_stall_s)
         if (_hits(self.fail_distributed_every, rid)

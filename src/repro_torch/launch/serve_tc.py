@@ -38,15 +38,24 @@ Robustness (DESIGN.md §7), governed by the engine's ``TCOptions``:
   ``submit``/``pump``/``drain``, so host answers never stand in for a
   broken kernel.  (The reference degrades every exception.)
 
+* **over-budget requests** — over a capped ``BudgetGrid``, a request
+  past the top cell is answered on the distributed route (Algorithm 2
+  over the engine's shard group, K3 on the card) at its own shape.  With
+  ``options.distributed_timeout_s`` an attempt runs on a worker thread
+  (on the card, on a CUDA stream of its own) under a wall-clock timeout;
+  a timed-out or injected-failed attempt retries once in ``ring`` mode
+  at an 8x smaller gather buffer, and a second failure degrades through
+  the ladder.  A timed-out attempt is abandoned (counted), its thread
+  left to finish: it holds its own graph reference and stream, so the
+  retry shares no buffer with it.
+
 Every submitted request id receives exactly one result — exact
-(:class:`TriangleAnalytics`, ``route="batched"``), approx, or a
-:class:`RejectedRequest` — and ``submit``/``drain`` never raise on bad
-input or an injected failure (``strict=True`` raises on malformed
-input).
-Not ported, each raising ``NotImplementedError``: a grid with a top cell
-whose over-budget requests go to Algorithm 2, with the distributed
-timeout, retry and the plan's distributed faults (ROADMAP Queue 1 item
-10); pre-warming from a tuned profile and trace recording (item 11).
+(:class:`TriangleAnalytics`, ``route="batched"`` or ``"distributed"``),
+approx, or a :class:`RejectedRequest` — and ``submit``/``drain`` never
+raise on bad input or an injected failure (``strict=True`` raises on
+malformed input).
+Not ported, each raising ``NotImplementedError``: pre-warming from a
+tuned profile and trace recording (ROADMAP Queue 1 item 11).
 
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke --device cpu
@@ -59,6 +68,7 @@ only when ``--out`` names one.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -78,7 +88,6 @@ from repro_torch.graph.csr import (
     from_edges_batch,
 )
 
-_DISTRIBUTED_ITEM = "ROADMAP Queue 1 item 10 (distributed Algorithm 2)"
 _TUNE_ITEM = "ROADMAP Queue 1 item 11 (the autotuner)"
 
 
@@ -86,8 +95,11 @@ _TUNE_ITEM = "ROADMAP Queue 1 item 11 (the autotuner)"
 class TriangleAnalytics:
     """One request's response: the paper's per-graph analytics and the
     latency from submit to the answer.  ``route`` is ``"batched"`` (a
-    lane of a batch) or ``"approx"`` (the degraded lane: ``approx`` is
-    the :class:`~repro_torch.core.approx.ApproxEstimate`, ``report`` the
+    lane of a batch), ``"distributed"`` (an over-budget graph answered
+    by Algorithm 2: ``c1``/``c2`` ``None``, ``report`` the full report,
+    ``budget`` the graph's own shape) or ``"approx"`` (the degraded
+    lane: ``approx`` is the
+    :class:`~repro_torch.core.approx.ApproxEstimate`, ``report`` the
     full report, ``c1``/``c2`` ``None``, ``k`` ``NaN``).  ``overflow``
     is the lane's width-overflow flag: False whenever the bounded plan's
     bounds were true upper bounds; True marks the count invalid, never
@@ -191,11 +203,6 @@ class TriangleServer:
     def __init__(self, engine, *, batch_size: int = 8, max_inflight: int = 8,
                  strict: bool = False, faults=None, prewarm: bool = False,
                  recorder=None):
-        if (getattr(faults, "fail_distributed_every", 0)
-                or getattr(faults, "stall_distributed_every", 0)):
-            raise NotImplementedError(
-                f"the distributed fault classes need the distributed "
-                f"route, not ported to repro_torch yet: {_DISTRIBUTED_ITEM}")
         if prewarm or recorder is not None:
             raise NotImplementedError(
                 f"prewarm and recorder are not ported to repro_torch yet: "
@@ -206,11 +213,6 @@ class TriangleServer:
                 "serving runs cached bounded plans; d_max/cap_h only "
                 "apply to the local route's exact planning"
             )
-        if engine.budgets.capped:
-            raise NotImplementedError(
-                f"a server over a capped BudgetGrid sends its over-budget "
-                f"requests to distributed Algorithm 2, not ported to "
-                f"repro_torch yet: {_DISTRIBUTED_ITEM}")
         if int(batch_size) <= 0 or int(max_inflight) < 0:
             raise ValueError(f"batch_size must be positive and max_inflight "
                              f">= 0; got {batch_size}, {max_inflight}")
@@ -224,6 +226,12 @@ class TriangleServer:
         self._next_id = 0
         self.results: list[ServeResult] = []
         self.batches_run = 0
+        self.distributed_requests = 0
+        self.distributed_timeouts = 0
+        self.distributed_retries = 0
+        #: distributed attempts abandoned after their timeout; each one's
+        #: thread runs on to its end (a running count is not cancelled)
+        self.abandoned_distributed = 0
         #: pending + in-flight requests per budget cell (the admission
         #: ledger)
         self._tokens: dict[ShapeBudget, int] = defaultdict(int)
@@ -284,6 +292,12 @@ class TriangleServer:
         o = self.engine.options
         rel = deadline_s if deadline_s is not None else o.deadline_s
         deadline = t_submit + float(rel) if rel is not None else None
+        # the server is the batch route: its one dispatch decision is the
+        # batch queue or, past a capped grid's top cell, Algorithm 2
+        if self.engine.route_for(n_nodes, edges.shape[0],
+                                 route="auto") == "distributed":
+            self._serve_distributed(rid, edges, n_nodes, t_submit)
+            return rid
         budget = self.grid.budget_for(n_nodes, edges.shape[0])
         if (o.admission_tokens is not None
                 and self._tokens[budget] >= o.admission_tokens):
@@ -401,6 +415,87 @@ class TriangleServer:
         return sess.stats()
 
     # ----------------------------------------------------------- batches
+    def _serve_distributed(self, rid: int, edges: np.ndarray, n_nodes: int,
+                           t_submit: float) -> None:
+        """Answer one over-budget request on the engine's distributed
+        route, at the graph's own shape: the response has ``c1``/``c2``
+        ``None`` and the full report.  A timed-out or injected-failed
+        attempt retries once in ``ring`` mode at an 8x smaller gather
+        buffer; a second failure degrades through the ladder.  Any other
+        error (a device error) propagates, as on the batch path."""
+        o = self.engine.options
+        g = from_edges(edges, n_nodes, device=self.engine.device)
+        attempts = [o]
+        if o.mode != "ring" or o.gather_buffer_limit_bytes > (1 << 20):
+            attempts.append(dataclasses.replace(
+                o, mode="ring",
+                gather_buffer_limit_bytes=max(
+                    1 << 20, o.gather_buffer_limit_bytes >> 3),
+            ))
+        report, last_err = None, "no attempt ran"
+        for attempt, opts in enumerate(attempts):
+            try:
+                report = self._run_distributed(g, opts, rid, attempt)
+                break
+            except (FaultInjected, TimeoutError) as exc:
+                last_err = f"attempt {attempt} ({opts.mode}): {exc}"
+                if attempt + 1 < len(attempts):
+                    self.distributed_retries += 1
+        # batches that finished while the distributed run held the host
+        self._poll_inflight()
+        if report is None:
+            self._degrade(rid, edges, n_nodes, t_submit, budget=None,
+                          why="failed", detail=f"distributed: {last_err}")
+            return
+        self.distributed_requests += 1
+        self.results.append(TriangleAnalytics(
+            request_id=rid, n_nodes=n_nodes, triangles=report.triangles,
+            c1=report.c1, c2=report.c2,
+            num_horizontal=report.num_horizontal, k=report.k,
+            latency_s=time.perf_counter() - t_submit,
+            budget=ShapeBudget(n_budget=g.n_nodes, slot_budget=g.num_slots),
+            overflow=report.overflow.any, route="distributed",
+            report=report, per_vertex=report.per_vertex,
+        ))
+
+    def _run_distributed(self, g, opts, rid: int, attempt: int):
+        """One distributed attempt, wall-clock-bounded when
+        ``opts.distributed_timeout_s`` is set: then it runs on a worker
+        thread (on the card, on a CUDA stream of its own, after the
+        graph's stream), and a timed-out attempt is abandoned (counted)
+        rather than blocking the serving loop."""
+        dev = self.engine.device
+
+        def call():
+            if self.faults is not None:
+                self.faults.before_distributed(rid, attempt)
+            return self.engine.count(g, route="distributed", options=opts)
+
+        timeout = opts.distributed_timeout_s
+        if timeout is None:
+            return call()
+
+        def on_own_stream():
+            if dev.type != "cuda":
+                return call()
+            stream = torch.cuda.Stream(device=dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                return call()
+
+        ex = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix=f"tc-dist-{rid}")
+        fut = ex.submit(on_own_stream)
+        try:
+            return fut.result(timeout=timeout)
+        except concurrent.futures.TimeoutError:
+            self.distributed_timeouts += 1
+            self.abandoned_distributed += 1
+            raise TimeoutError(
+                f"exceeded distributed_timeout_s={timeout}") from None
+        finally:
+            ex.shutdown(wait=False)
+
     def drain(self) -> list[ServeResult]:
         """Flush every partial queue (right-sized), read back every
         batch in flight, and return all results so far (the empty list
@@ -504,9 +599,8 @@ class TriangleServer:
         """The ops scrape, safe at any moment (before the first submit,
         with lanes in flight, after an all-rejected storm), with the
         reference's keys.  Percentiles are over completed (exact and
-        approx) answers.  ``jit_compiles`` is None: nothing is compiled.
-        The distributed route's counters (ROADMAP Queue 1 item 10) stay
-        0."""
+        approx) answers.  ``jit_compiles`` is None: nothing is
+        compiled."""
         completed = [r for r in self.results
                      if isinstance(r, TriangleAnalytics)]
         lat = sorted(r.latency_s for r in completed)
@@ -525,10 +619,10 @@ class TriangleServer:
             "by_route": dict(by_route),
             "batches": self.batches_run,
             "failed_batches": self.failed_batches,
-            "distributed_requests": 0,
-            "distributed_timeouts": 0,
-            "distributed_retries": 0,
-            "abandoned_distributed": 0,
+            "distributed_requests": self.distributed_requests,
+            "distributed_timeouts": self.distributed_timeouts,
+            "distributed_retries": self.distributed_retries,
+            "abandoned_distributed": self.abandoned_distributed,
             "deadline_flushes": self.deadline_flushes,
             "size_flushes": self.size_flushes,
             "approx_answers": self.approx_answers,

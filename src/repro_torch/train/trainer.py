@@ -11,8 +11,9 @@ counterpart of ``repro.train.trainer``:
 A step is the forward, ``loss.backward()`` and ``opt_update``
 (``launch.steps.make_train_step``), in place on the model.  Reading the
 loss back is the step's one host sync, so a step's seconds include its
-device time.  The reference's ``int8_compressed_psum`` needs collectives
-and waits for ROADMAP Queue 1 item 10.
+device time.  The reference's ``int8_compressed_psum`` is a
+data-parallel gradient reduction of the model zoo: it comes with
+``distributed/*``, ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 

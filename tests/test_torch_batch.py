@@ -277,16 +277,26 @@ def test_plan_buckets_bounded_matches_reference(mix, kw):
 
 
 def test_sort_queries_plan_names_item_10():
+    """Item 10 (the distributed route) ported the in-run sort: a plan
+    with ``sort_queries=True`` over an unsorted block (ascending order)
+    counts what the reference's ``run_plan`` counts, overflow included."""
     edges, n = gen.karate()
     g = tcsr.from_edges(edges, n, device=CPU)
+    jg = jcsr.from_edges(edges, n)
     plan = tint.plan_buckets_bounded(78, d_pad=32, exceed=((8, 40),),
                                      bucket_widths=(8,))
+    jplan = jint.plan_buckets_bounded(78, d_pad=32, exceed=((8, 40),),
+                                      bucket_widths=(8,), backend="jnp")
     assert plan.sort_queries and len(plan.buckets) == 2
     qu, qw, *_ = tedges.horizontal_queries(
         g, tbfs.bfs_levels(g.src, g.dst, n, row_offsets=g.row_offsets))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tint.run_plan(tint.CsrAdjacency.from_graph(g), qu, qw, plan,
-                      level=None)
+    got = tint.run_plan(tint.CsrAdjacency.from_graph(g), qu, qw, plan,
+                        level=None)
+    want = jint.run_plan(jint.CsrAdjacency.from_graph(jg),
+                         jax.numpy.asarray(qu.numpy()),
+                         jax.numpy.asarray(qw.numpy()), jplan)
+    assert (int(got.c1), bool(got.overflow)) == (int(want.c1),
+                                                 bool(want.overflow))
 
 
 # ------------------------------------------------------------ counting
@@ -453,14 +463,19 @@ def test_plan_with_d_max_or_cap_h_raises():
 
 
 def test_auto_route_on_a_capped_grid_names_item_10():
+    """Past a capped grid's top cell ``auto`` resolves to the distributed
+    route (item 10), which answers: the local count's triangles."""
     grid = tcsr.BudgetGrid(max_nodes=64, max_slots=256)
     eng = tapi.TriangleEngine(budgets=grid, device=CPU)
     assert eng.count(gen.karate()).route == "local"  # fits the top cell
     assert eng.route_for(500, 3000) == "distributed"
     assert japi.TriangleEngine(budgets=jcsr.BudgetGrid(
         max_nodes=64, max_slots=256)).route_for(500, 3000) == "distributed"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        eng.count(gen.rmat(9, 8, seed=0))
+    big = gen.rmat(9, 8, seed=0)
+    rep = eng.count(big)
+    assert (rep.route, rep.c1, rep.c2) == ("distributed", None, None)
+    assert rep.triangles == eng.count(big, route="local").triangles
+    assert rep.plan_id == "hedge/allgather/p1"
     # the grid also comes from the options
     eng2 = tapi.TriangleEngine(tapi.TCOptions(grid=grid), device=CPU)
     assert eng2.budgets is grid

@@ -207,19 +207,20 @@ def test_unported_routes_name_their_roadmap_item(route):
         assert (rep.c1, rep.c2, rep.num_horizontal) == (None, None, 0)
         assert np.isnan(rep.k) and rep.approx.samples == 8192
         return
-    if route == "auto_capped":
-        # "auto" past a capped grid's top cell resolves to distributed
-        eng = tapi.TriangleEngine(
-            budgets=tcsr.BudgetGrid(max_nodes=64, max_slots=256),
-            device=CPU)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10"):
-            eng.count(gen.rmat(10, 16, seed=0), route="auto")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tapi.TCOptions(route=route)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        tapi.TriangleEngine(device=CPU).count(gen.karate(), route=route)
+    # ported in slice 11 (item 10): "distributed", and "auto" past a
+    # capped grid's top cell, answer on Algorithm 2 with the local count
+    # and no level split
+    eng = tapi.TriangleEngine(
+        budgets=tcsr.BudgetGrid(max_nodes=64, max_slots=256), device=CPU)
+    g = gen.rmat(10, 16, seed=0) if route == "auto_capped" else gen.karate()
+    rep = eng.count(g, route="auto" if route == "auto_capped" else route)
+    loc = eng.count(g, route="local")
+    assert (rep.route, rep.triangles) == ("distributed", loc.triangles)
+    assert (rep.c1, rep.c2, rep.levels) == (None, None, None)
+    assert (rep.num_horizontal, rep.k) == (loc.num_horizontal, loc.k)
+    assert rep.comm.total == 0 and rep.per_device.tolist() == [
+        loc.triangles]  # the engine's default shard group: p = 1
+    assert tapi.TCOptions(route="distributed").route == "distributed"
 
 
 @pytest.mark.parametrize("kw", [

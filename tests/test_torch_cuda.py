@@ -1008,3 +1008,68 @@ def test_edge_exists_and_wedge_baseline_on_the_card(cuda_device, monkeypatch):
         acc.append(counts)
     assert torch.equal(got[0], want[0])
     assert got[1] == want[1] == [75682, 75682]
+
+
+# ------------------------------------------------- distributed route
+@pytest.mark.parametrize("mode", ["allgather", "ring"])
+def test_k3_on_pair_lists_at_the_hedge_shapes(cuda_device, mode):
+    """Algorithm 2's hedge rounds on the card over 8 shards stacked on
+    one device: every K3 launch (a sorted block over the shards' pair
+    lists) by each path equal to its plain version on every row, and
+    the run equal to the CPU's, field for field."""
+    from repro_torch.core.shards import LocalShards
+
+    edges, n = gen.rmat(12, 16, seed=0)
+    opts = TCOptions(mode=mode, per_vertex=False)
+    cpu = TriangleEngine(device="cpu", mesh=LocalShards(8, "cpu"))
+    card = TriangleEngine(device=cuda_device,
+                          mesh=LocalShards(8, cuda_device))
+    want = cpu.count_distributed_raw((edges, n), options=opts)
+    before = tkern.LAUNCHES["intersect_count"]
+    got = []
+    calls = _captured_counts(lambda: got.append(
+        card.count_distributed_raw((edges, n), options=opts)))
+    got = got[0]
+    assert tkern.LAUNCHES["intersect_count"] - before == len(calls) > 0
+    for f in ("triangles", "per_device", "recv_counts", "num_horizontal",
+              "transpose_overflow", "hedge_overflow"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    assert got.comm == want.comm and got.collectives == want.collectives
+    for ops, kw in calls:
+        _k3_paths_match(ops, kw)
+
+
+def test_distributed_per_vertex_and_server_on_the_card(cuda_device):
+    """Per-vertex credit on the route (K2 over the pair lists) equal to
+    the CPU's; a capped server's over-budget request answered on the
+    card, exactly, also after a stalled first attempt."""
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.launch.robust import FaultPlan
+
+    edges, n = gen.rmat(10, 16, seed=0)
+    opts = TCOptions(per_vertex=True)
+    a = TriangleEngine(device=cuda_device, mesh=LocalShards(8, cuda_device)
+                       ).count((edges, n), route="distributed", options=opts)
+    b = TriangleEngine(device="cpu", mesh=LocalShards(8, "cpu")).count(
+        (edges, n), route="distributed", options=opts)
+    assert a.triangles == b.triangles == 75682
+    np.testing.assert_array_equal(a.per_vertex, b.per_vertex)
+
+    class StallFirst(FaultPlan):
+        def before_distributed(self, rid, attempt):
+            if attempt == 0:
+                super().before_distributed(rid, attempt)
+
+    eng = TriangleEngine(
+        TCOptions(distributed_timeout_s=5.0),
+        budgets=tcsr.BudgetGrid(max_nodes=256, max_slots=2048),
+        device=cuda_device, mesh=LocalShards(4, cuda_device))
+    big = gen.rmat(9, 8, seed=0)
+    srv = eng.serve(faults=StallFirst(stall_distributed_every=1,
+                                      distributed_stall_s=5.5))
+    srv.submit(*big)
+    (r,) = srv.drain()
+    assert (r.route, r.triangles) == (
+        "distributed", eng.count(big, route="local").triangles)
+    s = srv.summary()
+    assert (s["distributed_timeouts"], s["distributed_retries"]) == (1, 1)

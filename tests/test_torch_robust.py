@@ -254,9 +254,18 @@ def test_wedge_triangle_count_matches_reference_and_local(name, monkeypatch):
 
 
 def test_wedge_baseline_refusals():
+    """The parallel wedge baseline (item 10) runs over a shard group and
+    refuses anything else."""
+    from repro_torch.core.shards import LocalShards
+
     tg = tcsr.from_edges(*GRAPHS["karate"], device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(AttributeError):
         twedge.parallel_wedge_triangle_count(tg, None)
+    r = twedge.parallel_wedge_triangle_count(tg, LocalShards(4, CPU))
+    assert (int(r.triangles), bool(r.overflow)) == (45, False)
+    # every wedge is routed once: Table I's "Wedges" column
+    assert int(r.wedges_routed) == int(
+        jwedge.wedge_count(jcsr.from_edges(*GRAPHS["karate"]))) == 528
 
 
 # ---------------------------------------------------------------- options
@@ -273,6 +282,8 @@ def test_robust_option_validation_matches_reference(kw):
 
 
 def test_robust_options_answered_and_distributed_timeout_names_item_10():
+    """The robustness knobs, ``distributed_timeout_s`` and the
+    distributed fault classes (item 10) are answered."""
     o = tapi.TCOptions(deadline_s=0.25, admission_tokens=3,
                        approx_samples=100, approx_on_overload=False)
     assert (o.deadline_s, o.admission_tokens, o.approx_samples,
@@ -280,17 +291,24 @@ def test_robust_options_answered_and_distributed_timeout_names_item_10():
     assert tapi.TCOptions().approx_samples == japi.TCOptions().approx_samples
     # the robustness knobs are plan-irrelevant
     assert o.plan_view(CPU) == tapi.TCOptions().plan_view(CPU)
-    for v in (2.0, -1.0):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    assert tapi.TCOptions(distributed_timeout_s=2.0).distributed_timeout_s \
+        == japi.TCOptions(distributed_timeout_s=2.0).distributed_timeout_s
+    for v in (0.0, -1.0):
+        with pytest.raises(ValueError, match="distributed_timeout_s"):
             tapi.TCOptions(distributed_timeout_s=v)
     capped = tapi.TriangleEngine(
         budgets=tcsr.BudgetGrid(max_nodes=256, max_slots=2048), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        capped.serve()
+    srv = capped.serve(faults=trobust.FaultPlan(fail_distributed_every=1))
+    big = gen.rmat(9, 8, seed=0)
+    srv.submit(*big)
+    (r,) = srv.drain()
+    # attempt 0 failed, the ring retry answered exactly
+    assert (r.route, r.triangles, r.c1) == (
+        "distributed", capped.count(big, route="local").triangles, None)
+    assert srv.summary()["distributed_retries"] == 1
     for kw in (dict(fail_distributed_every=1), dict(stall_distributed_every=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tapi.TriangleEngine(device=CPU).serve(
-                faults=trobust.FaultPlan(**kw))
+        assert tapi.TriangleEngine(device=CPU).serve(
+            faults=trobust.FaultPlan(**kw)).faults == trobust.FaultPlan(**kw)
 
 
 # ------------------------------------------------ serving, both servers

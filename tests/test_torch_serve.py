@@ -184,14 +184,14 @@ def test_named_sessions_match_reference():
 
 def test_unported_serving_knobs_name_their_items():
     eng = tapi.TriangleEngine(device=CPU)
-    # the item-8 knobs are ported (slice 10): a plan of batch faults and
-    # a per-request deadline are answered; the distributed fault classes
-    # wait for item 10
+    # the item-8 knobs are ported (slice 10), the distributed fault
+    # classes, the timeout and a server over a capped grid too (slice 11,
+    # item 10); prewarm and the recorder wait for item 11
     from repro_torch.launch.robust import FaultPlan
 
     assert eng.serve(faults=FaultPlan(fail_batch_every=3)).faults is not None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        eng.serve(faults=FaultPlan(fail_distributed_every=1))
+    assert eng.serve(faults=FaultPlan(fail_distributed_every=1)).faults \
+        == FaultPlan(fail_distributed_every=1)
     for kw in (dict(prewarm=True), dict(recorder=object())):
         with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
             eng.serve(**kw)
@@ -199,21 +199,28 @@ def test_unported_serving_knobs_name_their_items():
     rid = srv.submit(*gen.karate(), deadline_s=1.0)
     assert [(r.request_id, r.triangles) for r in srv.drain()] == [(rid, 45)]
     for kw in (dict(deadline_s=0.5), dict(admission_tokens=4),
-               dict(approx_on_overload=False)):
+               dict(approx_on_overload=False), dict(distributed_timeout_s=2.0)):
         assert tapi.TCOptions(**kw) == dataclasses.replace(tapi.TCOptions(),
                                                            **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tapi.TCOptions(distributed_timeout_s=2.0)
     capped = tapi.TriangleEngine(
         budgets=tcsr.BudgetGrid(max_nodes=256, max_slots=2048), device=CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        capped.serve()
+    srv = capped.serve()
+    big = gen.rmat(9, 8, seed=0)
+    rid = srv.submit(*big)
+    (r,) = srv.drain()
+    assert (r.request_id, r.route, r.c1, r.triangles) == (
+        rid, "distributed", None, capped.count(big, route="local").triangles)
+    assert srv.summary()["distributed_requests"] == 1
     with pytest.raises(ValueError, match="d_max/cap_h"):
         tapi.TriangleEngine(tapi.TCOptions(cap_h=8), device=CPU).serve()
     with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
         eng.compile_space(batch_size=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tint.PairListAdjacency(owners=None, values=None, n_nodes=4)
+    pl = tint.PairListAdjacency(
+        owners=torch.tensor([0, 0, 1, 5], dtype=torch.int32),
+        values=torch.tensor([1, 2, 0, 5], dtype=torch.int32), n_nodes=4)
+    starts, lens = pl.bounds(torch.tensor([0, 1, 2, 4, 5], dtype=torch.int32))
+    assert (starts.tolist(), lens.tolist()) == ([0, 2, 3, 3, 3],
+                                                [2, 1, 0, 0, 0])
 
 
 @pytest.mark.parametrize("max_inflight", [0, 8])
