@@ -3,8 +3,9 @@
 1), triangle finding, per-vertex credit, the stream route (exact batch
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
 training, the batch route with its triangle server, the approx route
-with robust serving, and distributed Algorithm 2 end to end on one
-NVIDIA H100, through the hand-written Hopper kernels K1 to K5.
+with robust serving, distributed Algorithm 2 and the trace-driven
+autotuner end to end on one NVIDIA H100, through the hand-written
+Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -176,7 +177,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                stalled first attempt times out (retried in ring mode).
                (e) ``parallel_wedge_triangle_count`` at rmat12, equal to
                T, its wire bytes and paper bits beside cover-edge's.
- 11. summary — one JSON line per kernel, the card's name and power
+ 11. tune    — the autotuner.  (a) ``record_serve_trace(96, seed=0,
+               heavy_every=4)`` on the card (the reference's tuning
+               trace, written and read back), swept over the card's
+               ``default_space`` by successive halving at 3 timed
+               replays a config: each config bit-identical to the
+               baseline, the baseline equal to the sequential loop on
+               every id; graphs/s, p50 / p99, each rung's ranking.  (b)
+               Phase 8's rmat12_16_64 mix, recorded in memory at batch
+               8, swept the same at 1 timed replay.  (c) For each, the
+               winner's profile (its ``objective`` naming the card and
+               its power limit) saved, loaded and served by
+               ``prewarm_replay`` on a fresh engine: ``plan_hit`` 1.0,
+               ``jit_compiles`` 0, the sweep's answers; and the winner
+               against the default in turns (default, winner, winner,
+               default; 3 rounds for (a), 1 for (b)).  (d) Two fresh
+               processes serve (b)'s first 3 requests one at a time,
+               twice: one cold, one prewarmed from (b)'s profile (its
+               ``jit_compiles`` 0 throughout); the latencies and the
+               prewarm's seconds are logged.  (e) Every K1 launch of one
+               more replay of (b)'s winner, timed on the device and
+               host-paced beside its bound and path, held against its
+               plain version on a seeded sample of 4,096 rows (every row
+               of a smaller launch) and launched twice.
+ 12. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -2604,6 +2628,332 @@ def distributed_phase(dev, main_path, runs: int, scale: int, edges, n: int,
     return out
 
 
+#: phase 11 (a)'s trace: requests of the reference's tuning mix
+#: (``benchmarks/tune_bench.py``'s input)
+TUNE_SYNTH = 96
+#: phase 11's sweeps: each trace and its timed replays a config
+TUNE_REPEATS = {"synth_96": 3, "rmat12_16_64": 1}
+#: phase 11 (d): requests of the real-size trace that each fresh process
+#: serves, one at a time, twice
+TUNE_FIRST = 3
+#: phase 11 (d)'s fresh process: argv = src dir, requests' npz, profile
+#: path ("" for none); prints one JSON line
+TUNE_FRESH = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+from repro_torch.api import TriangleEngine
+from repro_torch.kernels import build
+d = np.load(sys.argv[2])
+reqs = [(d[f"e{i}"], int(d[f"n{i}"])) for i in range(int(d["k"]))]
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()  # the context is not the first request's
+profile = sys.argv[3] or None
+t0 = time.perf_counter()
+srv = TriangleEngine(device="cuda", profile=profile).serve(
+    batch_size=8, prewarm=profile is not None)
+torch.cuda.synchronize()
+start_s = time.perf_counter() - t0
+loads = build.loads()
+out = []
+for _ in range(2):
+    for e, n in reqs:
+        srv.submit(e, n)
+        r = srv.drain()[-1]
+        out.append((r.triangles, r.latency_s, srv.summary()["jit_compiles"]))
+print(json.dumps({"server_start_seconds": start_s,
+                  "loads_at_start": loads,
+                  "triangles": [t for t, _, _ in out],
+                  "latency_s": [s for _, s, _ in out],
+                  "jit_compiles": [j for _, _, j in out],
+                  "plan_hit": srv.summary()["plan_hit"]}))
+"""
+
+
+def replay_trace(eng, records):
+    """One replay of the trace ``records`` through a fresh server of
+    ``eng`` at batch 8: ``(results, seconds)``."""
+    srv = eng.serve(batch_size=8)
+    t0 = time.perf_counter()
+    for r in records:
+        srv.submit(*r.request(), deadline_s=r.deadline_s)
+    res = srv.drain()
+    return res, time.perf_counter() - t0
+
+
+def tune_turns(cfgs, records, rounds: int, want, dev) -> dict:
+    """The sweep's default and its winner (``cfgs``, in that order)
+    replayed in turns, default-winner-winner-default ``rounds`` times
+    after one warm replay each, each on its own engine: graphs/s per
+    replay and the ratio of the medians; every replay's answers equal to
+    ``want`` by id."""
+    from repro_torch.api import TriangleEngine
+
+    engs = [TriangleEngine(c.options, budgets=c.grid, device=dev)
+            for c in cfgs]
+    for e in engs:
+        replay_trace(e, records)
+    gps = ([], [])
+    for _ in range(rounds):
+        for side in (0, 1, 1, 0):
+            res, wall = replay_trace(engs[side], records)
+            got = [r.triangles for r in sorted(res,
+                                               key=lambda r: r.request_id)]
+            if got != want:
+                raise SystemExit(f"tune turns: {cfgs[side].label} changed "
+                                 f"an answer")
+            gps[side].append(len(records) / wall)
+    return dict(default_graphs_per_s=gps[0], winner_graphs_per_s=gps[1],
+                median_ratio=statistics.median(gps[1])
+                / statistics.median(gps[0]),
+                winner_faster=sum(w > d for w, d in zip(gps[1], gps[0])))
+
+
+def time_tune_calls(calls, seed: int = 0) -> dict:
+    """K1 on each recorded call of a served replay (:func:`capture_counts`
+    with ``"intersect_levels"``): device milliseconds (:func:`device_ms`,
+    the host's enqueue hidden, mean of 3) and host-paced milliseconds
+    (CUDA events, mean of 3) by the rule by shape, its bound
+    (:func:`bucket_bound`) and path, and its c1/c2 against
+    ``intersect_levels_ref`` on every row, or on a seeded sample of
+    ``DIST_SAMPLE_ROWS`` rows where the call has more (the plain version
+    timed on the rows it checks), and a second launch equal to the
+    first.  One log line a launch and the sums."""
+    from repro_torch.kernels.intersect.intersect import intersect_levels
+    from repro_torch.kernels.intersect.ref import intersect_levels_ref
+
+    rng = np.random.default_rng(seed)
+    k1 = dict(launches=len(calls), rows=0, cells=0, checked_rows=0,
+              max_abs_err=0, device_ms=0.0, host_paced_ms=0.0,
+              bound_ms=0.0, search_bound_ms=0.0, sample_plain_ms=0.0,
+              rule_paths={}, bound_by=[])
+    for i, (flat, ops, d_cand, d_targ) in enumerate(calls):
+        kw = dict(d_cand=d_cand, d_targ=d_targ)
+        s_s, l_s, s_l, l_l, levels, lev_u = ops
+        q = s_s.shape[0]
+        c1, c2 = intersect_levels(flat, *ops, **kw)
+        if q > DIST_SAMPLE_ROWS:
+            idx = torch.from_numpy(np.sort(rng.choice(
+                q, DIST_SAMPLE_ROWS, replace=False))).to(flat.device)
+        else:
+            idx = torch.arange(q, device=flat.device)
+        sub = tuple(x[idx] for x in (s_s, l_s, s_l, l_l))
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p1, p2 = intersect_levels_ref(flat, *sub, levels, lev_u[idx], **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        p_ms = start.elapsed_time(stop)
+        a1, a2 = intersect_levels(flat, *ops, **kw)
+        err = max((int((c1[idx] - p1).abs().max().item())
+                   + int((c2[idx] - p2).abs().max().item())) if q else 0,
+                  int(((a1 - c1).abs() + (a2 - c2).abs()).max().item())
+                  if q else 0)
+        hits = int(c1.sum().item()) + int(c2.sum().item())
+        d_ms = device_ms(lambda: intersect_levels(flat, *ops, **kw), reps=3)
+        h_ms = cuda_ms(lambda: intersect_levels(flat, *ops, **kw))
+        bd = bucket_bound(flat, levels, (s_s, l_s, s_l, l_l, lev_u),
+                          d_cand, d_targ, hits)
+        st = layout_stats(ops, SimpleNamespace(d_cand=d_cand, d_targ=d_targ))
+        k1["rule_paths"][st["path"]] = k1["rule_paths"].get(st["path"],
+                                                            0) + 1
+        for key, v in (("device_ms", d_ms), ("host_paced_ms", h_ms),
+                       ("bound_ms", bd["bound_ms"]),
+                       ("search_bound_ms", bd["search_bound_ms"]),
+                       ("sample_plain_ms", p_ms), ("rows", q),
+                       ("cells", st["live_cells"]),
+                       ("checked_rows", len(idx))):
+            k1[key] += v
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        k1["bound_by"].append((bd["bound_ms"], bd["bound_by"]))
+        log("tune_k1_launch", launch=i, rows=q, d_cand=d_cand,
+            d_targ=d_targ, flat_slots=flat.numel(), hits=hits,
+            device_ms=d_ms, host_paced_ms=h_ms, checked_rows=len(idx),
+            sample_plain_ms=p_ms, max_abs_err=err, **bd, **st)
+        del c1, c2, a1, a2, p1, p2, sub
+    k1["bound_by"] = max(k1["bound_by"])[1] if k1["bound_by"] else None
+    return k1
+
+
+def tune_phase(dev, main_path, stc) -> dict:
+    """Phase 11, the autotuner (module docstring) over phase 8's mixes
+    (``stc``, its summary); a sweep of each trace is a main path.
+    Returns the phase's summary, with K1's sums at the winner's launch
+    shapes; exits on any disagreement."""
+    import tempfile
+
+    from repro_torch.api import TriangleEngine
+    from repro_torch.launch.serve_tc import sequential_loop
+    from repro_torch.tune import (
+        TraceRecorder,
+        build_profile,
+        default_space,
+        load_profile,
+        prewarm_replay,
+        read_trace,
+        record_serve_trace,
+        successive_halving,
+        trace_signature,
+    )
+
+    t_phase = time.perf_counter()
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader")
+    tmp = tempfile.TemporaryDirectory(prefix="chip-smoke-tune-")
+    tdir = Path(tmp.name)
+    out = {"sweeps": {}, "prewarm": {}, "fresh": {}}
+    # (a) the reference's tuning trace, written and read back; (b) phase
+    # 8's real-size mix, recorded in memory
+    t0 = time.perf_counter()
+    synth = record_serve_trace(TUNE_SYNTH, seed=0, heavy_every=4,
+                               batch_size=8,
+                               path=str(tdir / "synth_96.jsonl"),
+                               device=dev)
+    back = read_trace(str(tdir / "synth_96.jsonl"))
+    if [r.to_json() for r in back] != [r.to_json() for r in synth]:
+        raise SystemExit("tune: the synth_96 trace does not read back")
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with TraceRecorder() as rec:
+        srv = TriangleEngine(device=dev).serve(batch_size=8, recorder=rec)
+        for e, n in stc["requests"]["rmat12_16_64"]:
+            srv.submit(e, n, deadline_s=1e9)
+        srv.drain()
+    real = list(rec.records)
+    traces = {"synth_96": synth, "rmat12_16_64": real}
+    log("tune_traces", synth_96_seconds=synth_s,
+        rmat12_16_64_seconds=time.perf_counter() - t0,
+        **{name: {"requests": len(r), "signature": trace_signature(r)}
+           for name, r in traces.items()})
+    if (len(synth), len(real)) != (TUNE_SYNTH,
+                                   len(stc["requests"]["rmat12_16_64"])):
+        raise SystemExit(f"tune: recorded {len(synth)} and {len(real)} "
+                         f"requests")
+    space = default_space(device=dev)
+    for name, records in traces.items():
+        reps = TUNE_REPEATS[name]
+        sweep, secs, _, got, mem = main_path(
+            lambda c, records=records, reps=reps: successive_halving(
+                space, records, batch_size=8, repeats=reps, device=dev,
+                log=lambda m, name=name: log("tune_rung", trace=name,
+                                             line=m)))
+        if got["intersect_levels"] == 0 or any(
+                v for k, v in got.items() if k != "intersect_levels"):
+            raise SystemExit(f"tune {name}: launched {got}; expected K1 "
+                             f"alone")
+        # the baseline's answers against the sequential loop's, by id
+        _, _, want = sequential_loop(TriangleEngine(device=dev),
+                                     [r.request() for r in records])
+        if [w[0] for w in want] != sweep["triangles"]:
+            raise SystemExit(f"tune {name}: the baseline's answers differ "
+                             f"from the sequential loop's")
+        base, win = sweep["baseline"], sweep["winner"]
+        row = dict(
+            trace=name, requests=len(records), repeats=reps, seconds=secs,
+            launches=got, memory=mem, device=card,
+            configs=[c.label for c in space],
+            evaluations=sum(len(h["evals"]) for h in sweep["history"]),
+            winner=win["label"], baseline=base, winner_row=win,
+            improvement_graphs_per_s=sweep["improvement_graphs_per_s"],
+            p50_reduction=sweep["p50_reduction"],
+            rungs=sweep["history"])
+        # the winner against the default in turns, within this call
+        row["turns"] = tune_turns(
+            (space[0], sweep["winner_config"]), records, reps,
+            sweep["triangles"], dev)
+        log("tune_sweep", **row)
+        out["sweeps"][name] = row
+        # (c) the winner's profile, saved, loaded and prewarmed
+        prof = build_profile(sweep["winner_config"], records, objective=dict(
+            device=card, trace=name, graphs_per_s=win["graphs_per_s"],
+            p50_ms=win["p50_ms"], p99_ms=win["p99_ms"],
+            baseline_graphs_per_s=base["graphs_per_s"],
+            improvement_graphs_per_s=sweep["improvement_graphs_per_s"]))
+        path = prof.save(str(tdir / f"{name}.json"))
+        loaded = load_profile(path)
+        if loaded is None or loaded.to_json() != prof.to_json():
+            raise SystemExit(f"tune {name}: the saved profile does not "
+                             f"load back")
+        t0 = time.perf_counter()
+        pw = prewarm_replay(loaded, records, batch_size=8, device=dev)
+        pw_row = dict(trace=name, seconds=time.perf_counter() - t0,
+                      cells=len(loaded.cells),
+                      **{k: pw[k] for k in ("plan_hit", "jit_compiles",
+                                            "graphs_per_s", "p50_ms",
+                                            "p99_ms")},
+                      agree=pw["triangles"] == sweep["triangles"])
+        log("tune_prewarm", **pw_row)
+        out["prewarm"][name] = pw_row
+        if (pw["plan_hit"] != 1.0 or pw["jit_compiles"] != 0
+                or not pw_row["agree"]):
+            raise SystemExit(f"tune {name}: prewarm replay {pw_row}")
+        out[f"{name}_profile"] = path
+        out[f"{name}_winner"] = sweep["winner_config"]
+        out[f"{name}_triangles"] = sweep["triangles"]
+
+    # (d) the first requests in fresh processes, cold and prewarmed
+    first = real[:TUNE_FIRST]
+    npz = tdir / "first.npz"
+    np.savez(npz, k=len(first),
+             **{f"e{i}": r.edges for i, r in enumerate(first)},
+             **{f"n{i}": r.n_nodes for i, r in enumerate(first)})
+    want = out["rmat12_16_64_triangles"][:TUNE_FIRST] * 2
+    for tag, prof_path in (("cold", ""),
+                           ("prewarmed", out["rmat12_16_64_profile"])):
+        proc = subprocess.run(
+            [sys.executable, "-c", TUNE_FRESH, str(ROOT / "src"), str(npz),
+             prof_path], capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise SystemExit(f"tune fresh {tag}: exit {proc.returncode}\n"
+                             f"{proc.stdout}{proc.stderr}")
+        row = json.loads(proc.stdout.strip().splitlines()[-1])
+        k = len(first)
+        lat = row["latency_s"]
+        row.update(first_latency_s=lat[0], warm_latency_s=lat[k],
+                   first_over_warm_s=lat[0] - lat[k],
+                   median_latency_s=statistics.median(lat))
+        log("tune_fresh", process=tag, **row)
+        out["fresh"][tag] = row
+        if row["triangles"] != want:
+            raise SystemExit(f"tune fresh {tag}: {row['triangles']} != "
+                             f"{want}")
+    if any(out["fresh"]["prewarmed"]["jit_compiles"]):
+        raise SystemExit(f"tune: the prewarmed process loaded a library "
+                         f"after its prewarm: {out['fresh']['prewarmed']}")
+
+    # (e) K1 at the winner's launch shapes: one more replay of (b)
+    cfg = out["rmat12_16_64_winner"]
+    eng = TriangleEngine(cfg.options, budgets=cfg.grid, device=dev)
+    replay_trace(eng, real)  # plans built
+    (res, _), calls = capture_counts(lambda: replay_trace(eng, real),
+                                     "intersect_levels")
+    got = sorted((r.request_id, r.triangles) for r in res)
+    if [t for _, t in got] != out["rmat12_16_64_triangles"]:
+        raise SystemExit("tune: the winner's captured replay differs")
+    out["k1"] = time_tune_calls(calls)
+    out["k1"]["winner"] = cfg.label
+    log("tune_k1", **out["k1"])
+    del calls, res
+    torch.cuda.empty_cache()
+    if out["k1"]["max_abs_err"]:
+        raise SystemExit(f"tune: K1 at the winner's shapes differs from "
+                         f"its plain version: {out['k1']}")
+    tmp.cleanup()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("tune_summary", seconds=out["seconds"], device=card,
+        sweeps={k: {**{f: v[f] for f in (
+            "winner", "improvement_graphs_per_s", "p50_reduction",
+            "evaluations", "seconds")},
+            "turns_median_ratio": v["turns"]["median_ratio"]}
+            for k, v in out["sweeps"].items()},
+        prewarm=out["prewarm"],
+        fresh={k: {f: v[f] for f in (
+            "server_start_seconds", "first_latency_s", "warm_latency_s",
+            "jit_compiles")} for k, v in out["fresh"].items()})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -3128,7 +3478,11 @@ def main() -> int:
     dk3, dk2 = dist["k3"], dist["k2"]
     dk2_launches = dist["per_vertex"]["launches"]["intersect_hits"]
 
-    # --------------------------------------------------------- 11. summary
+    # ----------------------------------------------------------- 11. tune
+    tune = tune_phase(dev, main_path, stc)
+    tk1 = tune["k1"]
+
+    # --------------------------------------------------------- 12. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -3159,6 +3513,14 @@ def main() -> int:
         distributed={mode: {k: v[k] for k in (
             "median_seconds", "median_run_stages", "launches", "memory",
             "busy_share", "comm")} for mode, v in dist["full"].items()},
+        tune={"sweeps": {k: {f: v[f] for f in (
+            "winner", "improvement_graphs_per_s", "p50_reduction",
+            "seconds")} for k, v in tune["sweeps"].items()},
+              "prewarm": {k: {f: v[f] for f in ("plan_hit", "jit_compiles")}
+                          for k, v in tune["prewarm"].items()},
+              "fresh_first_latency_s": {
+                  k: v["first_latency_s"] for k, v in tune["fresh"].items()},
+              "seconds": tune["seconds"]},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     k3s, big = stream["k3"], stream["buffer_65536"]
@@ -3174,9 +3536,9 @@ def main() -> int:
             "repro.kernels.intersect.intersect.intersect_pallas",
         "launches": count_launches["intersect_levels"],
         "matches_plain": max(max_err, stc1["max_abs_err"],
-                             stc1x["max_abs_err"]) == 0,
+                             stc1x["max_abs_err"], tk1["max_abs_err"]) == 0,
         "max_abs_err": max(max_err, stc1["max_abs_err"],
-                           stc1x["max_abs_err"]),
+                           stc1x["max_abs_err"], tk1["max_abs_err"]),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "sample_rows": k1_sample_rows,
@@ -3202,11 +3564,21 @@ def main() -> int:
         "serve_tc_exact_plain_ms": stc1x["plain_ms"],
         "serve_tc_exact_bound_ms": stc1x["bound_ms"],
         "robust_launches": rob_k1,
+        "tune_launches": {k: v["launches"]["intersect_levels"]
+                          for k, v in tune["sweeps"].items()},
+        **{f"tune_winner_{key}": tk1[key] for key in (
+            "winner", "launches", "device_ms", "host_paced_ms", "bound_ms",
+            "bound_by", "search_bound_ms", "sample_plain_ms",
+            "checked_rows", "rows", "rule_paths", "max_abs_err")},
         "shape": f"rmat{scale} plan, {n_buckets} buckets; serve_tc_*: one "
                  f"batch of {SERVE_LANES} lanes of rmat{SERVE_SCALE} on its "
                  f"bounded plan, one launch per bucket over all lanes "
                  f"(serve_tc_exact_*: on its exact plan); robust_launches: "
-                 f"phase 9's open-loop runs and its chaos run",
+                 f"phase 9's open-loop runs and its chaos run; "
+                 f"tune_launches: phase 11's sweep of each trace; "
+                 f"tune_winner_*: each launch of one more replay of the "
+                 f"rmat12_16_64 winner, timed, bounded and sampled against "
+                 f"the plain version",
     }, {
         "name": "intersect_hits",
         "route": "cuda",

@@ -444,6 +444,13 @@ class TriangleEngine:
         :class:`~repro_torch.core.shards.GroupShards`) on the engine's
         device type; ``None`` is one shard on the engine's device (p = 1,
         one H100).
+      profile: a :class:`~repro_torch.tune.profile.TunedProfile` or a
+        path to one: tuned default options (``options=None``), grid
+        (``budgets`` and ``options.grid`` unset), per-cell overrides
+        (:meth:`options_for`) and per-cell meta ceilings, which seed the
+        pooled-meta marks here and which ``serve(prewarm=True)`` plans
+        and loads before the first request.  An unusable file degrades
+        to defaults with a warning.
     """
 
     def __init__(self, options: Optional[TCOptions] = None, *,
@@ -451,18 +458,43 @@ class TriangleEngine:
                  device: Union[str, torch.device] = "cuda",
                  plan_cache_capacity: Optional[int] = (
                      _seq.DEFAULT_PLAN_CACHE_CAPACITY),
-                 mesh: Optional[ShardGroup] = None):
+                 mesh: Optional[ShardGroup] = None,
+                 profile=None):
         if options is not None and not isinstance(options, TCOptions):
             raise TypeError(
                 f"options must be a TCOptions, got {type(options).__name__}"
             )
+        self.profile = self._resolve_profile(profile)
+        if options is None and self.profile is not None:
+            options = self.profile.options
         self.options = options or TCOptions()
         self.device = resolve_device(device)
-        self.budgets = budgets or self.options.grid or DEFAULT_BUDGET_GRID
+        self.budgets = (
+            budgets
+            or self.options.grid
+            or (self.profile.grid if self.profile is not None else None)
+            or DEFAULT_BUDGET_GRID
+        )
         self._plan_cache = _seq.PlanCache(plan_cache_capacity)
         self._plan_stats = {"hits": 0, "misses": 0}
         self._meta_ceiling: dict = {}  # ShapeBudget -> BatchDegreeMeta
         self.mesh = as_shards(mesh, self.device)
+        if self.profile is not None:
+            # every flush the trace covered lands on the ceiling's plan
+            # key from the first request on, prewarmed or not
+            for cell in self.profile.cells:
+                if cell.meta is not None:
+                    self.pool_meta(cell.budget, cell.meta)
+
+    @staticmethod
+    def _resolve_profile(profile):
+        if profile is None:
+            return None
+        from repro_torch.tune.profile import TunedProfile, load_profile
+
+        if isinstance(profile, TunedProfile):
+            return profile
+        return load_profile(profile)  # None and a warning when unusable
 
     def _graph(self, graph_or_edges, clock=None) -> Graph:
         if isinstance(graph_or_edges, Graph):
@@ -497,9 +529,14 @@ class TriangleEngine:
 
     # -------------------------------------------------------- planning
     def options_for(self, budget: ShapeBudget) -> TCOptions:
-        """The options of a budget cell: the engine's options (a tuned
-        profile's per-cell overrides are ROADMAP Queue 1 item 11)."""
-        del budget
+        """The options of a budget cell: a tuned profile's override where
+        a cell of it covers ``budget``, else the engine's options.
+        Explicit constructor ``options`` outrank the profile's default,
+        not its per-cell overrides."""
+        if self.profile is not None:
+            cell = self.profile.cell_for(budget)
+            if cell is not None and cell.options is not None:
+                return cell.options
         return self.options
 
     def plan_for(self, gb: GraphBatch) -> IntersectPlan:
@@ -855,8 +892,11 @@ class TriangleEngine:
         admission and degradation knobs too).  ``strict=True`` raises on
         a malformed ``submit``; ``faults`` is a
         :class:`~repro_torch.launch.robust.FaultPlan` whose server-side
-        hooks the server calls; ``prewarm`` and ``recorder`` (ROADMAP
-        Queue 1 item 11) are not ported and raise."""
+        hooks the server calls; ``prewarm=True`` plans every cell of the
+        tuned profile at every lane count of the drain ladder and loads
+        the kernels' libraries before the first request; ``recorder``
+        (a :class:`~repro_torch.tune.trace.TraceRecorder`) captures the
+        workload for the sweep."""
         from repro_torch.launch.serve_tc import TriangleServer
 
         return TriangleServer(self, batch_size=batch_size,

@@ -9,7 +9,8 @@ a shared library under ``build/`` at the repository root (git-ignored):
 
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded.  Nothing is
-imported or compiled when this module is imported.
+imported or compiled when this module is imported.  :func:`loads` counts
+the libraries loaded in this process.
 """
 from __future__ import annotations
 
@@ -109,3 +110,11 @@ def library(name: str) -> ctypes.CDLL:
                 lib = ctypes.CDLL(str(out))
                 _LIBS[name] = lib
     return lib
+
+
+def loads() -> int:
+    """How many libraries this process has loaded (each built first where
+    it was missing): what the port compiles at first use, so the
+    triangle server's ``jit_compiles`` counts it.  A library is never
+    unloaded."""
+    return len(_LIBS)

@@ -54,8 +54,15 @@ Every submitted request id receives exactly one result — exact
 approx, or a :class:`RejectedRequest` — and ``submit``/``drain`` never
 raise on bad input or an injected failure (``strict=True`` raises on
 malformed input).
-Not ported, each raising ``NotImplementedError``: pre-warming from a
-tuned profile and trace recording (ROADMAP Queue 1 item 11).
+
+Autotuning hooks (``repro_torch.tune``): ``recorder`` (a
+``TraceRecorder``) captures every validated request's route, cell,
+degree meta and edges; ``prewarm=True`` plans every cell of the engine's
+tuned profile at every lane count of the drain ladder, runs each plan
+once on an empty batch and loads the kernels' libraries, before the
+first request.  ``summary()["jit_compiles"]`` counts the libraries
+loaded (or built) since the server came up, the port's counterpart of
+the reference's jit compiles.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke
     PYTHONPATH=src python -m repro_torch.launch.serve_tc --smoke --device cpu
@@ -74,6 +81,7 @@ import json
 import math
 import os
 import time
+import warnings
 from collections import defaultdict, deque
 from typing import Optional, Sequence, Union
 
@@ -87,8 +95,7 @@ from repro_torch.graph.csr import (
     from_edges,
     from_edges_batch,
 )
-
-_TUNE_ITEM = "ROADMAP Queue 1 item 11 (the autotuner)"
+from repro_torch.kernels import build
 
 
 @dataclasses.dataclass
@@ -203,10 +210,6 @@ class TriangleServer:
     def __init__(self, engine, *, batch_size: int = 8, max_inflight: int = 8,
                  strict: bool = False, faults=None, prewarm: bool = False,
                  recorder=None):
-        if prewarm or recorder is not None:
-            raise NotImplementedError(
-                f"prewarm and recorder are not ported to repro_torch yet: "
-                f"{_TUNE_ITEM}")
         o = engine.options
         if o.d_max is not None or o.cap_h is not None:
             raise ValueError(
@@ -245,9 +248,47 @@ class TriangleServer:
         #: by name
         self._sessions: dict[str, object] = {}
         self.stream_mutations = 0
-        # plan_hit in summary() counts from here on
+        #: a ``repro_torch.tune.trace.TraceRecorder`` fed every validated
+        #: request, or None
+        self.recorder = recorder
+        if prewarm:
+            self.prewarm()
+        # plan_hit and jit_compiles in summary() count from here on: the
+        # prewarm's own misses and loads are its point, not serving cost
         ps = engine.plan_cache_stats()
         self._plan_baseline = (ps["hits"], ps["misses"])
+        self._loads_baseline = build.loads()
+
+    def prewarm(self) -> None:
+        """Plan and load before the first request, from the engine's
+        tuned profile (nothing without one).
+
+        For every profile cell with a meta ceiling: pool the ceiling into
+        the engine's mark, then for each lane count of
+        :func:`lanes_ladder` pack an empty batch at that ceiling, plan it
+        (``engine.plan_for``) and run it (``count_batch_raw``) — the
+        ``(budget, lanes, plan)`` keys that serving flushes use.  The
+        meta quantizers commute with ``max``, so every flush of covered
+        traffic then hits a cached plan.  On the card the intersection
+        kernels' library is loaded first (built where missing), and each
+        empty batch launches K1 (K2 with per-vertex credit) on every
+        bucket of its plan, padding rows only, as a real batch of that
+        lane count would, so CUDA loads each kernel the plan reaches."""
+        eng = self.engine
+        if eng.profile is None:
+            return
+        if eng.device.type == "cuda":
+            build.library("intersect")
+        for cell in eng.profile.cells:
+            if cell.meta is None:
+                continue  # no ceiling to key the warm plan on
+            pooled = eng.pool_meta(cell.budget, cell.meta)
+            for lanes in lanes_ladder(self.batch_size):
+                gb = from_edges_batch([], budget=cell.budget,
+                                      batch_size=lanes, device=eng.device)
+                gb = dataclasses.replace(gb, meta=pooled)
+                res = eng.count_batch_raw(gb, plan=eng.plan_for(gb))
+                res.triangles.cpu()  # wait for the batch
 
     @property
     def grid(self) -> BudgetGrid:
@@ -296,9 +337,11 @@ class TriangleServer:
         # batch queue or, past a capped grid's top cell, Algorithm 2
         if self.engine.route_for(n_nodes, edges.shape[0],
                                  route="auto") == "distributed":
+            self._record_trace(rid, edges, n_nodes, "distributed", None, rel)
             self._serve_distributed(rid, edges, n_nodes, t_submit)
             return rid
         budget = self.grid.budget_for(n_nodes, edges.shape[0])
+        self._record_trace(rid, edges, n_nodes, "batch", budget, rel)
         if (o.admission_tokens is not None
                 and self._tokens[budget] >= o.admission_tokens):
             # the cell is full: the ladder's degrade rung (shed if off)
@@ -313,6 +356,19 @@ class TriangleServer:
         if len(q) >= self.batch_size:
             self._flush(budget, cause="size")
         return rid
+
+    def _record_trace(self, rid, edges, n_nodes, route, budget, rel) -> None:
+        """Feed one validated, routed request to the recorder.  A
+        recorder failure is warned about and never raised: recording is
+        observability, and ``submit`` does not raise on it."""
+        if self.recorder is None:
+            return
+        try:
+            self.recorder.record(request_id=rid, edges=edges,
+                                 n_nodes=n_nodes, route=route,
+                                 budget=budget, deadline_s=rel)
+        except Exception as exc:  # noqa: BLE001 — tracing must not stop serving
+            warnings.warn(f"trace recorder failed on request {rid}: {exc}")
 
     # ------------------------------------------------ degradation ladder
     def _reject(self, rid: int, reason: str, detail: str,
@@ -599,8 +655,9 @@ class TriangleServer:
         """The ops scrape, safe at any moment (before the first submit,
         with lanes in flight, after an all-rejected storm), with the
         reference's keys.  Percentiles are over completed (exact and
-        approx) answers.  ``jit_compiles`` is None: nothing is
-        compiled."""
+        approx) answers.  ``plan_hit`` and ``jit_compiles`` (libraries
+        loaded or built, :func:`repro_torch.kernels.build.loads`) count
+        from the server's start, after its prewarm."""
         completed = [r for r in self.results
                      if isinstance(r, TriangleAnalytics)]
         lat = sorted(r.latency_s for r in completed)
@@ -612,7 +669,7 @@ class TriangleServer:
         looked = hits + ps["misses"] - self._plan_baseline[1]
         return {
             "plan_hit": 1.0 if looked <= 0 else hits / looked,
-            "jit_compiles": None,
+            "jit_compiles": build.loads() - self._loads_baseline,
             "requests": len(self.results),
             "completed": len(completed),
             "rejected": self.rejected_requests,
@@ -773,6 +830,7 @@ def measure_serve(
             warm.submit(e, n)
         warm.drain()  # the plan cache now holds every cell's plan
         engine.plan_cache_stats(reset=True)
+        loads0 = build.loads()
         server = engine.serve(batch_size=B)
         t0 = time.perf_counter()
         for e, n in reqs:
@@ -796,7 +854,7 @@ def measure_serve(
             "batches": stats["batches"],
             "speedup_vs_sequential": seq_wall / wall,
             "plan_cache_hit_rate": plan_stats["hits"] / max(looked, 1),
-            "jit_compiles_measured": None,
+            "jit_compiles_measured": build.loads() - loads0,
             "triangles_total": sum(r.triangles for r in server.results),
             "agree": agree,
         }

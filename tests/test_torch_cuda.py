@@ -15,7 +15,8 @@ buffers of 4,096 and 65,536, each launched twice; the batch route
 server) on the card equal to the CPU path, every K1 and K2 call of a
 batch's lane view equal to its plain version, one K1 launch per bucket
 for all lanes, and the robust server (admission, failed batches) and
-the wedge baseline equal to the CPU; K5 against its plain
+the wedge baseline equal to the CPU; a server prewarmed from a tuned
+profile loading no library after its prewarm, in a fresh process; K5 against its plain
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
 bit across launches and against its chunk-then-carry order in plain
@@ -1073,3 +1074,56 @@ def test_distributed_per_vertex_and_server_on_the_card(cuda_device):
         "distributed", eng.count(big, route="local").triangles)
     s = srv.summary()
     assert (s["distributed_timeouts"], s["distributed_retries"]) == (1, 1)
+
+
+def test_prewarmed_server_first_request_loads_no_library(cuda_device,
+                                                         tmp_path):
+    """In a fresh process, a server prewarmed from a tuned profile loads
+    the intersection library before its first request and none after;
+    its answers equal the CPU's."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.tune import SweepConfig, build_profile
+    from repro_torch.tune.trace import TraceRecorder
+
+    reqs = tserve_tc.synth_requests(12, seed=0, smoke=True)
+    with TraceRecorder() as rec:
+        srv = TriangleEngine(device="cpu").serve(batch_size=4, recorder=rec)
+        for e, n in reqs:
+            srv.submit(e, n)
+        want = [r.triangles for r in sorted(srv.drain(),
+                                            key=lambda r: r.request_id)]
+    path = build_profile(SweepConfig("default", TCOptions()),
+                         rec.records).save(str(tmp_path / "p.json"))
+    np.savez(tmp_path / "reqs.npz", *[e for e, _ in reqs],
+             n=np.array([n for _, n in reqs]))
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    script = f"""
+import json, sys
+sys.path.insert(0, {src!r})
+import numpy as np
+from repro_torch.api import TriangleEngine
+from repro_torch.kernels import build
+d = np.load({str(tmp_path / "reqs.npz")!r})
+srv = TriangleEngine(device="cuda", profile={path!r}).serve(
+    batch_size=4, prewarm=True)
+at_start = build.loads()
+srv.submit(d["arr_0"], int(d["n"][0]))
+srv.drain()
+first = srv.summary()["jit_compiles"]
+for i in range(1, len(d["n"])):
+    srv.submit(d[f"arr_{{i}}"], int(d["n"][i]))
+res = sorted(srv.drain(), key=lambda r: r.request_id)
+print(json.dumps([at_start, first, srv.summary()["jit_compiles"],
+                  srv.summary()["plan_hit"], [r.triangles for r in res]]))
+"""
+    proc = subprocess.run([sys.executable, "-c", script],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    at_start, first, after, hit, got = json.loads(
+        proc.stdout.strip().splitlines()[-1])
+    assert at_start >= 1 and (first, after, hit) == (0, 0, 1.0)
+    assert got == want
