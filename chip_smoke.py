@@ -3,9 +3,9 @@
 1), triangle finding, per-vertex credit, the stream route (exact batch
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
 training, the batch route with its triangle server, the approx route
-with robust serving, distributed Algorithm 2 and the trace-driven
-autotuner end to end on one NVIDIA H100, through the hand-written
-Hopper kernels K1 to K5.
+with robust serving, distributed Algorithm 2, the trace-driven
+autotuner and the static auditor end to end on one NVIDIA H100, through
+the hand-written Hopper kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -200,7 +200,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                host-paced beside its bound and path, held against its
                plain version on a seeded sample of 4,096 rows (every row
                of a smaller launch) and launched twice.
- 12. summary — one JSON line per kernel, the card's name and power
+ 12. audit   — the static auditor (``repro_torch.analysis``).  (a)
+               ``run_audit()`` on the card's host (its routes run on the
+               CPU by design), diffed against
+               ``results/AUDIT_torch_baseline.json``: any new or vanished
+               finding ends the run.  (b) A ``TriangleEngine`` on the
+               card with the reference's ``results/tuned/serve_mix.json``
+               (read only) and ``serve(batch_size=8, prewarm=True)`` as a
+               main path: the plan cache holds exactly the plan keys of
+               ``compile_space(batch_size=8)``, K1 alone ran once a
+               bucket of every warm batch, and a replay of the
+               reference mix's covered requests gives ``plan_hit`` 1.0,
+               ``jit_compiles`` 0 and the CPU's answers; the prewarm's
+               seconds and K1's launches are logged.  (c) Host syncs on
+               the card of the batch route (the audit's pinned graphs),
+               the local route at rmat16 and one size flush of the
+               prewarmed server: torch's sync debug mode
+               (``host_syncs``) and the op recorder's census of the same
+               run, beside the CPU census and the AST sites of the
+               route's functions, each answer checked.
+ 13. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -2954,6 +2973,230 @@ def tune_phase(dev, main_path, stc) -> dict:
     return out
 
 
+#: phase 12's profile: the reference's serving profile (read only), the
+#: audit's default, carried across with ``profile_from_reference``
+AUDIT_PROFILE = "results/tuned/serve_mix.json"
+#: phase 12's server batch size (the compile set's census is at b8)
+AUDIT_BATCH = 8
+#: phase 12 (b)'s replay: the requests of the reference's mix (seed 0)
+#: that the profile covers (cell and meta within its ceiling)
+AUDIT_MIX = 96
+#: phase 12 (c)'s local route: RMAT scale 16
+AUDIT_LOCAL_SCALE = 16
+#: the hot-path functions each route of phase 12 (c) runs, by the AST
+#: findings' qualnames
+_AUDIT_BATCH_FNS = (
+    "TriangleEngine.plan_for", "TriangleEngine.count_batch_raw",
+    "repro_torch.core.sequential._triangle_count_batch",
+    "repro_torch.core.sequential.batch_plan_for",
+    "repro_torch.core.bfs.bfs_levels_batch",
+    "repro_torch.core.bfs.bfs_levels_iters",
+    "repro_torch.core.intersect.run_plan",
+)
+AUDIT_ROUTE_FNS = {
+    "batch": _AUDIT_BATCH_FNS,
+    "local": ("repro_torch.core.sequential._exact_plan",
+              "repro_torch.core.bfs.bfs_levels_iters",
+              "repro_torch.core.intersect.run_plan"),
+    "flush": ("TriangleServer.submit", "TriangleServer._pump_deadlines",
+              "TriangleServer._flush", "TriangleServer._poll_inflight",
+              "TriangleServer._finalize_one", "TriangleServer.drain",
+              "TriangleEngine.pool_meta") + _AUDIT_BATCH_FNS,
+}
+
+
+def audit_phase(dev, main_path) -> dict:
+    """Phase 12, the static auditor (module docstring): (a) the audit on
+    the card's host diffed against the tracked baseline, (b) the compile
+    set prewarmed on the card (a main path, K1 alone) and replayed, (c)
+    the host syncs of three routes counted on the card.  Returns the
+    phase's summary; exits on any failure."""
+    from repro_torch.analysis.audit import (
+        BASELINE,
+        load_any_profile,
+        run_audit,
+    )
+    from repro_torch.analysis.compile_set import plan_cache_keys
+    from repro_torch.analysis.findings import Report, diff_reports
+    from repro_torch.analysis.routes import enumerate_route_specs
+    from repro_torch.analysis.walker import OpRecorder, op_counts, sync_ops
+    from repro_torch.api import TriangleEngine
+    from repro_torch.core.bfs import bfs_levels_iters
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph.csr import degree_meta, from_edges
+    from repro_torch.launch.serve_tc import synth_requests
+
+    t_phase = time.perf_counter()
+    card = sh("nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader")
+    out = {"syncs": {}}
+
+    # (a) the audit runs its routes on the CPU by design: the report on
+    # the card's host must be the tracked baseline's, key for key
+    t0 = time.perf_counter()
+    report = run_audit()
+    audit_s = time.perf_counter() - t0
+    base = Report.load(str(ROOT / BASELINE))
+    diff = diff_reports(report, base)
+    out["audit"] = dict(
+        seconds=audit_s, findings=len(report.findings),
+        counts=report.counts(),
+        by_pass={k: len(v) for k, v in sorted(report.by_pass().items())},
+        torch=report.meta["torch"], baseline_torch=base.meta.get("torch"),
+        predicted_jit_compiles=report.meta["predicted_jit_compiles"],
+        new=[f.site for f in diff.new], fixed=[f.site for f in diff.fixed])
+    log("audit_diff", **out["audit"])
+    if not diff.clean:
+        raise SystemExit("audit: the report on the card's host differs from "
+                         f"{BASELINE}\n{diff.render(BASELINE)}")
+    census: dict = {}
+    sweeps_cpu: dict = {}
+    ast_sites: dict = {}
+    for f in report.findings:
+        if f.pass_name != "hostsync":
+            continue
+        if f.site.startswith("census:"):
+            census.setdefault(f.data["route"], {})[f.data["op"]] = \
+                f.data["count"]
+            sweeps_cpu[f.data["route"]] = f.data["bfs_sweeps"]
+        else:
+            ast_sites.setdefault(f.data["qualname"], {})[f.data["attr"]] = \
+                f.data["count"]
+
+    # (b) the compile set on the card: a prewarmed server's plan cache
+    # holds exactly the enumerated plan keys, K1 ran once a bucket of
+    # every warm batch, and covered traffic hits and loads nothing
+    eng = TriangleEngine(device=dev,
+                         profile=load_any_profile(str(ROOT / AUDIT_PROFILE)))
+    keys = eng.compile_space(batch_size=AUDIT_BATCH)
+    want_keys = plan_cache_keys(eng)
+    k1_want = sum(-(-b.rows // min(k.plan.query_chunk or b.rows, b.rows))
+                  for k in keys for b in k.plan.buckets)
+    srv, prewarm_s, _, launches, mem = main_path(
+        lambda clock: eng.serve(batch_size=AUDIT_BATCH, prewarm=True))
+    cached = eng._plan_cache.keys()
+    cells = {c.budget: c.meta for c in eng.profile.cells
+             if c.meta is not None}
+    covered = []
+    for e, n in synth_requests(AUDIT_MIX, seed=0):
+        b = eng.budgets.budget_for(n, np.asarray(e).reshape(-1, 2).shape[0])
+        if b in cells and cells[b].union(degree_meta(e, n)) == cells[b]:
+            covered.append((b, e, n))
+    t0 = time.perf_counter()
+    for _, e, n in covered:
+        srv.submit(e, n)
+    got = {r.request_id: r.triangles for r in srv.drain()}
+    replay_s = time.perf_counter() - t0
+    s = srv.summary()
+    cpu = TriangleEngine(device="cpu")
+    want_tri = [cpu.count((e, n)).triangles for _, e, n in covered]
+    out["prewarm"] = dict(
+        profile=AUDIT_PROFILE, batch_size=AUDIT_BATCH,
+        compile_keys=len(keys), plans=len({k.plan for k in keys}),
+        plan_cache_entries=len(cached),
+        want_plan_cache_entries=len(want_keys),
+        prewarm_seconds=prewarm_s, launches=launches,
+        k1_launches=launches["intersect_levels"], want_k1_launches=k1_want,
+        memory=mem, replay_requests=len(covered), replay_seconds=replay_s,
+        plan_hit=s["plan_hit"], jit_compiles=s["jit_compiles"],
+        batches=s["batches"])
+    log("audit_prewarm", **out["prewarm"])
+    others = {k: v for k, v in launches.items()
+              if k != "intersect_levels" and v}
+    if (set(cached) != set(want_keys) or len(cached) != len(want_keys)
+            or launches["intersect_levels"] != k1_want or others):
+        raise SystemExit(f"audit: the prewarm is not the compile set: "
+                         f"{out['prewarm']}")
+    if (s["plan_hit"], s["jit_compiles"]) != (1.0, 0):
+        raise SystemExit(f"audit: the covered replay missed a plan or "
+                         f"loaded a library: {s}")
+    if [got[i] for i in range(len(covered))] != want_tri:
+        raise SystemExit("audit: the covered replay's answers differ from "
+                         "the CPU's")
+
+    # (c) the host syncs of three routes on the card: torch's sync debug
+    # mode (``host_syncs``) and the op recorder's census of the same run,
+    # beside the CPU census and the AST sites of the route's functions
+    def card_syncs(tag, run, sweeps, cpu_census, cpu_sweeps, fns, **extra):
+        run()  # warm: libraries loaded, allocator filled
+        n_sync = host_syncs(run)
+        with OpRecorder() as rec:
+            res = run()
+        ops = op_counts(sync_ops(rec.record))
+        row = dict(route=tag, card_host_syncs=n_sync, card_census=ops,
+                   card_census_total=sum(ops.values()),
+                   card_bfs_sweeps=sweeps(res), cpu_census=cpu_census,
+                   cpu_census_total=sum((cpu_census or {}).values()),
+                   cpu_bfs_sweeps=cpu_sweeps,
+                   ast={q: ast_sites[q] for q in fns if q in ast_sites},
+                   device=card, **extra)
+        log("audit_syncs", **row)
+        out["syncs"][tag] = row
+        return res
+
+    spec = next(x for x in enumerate_route_specs(backends=("cuda",))
+                if x.name == "batch/cuda")
+    run, sweeps = spec.prepare(dev)
+    ref = next(x for x in enumerate_route_specs()
+               if x.name == "batch/torch").run("cpu")
+    res = card_syncs("batch", run, sweeps, census.get("batch/torch"),
+                     sweeps_cpu.get("batch/torch"), AUDIT_ROUTE_FNS["batch"],
+                     graphs="karate + erdos_renyi(48, 0.1, seed=1), "
+                            "budget 64 x 256, 2 lanes")
+    for f in ("triangles", "c1", "c2", "num_horizontal"):
+        if getattr(res, f).cpu().tolist() != getattr(ref, f).tolist():
+            raise SystemExit(f"audit: the batch route's {f} on the card "
+                             f"differs from the CPU's")
+    e16, n16 = gen.rmat(AUDIT_LOCAL_SCALE, 16, seed=0)
+    g16 = from_edges(e16, n16, device=dev)
+    eng16 = TriangleEngine(device=dev)
+    res = card_syncs(
+        "local", lambda: eng16.count_raw(g16),
+        lambda _: int(bfs_levels_iters(
+            g16.src, g16.dst, g16.n_nodes, 0,
+            row_offsets=g16.row_offsets)[1]),
+        census.get("local/torch"), sweeps_cpu.get("local/torch"),
+        AUDIT_ROUTE_FNS["local"],
+        graphs=f"rmat{AUDIT_LOCAL_SCALE} (the CPU census: karate at the "
+               f"pinned budget)")
+    if (int(res.triangles), int(res.num_horizontal)) != EXPECTED[
+            AUDIT_LOCAL_SCALE]:
+        raise SystemExit("audit: the rmat16 count on the card is wrong")
+    top = max(cells, key=lambda b: sum(1 for c, _, _ in covered if c == b))
+    flush_reqs = [(e, n) for b, e, n in covered if b == top][:AUDIT_BATCH]
+
+    def flush(engine):
+        def run():
+            server = engine.serve(batch_size=AUDIT_BATCH)
+            for e, n in flush_reqs:
+                server.submit(e, n)
+            return server.drain()
+        return run
+
+    cpu_eng = TriangleEngine(device="cpu", profile=eng.profile)
+    with OpRecorder() as rec:
+        cpu_res = flush(cpu_eng)()
+    res = card_syncs(
+        "flush", flush(eng), lambda _: None, op_counts(sync_ops(rec.record)),
+        None, AUDIT_ROUTE_FNS["flush"],
+        graphs=f"{len(flush_reqs)} covered requests of cell "
+               f"{top.n_budget}x{top.slot_budget}, one size flush")
+    if ([r.triangles for r in res] != [r.triangles for r in cpu_res]
+            or len(res) != len(flush_reqs)):
+        raise SystemExit("audit: the prewarmed server's flush differs from "
+                         "the CPU's")
+    out["seconds"] = time.perf_counter() - t_phase
+    log("audit_summary", seconds=out["seconds"], device=card,
+        audit_seconds=audit_s, findings=out["audit"]["counts"],
+        prewarm={k: out["prewarm"][k] for k in (
+            "compile_keys", "plan_cache_entries", "prewarm_seconds",
+            "k1_launches", "plan_hit", "jit_compiles")},
+        syncs={k: {f: v[f] for f in (
+            "card_host_syncs", "card_census_total", "cpu_census_total")}
+            for k, v in out["syncs"].items()})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -3482,7 +3725,10 @@ def main() -> int:
     tune = tune_phase(dev, main_path, stc)
     tk1 = tune["k1"]
 
-    # --------------------------------------------------------- 12. summary
+    # ---------------------------------------------------------- 12. audit
+    aud = audit_phase(dev, main_path)
+
+    # --------------------------------------------------------- 13. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -3521,6 +3767,13 @@ def main() -> int:
               "fresh_first_latency_s": {
                   k: v["first_latency_s"] for k, v in tune["fresh"].items()},
               "seconds": tune["seconds"]},
+        audit={"seconds": aud["seconds"],
+               "audit_seconds": aud["audit"]["seconds"],
+               "findings": aud["audit"]["counts"],
+               "prewarm_seconds": aud["prewarm"]["prewarm_seconds"],
+               "prewarm_k1_launches": aud["prewarm"]["k1_launches"],
+               "host_syncs": {k: v["card_host_syncs"]
+                              for k, v in aud["syncs"].items()}},
         seconds=time.perf_counter() - t_all)
     src = "src/repro_torch/kernels/intersect/csrc/intersect.cu"
     k3s, big = stream["k3"], stream["buffer_65536"]
@@ -3566,6 +3819,7 @@ def main() -> int:
         "robust_launches": rob_k1,
         "tune_launches": {k: v["launches"]["intersect_levels"]
                           for k, v in tune["sweeps"].items()},
+        "audit_prewarm_launches": aud["prewarm"]["k1_launches"],
         **{f"tune_winner_{key}": tk1[key] for key in (
             "winner", "launches", "device_ms", "host_paced_ms", "bound_ms",
             "bound_by", "search_bound_ms", "sample_plain_ms",
@@ -3576,6 +3830,8 @@ def main() -> int:
                  f"(serve_tc_exact_*: on its exact plan); robust_launches: "
                  f"phase 9's open-loop runs and its chaos run; "
                  f"tune_launches: phase 11's sweep of each trace; "
+                 f"audit_prewarm_launches: phase 12's prewarm of the "
+                 f"compile set; "
                  f"tune_winner_*: each launch of one more replay of the "
                  f"rmat12_16_64 winner, timed, bounded and sampled against "
                  f"the plain version",

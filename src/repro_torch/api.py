@@ -548,11 +548,16 @@ class TriangleEngine:
         )
 
     def compile_space(self, *, batch_size: int = 8) -> list:
-        """The reference's enumerated compile set of a pre-warmed server:
-        ROADMAP Queue 1 item 12 (the static auditor)."""
-        raise NotImplementedError(
-            "TriangleEngine.compile_space is not ported to repro_torch "
-            "yet: ROADMAP Queue 1 item 12 (the static auditor)")
+        """The statically enumerated prewarm set: every warm batch a
+        ``serve(prewarm=True)`` server over this engine runs, one
+        :class:`~repro_torch.analysis.compile_set.CompileKey` per profile
+        cell with a meta ceiling × lane count of the drain ladder — empty
+        when there is no profile.  Pure host arithmetic; nothing runs on
+        the device and the plan cache is untouched.  This is the set
+        ``repro_torch.analysis.audit`` asserts finite."""
+        from repro_torch.analysis.compile_set import enumerate_compile_keys
+
+        return enumerate_compile_keys(self, batch_size=batch_size)
 
     def pool_meta(self, budget: ShapeBudget, meta):
         """Pool a batch's degree meta up to the engine's per-cell

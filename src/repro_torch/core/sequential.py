@@ -327,6 +327,10 @@ class PlanCache:
     def __contains__(self, key) -> bool:
         return key in self._d
 
+    def keys(self) -> list:
+        """The cached keys, least recently used first."""
+        return list(self._d)
+
     def clear(self) -> None:
         self._d.clear()
         self.evictions = 0

@@ -223,8 +223,8 @@ def test_unported_serving_knobs_name_their_items():
     assert srv.summary()["distributed_requests"] == 1
     with pytest.raises(ValueError, match="d_max/cap_h"):
         tapi.TriangleEngine(tapi.TCOptions(cap_h=8), device=CPU).serve()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        eng.compile_space(batch_size=8)
+    # a profile-less engine has nothing to prewarm: an empty compile set
+    assert eng.compile_space(batch_size=8) == []
     pl = tint.PairListAdjacency(
         owners=torch.tensor([0, 0, 1, 5], dtype=torch.int32),
         values=torch.tensor([1, 2, 0, 5], dtype=torch.int32), n_nodes=4)
