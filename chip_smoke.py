@@ -4,8 +4,9 @@
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
 training, the batch route with its triangle server, the approx route
 with robust serving, distributed Algorithm 2, the trace-driven
-autotuner and the static auditor end to end on one NVIDIA H100, through
-the hand-written Hopper kernels K1 to K5.
+autotuner, the static auditor and the training of GAT, SchNet and
+DimeNet end to end on one NVIDIA H100, through the hand-written Hopper
+kernels K1 to K5.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -219,7 +220,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                (``host_syncs``) and the op recorder's census of the same
                run, beside the CPU census and the AST sites of the
                route's functions, each answer checked.
- 13. summary — one JSON line per kernel, the card's name and power
+ 13. gnn_zoo — the rest of the GNN family, every segment sum on K4.
+               (a) ``segment_softmax`` on the card with its denominator
+               on K4 (the reference's three fixtures; an RMAT hub of
+               2,779 in-edges at 8 heads), launched twice (equal bits,
+               one K4 launch a call), within 1e-5 of its plain version in
+               float64.  Then at full width, float32, AdamW, random
+               weights from seed 0: (b) GAT-Cora (2 layers, 8 x 8 heads,
+               1,433 features, 7 classes) on Cora's shape through
+               ``launch/train.py``'s pieces; (c) GAT on a ``minibatch_lg``
+               block (1,024 seeds, fanouts 15 and 10: 169,984 nodes,
+               168,960 slots, d_in 602) drawn on the card by
+               ``GNNSampledStream`` from Reddit's 232,965 nodes (602
+               float32 features on the card, an RMAT topology of edge
+               factor 16 folded onto them), equal bit for bit to the
+               CPU's block for the same draws, the milliseconds to
+               sample one block logged; (d) SchNet (3 interactions, d 64,
+               300 centres) and (e) DimeNet (6 blocks, d 128, 8 bilinear,
+               7 x 6 bases, 131,072 triplet slots; ``build_triplets``'s
+               host seconds and real triplets logged) on the molecule
+               shape (128 graphs of 30 atoms, at most 64 edges each).
+               Each: the first step's loss and every gradient against
+               the CPU's plain path within 1e-4 (1 + |cpu|), a warm-up
+               step, one step with the launch counters set to 0 just
+               before and read just after (K4 alone: 4, 4, 4 and 8
+               launches), 20 timed steps (ms, steps/s, the loss falling,
+               peak memory), one profiled (busy share, top kernels), one
+               with every K4 call recorded and timed beside its bound,
+               its plain version (compared) and ``index_add_``, and the
+               step's model FLOPs (3 x the registry's forward formula).
+ 14. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -1531,14 +1561,15 @@ def sum_segsum_calls(calls) -> dict:
     return out
 
 
-def gnn_cpu_check(cfg, model, loss_fn, batch, dev) -> dict:
-    """The first step's loss and every gradient on the card against the
-    port's CPU plain path, on the same weights and batch; raises past
-    GNN_TOL.  The card's launches here are a comparison, not the main
-    path; the gradients are cleared after."""
+def gnn_cpu_check(cfg, model, loss_fn, batch, dev, arch="gatedgcn",
+                  run="A", tag="gnn_cpu_vs_card") -> dict:
+    """The first step's loss and every gradient of ``arch`` on the card
+    against the port's CPU plain path, on the same weights and batch;
+    raises past GNN_TOL.  The card's launches here are a comparison, not
+    the main path; the gradients are cleared after."""
     from repro_torch.launch.steps import init_for
 
-    cpu_model = init_for("gatedgcn", cfg, 0, "cpu")
+    cpu_model = init_for(arch, cfg, 0, "cpu")
     cpu_model.load_state_dict({k: v.cpu()
                                for k, v in model.state_dict().items()})
     t0 = time.perf_counter()
@@ -1561,10 +1592,10 @@ def gnn_cpu_check(cfg, model, loss_fn, batch, dev) -> dict:
                loss_abs_err=loss_err, grad_max_abs_err=errs[worst],
                grad_worst_param=worst, tol=GNN_TOL,
                within_tol=bool(ok and loss_ok), cpu_seconds=cpu_s)
-    log("gnn_cpu_vs_card", run="A", **out)
+    log(tag, run=run, **out)
     if not out["within_tol"]:
-        raise SystemExit(f"gnn: the card's first step differs from the "
-                         f"CPU's: {out}")
+        raise SystemExit(f"{arch} run {run}: the card's first step differs "
+                         f"from the CPU's: {out}")
     return out
 
 
@@ -3197,6 +3228,267 @@ def audit_phase(dev, main_path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- GNN zoo
+
+#: phase 13 (a): ``segment_softmax``'s fixtures of the reference
+#: (tests/test_segment_ops.py): (scores, ids, N); then an RMAT hub
+SOFTMAX_FIXTURES = [
+    ([1.0, 2.0, 3.0, 1.0], [0, 0, 1, 1], 2),
+    ([float("-inf"), float("-inf"), 1.0, 2.0], [0, 0, 1, 1], 2),
+    ([0.0, 0.0, 100.0], [0, 0, 5], 2),
+]
+#: phase 13 (a)'s hub: the destinations of rmat(14, 8) folded onto
+#: 16,384 segments (the K4 sweep's "rmat" ids: a hub of 2,779 in-edges),
+#: GAT's 8 heads
+SOFTMAX_HUB = (131072, 16384, 8)
+#: phase 13 (a): the card's softmax (its denominator on K4) against the
+#: plain version in float64 on the CPU, |card - plain| <= tol * (1 +
+#: |plain|) on every kept edge
+SOFTMAX_TOL = 1e-5
+
+#: phase 13 (b)-(e): (run, arch, ``launch/train.py`` arguments or None
+#: for the sampled block, K4 launches a forward).  The shapes are the
+#: registry's (configs/gnn.py:GNN_SHAPES): full_graph_sm (Cora),
+#: minibatch_lg (a 1,024-seed block at fanouts 15 and 10) and molecule
+#: (128 graphs of 30 atoms, at most 64 edges each)
+ZOO_RUNS = [
+    ("gat_cora", "gat-cora", ["--gnn-nodes", "2708", "--gnn-edges", "10556"],
+     4),
+    ("gat_minibatch_lg", "gat-cora", None, 4),
+    ("schnet_molecule", "schnet", ["--gnn-nodes", "30", "--gnn-edges", "64",
+                                   "--gnn-graphs", "128"], 4),
+    ("dimenet_molecule", "dimenet", ["--gnn-nodes", "30", "--gnn-edges",
+                                     "64", "--gnn-graphs", "128"], 8),
+]
+#: timed steps of each run after its warm-up and its main path
+ZOO_TIMED = 20
+#: phase 13 (c)'s base graph: Reddit's nodes, an RMAT topology of edge
+#: factor 16 folded onto them as ``configs/data.py:gnn_batch`` folds one
+ZOO_BASE_EF = 16
+
+
+def zoo_softmax(dev) -> dict:
+    """Phase 13 (a): ``segment_softmax`` on the card with its denominator
+    on K4, launched twice (equal bits, one K4 launch a call), against
+    its plain version in float64 on the CPU; exits on a failure."""
+    from repro_torch.graph.segment import segment_softmax
+    from repro_torch.kernels.segsum import ops as segops
+    from repro_torch.kernels.segsum import segsum as k4
+
+    cases = [(f"fixture{i}", torch.tensor(sc, dtype=torch.float32),
+              torch.tensor(ids, dtype=torch.int32), n)
+             for i, (sc, ids, n) in enumerate(SOFTMAX_FIXTURES)]
+    e, n, h = SOFTMAX_HUB
+    g = torch.Generator().manual_seed(0)
+    cases.append(("rmat_hub", torch.randn((e, h), generator=g) * 3,
+                  segsum_ids(None, e, n, "rmat", "cpu"), n))
+    worst = 0.0
+    for name, scores, ids, n in cases:
+        s, i = scores.to(dev), ids.to(dev)
+        lay = segops.build_layout(i, n)
+        before = k4.LAUNCHES["segment_sum"]
+        got = segment_softmax(s, i, n, layout=lay)
+        again = segment_softmax(s, i, n, layout=lay)
+        launched = k4.LAUNCHES["segment_sum"] - before
+        want = segment_softmax(scores.double(), ids, n)
+        keep = (ids >= 0) & (ids < n)
+        diff = (got.cpu().double() - want).abs()[keep]
+        ok = bool((diff <= SOFTMAX_TOL * (1 + want.abs()[keep])).all())
+        err = float(diff.max()) if diff.numel() else 0.0
+        same = bool(torch.equal(got, again))
+        # a dropped row is the caller's to mask (fixture 2's is inf)
+        finite = bool(torch.isfinite(got.cpu()[keep]).all())
+        worst = max(worst, err)
+        longest = int((lay.offsets[1:] - lay.offsets[:-1]).max().item())
+        log("zoo_softmax", case=name, e=scores.shape[0], n=n,
+            heads=scores.shape[1] if scores.dim() > 1 else 1,
+            longest_segment=longest, k4_launches=launched,
+            max_abs_err=err, tol=SOFTMAX_TOL, within_tol=ok,
+            bit_identical=same, finite=finite)
+        if not (ok and same and finite and launched == 2):
+            raise SystemExit(f"segment_softmax {name}: error {err}, "
+                             f"bit-identical {same}, finite {finite}, "
+                             f"{launched} K4 launches (2 expected)")
+    return {"max_abs_err": worst, "cases": len(SOFTMAX_FIXTURES) + 1}
+
+
+def zoo_block(dev, cfg) -> tuple:
+    """Phase 13 (c): the minibatch_lg base graph on the card (Reddit's
+    232,965 nodes and 602 float32 features, an RMAT topology of edge
+    factor 16 folded onto them), one block drawn by ``GNNSampledStream``
+    on the card (checked bit for bit against the same draws on the
+    CPU), as a ``GraphBatch``.  Returns ``(batch, data)``."""
+    from repro_torch.configs.gnn import GNN_SHAPES
+    from repro_torch.graph import generators as gen
+    from repro_torch.graph.csr import from_edges
+    from repro_torch.train.data import GNNSampledStream, block_batch
+
+    shape = GNN_SHAPES["minibatch_lg"]
+    n, seeds, fan = shape["n_nodes"], shape["batch_nodes"], shape["fanout"]
+    t0 = time.perf_counter()
+    scale = int(np.ceil(np.log2(n)))
+    edges, _ = gen.rmat(scale, ZOO_BASE_EF, seed=0)
+    edges = edges % n
+    edges = edges[edges[:, 0] != edges[:, 1]][:ZOO_BASE_EF * n]
+    host_s = time.perf_counter() - t0
+    g = from_edges(edges, n, num_slots=2 * ZOO_BASE_EF * n, device=dev)
+    gen_d = torch.Generator(device=dev).manual_seed(0)
+    feat = torch.randn((n, shape["d_feat"]), generator=gen_d, device=dev)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen_d,
+                           device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stream = GNNSampledStream(g, seeds, fan, n, seed=0)
+    next(stream)                                          # warm-up
+    sample_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        block = next(stream)
+        torch.cuda.synchronize()
+        sample_ms.append((time.perf_counter() - t1) * 1e3)
+    host_graph = SimpleNamespace(row_offsets=g.row_offsets.cpu(),
+                                 dst=g.dst.cpu(), deg=g.deg.cpu())
+    cpu_block = next(GNNSampledStream(host_graph, seeds, fan, n, seed=0,
+                                      cursor=stream.cursor - 1))
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(block, cpu_block))
+    batch = block_batch(block, feat, labels)
+    nodes = block[0]
+    data = dict(base_nodes=n, base_undirected_edges_drawn=int(len(edges)),
+                base_directed_edges=int(g.n_edges_dir.item()),
+                base_max_degree=int(g.deg.max().item()),
+                feature_bytes=feat.numel() * feat.element_size(),
+                host_rmat_seconds=host_s, setup_seconds=setup_s,
+                block_nodes=batch.n_nodes, block_slots=batch.n_edges,
+                block_real_edges=int((block[2] < batch.n_nodes).sum().item()),
+                block_distinct_nodes=int(torch.unique(
+                    nodes[nodes < n]).numel()),
+                sample_ms=sample_ms,
+                median_sample_ms=statistics.median(sample_ms),
+                block_equals_cpu=same)
+    if not same:
+        raise SystemExit("the sampled block on the card differs from the "
+                         "CPU's for the same draws")
+    want = (seeds * (1 + fan[0] + fan[0] * fan[1]),
+            seeds * fan[0] + seeds * fan[0] * fan[1])
+    if (batch.n_nodes, batch.n_edges) != want:
+        raise SystemExit(f"block of {batch.n_nodes} nodes and "
+                         f"{batch.n_edges} slots; expected {want}")
+    del g, feat, labels, stream
+    return batch, data
+
+
+def gnn_zoo_phase(dev, main_path) -> dict:
+    """Phase 13: the rest of the GNN family through K4 (see the module's
+    docstring); ``main_path`` is ``main``'s.  Returns the phase's
+    summary, with K4's sums over each run's recorded step."""
+    import dataclasses
+
+    from repro_torch.configs.gnn import GNN_SHAPES
+    from repro_torch.configs.registry import GNN_FWD_FLOPS, arch_module
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.steps import GNN_MODULES, init_for
+    from repro_torch.models.gnn.common import build_triplets
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    out = {"softmax": zoo_softmax(dev), "runs": {}, "k4": {}}
+    for tag, arch, argv, want in ZOO_RUNS:
+        t_run = time.perf_counter()
+        cfg = arch_module(arch).CONFIG
+        data = {}
+        if argv is None:                  # (c) the sampled block
+            cfg = dataclasses.replace(           # the registry's d_in
+                cfg, d_in=GNN_SHAPES["minibatch_lg"]["d_feat"])
+            batch, data = zoo_block(dev, cfg)
+            loss_fn = GNN_MODULES[arch].loss_fn
+            stream = ltrain.FixedStream(batch)
+        else:
+            args = ltrain.parse_args(["--arch", arch, *argv, "--steps",
+                                      str(ZOO_TIMED + 4), "--device",
+                                      "cuda"])
+            loss_fn, stream = ltrain.build_gnn_pieces(arch, cfg, args)
+            batch = stream.batch
+        n, e = batch.n_nodes, batch.n_edges
+        t = 0
+        if batch.trip_kj is not None:     # (e) the triplet table, timed
+            t = batch.trip_kj.shape[0]
+            src, dst = batch.src.cpu().numpy(), batch.dst.cpu().numpy()
+            t0 = time.perf_counter()
+            kj, ji = build_triplets(src, dst, n, cap=t)
+            data["build_triplets_seconds"] = time.perf_counter() - t0
+            data["triplet_slots"] = t
+            data["real_triplets"] = int((kj < e).sum())
+            if not (np.array_equal(kj, batch.trip_kj.cpu().numpy())
+                    and np.array_equal(ji, batch.trip_ji.cpu().numpy())):
+                raise SystemExit(f"{tag}: the batch's triplets differ from "
+                                 f"build_triplets'")
+        torch.cuda.synchronize()
+        real = batch.dst < n
+        deg = torch.bincount(batch.dst[real].long(), minlength=n)
+        data.update(nodes=n, slots=e, real_edges=int(real.sum().item()),
+                    longest_segment=int(deg.max().item()),
+                    setup_seconds=time.perf_counter() - t_run)
+        log("zoo_data", run=tag, arch=arch, **data)
+        model = init_for(arch, cfg, 0, dev)
+        cpu = gnn_cpu_check(cfg, model, loss_fn, batch, dev, arch=arch,
+                            run=tag, tag="zoo_cpu_vs_card")
+        opt = OptConfig(kind="adamw", lr=3e-4, warmup=10,
+                        total_steps=ZOO_TIMED + 4)
+        trainer = Trainer(loss_fn, model, opt, cfg=cfg, log_every=10**9)
+        first = trainer.fit(stream, 1)                        # warm-up
+        rep, _, _, got, mem = main_path(lambda c: trainer.fit(stream, 1))
+        if got["segment_sum"] != want or any(
+                v for k, v in got.items() if k != "segment_sum"):
+            raise SystemExit(f"{tag}: launched {got}; expected "
+                             f"segment_sum alone, {want} times")
+        timed_rep = trainer.fit(stream, ZOO_TIMED)
+        steps_ms = [s * 1e3 for s in timed_rep["step_seconds"]]
+        history = first["history"] + rep["history"] + timed_rep["history"]
+        if not (np.isfinite(history).all() and history[-1] < history[0]):
+            raise SystemExit(f"{tag}: the loss did not fall: {history}")
+        med = statistics.median(steps_ms)
+        busy_ms, wall_s, top, per = device_busy(
+            lambda: trainer.fit(stream, 1))
+        calls = []
+        record_segsum(lambda: trainer.fit(stream, 1),
+                      lambda m, lay, k: calls.append(time_segsum_call(
+                          m, lay, k)))
+        for i, c in enumerate(calls):
+            log("zoo_k4_launch", run=tag, launch=i, **c)
+        tot = sum_segsum_calls(calls)
+        fwd = GNN_FWD_FLOPS[arch](cfg, n, e, *((t,) if t else ()))
+        line = dict(
+            run=tag, arch=arch, **data, launches=got, memory=mem,
+            step_ms=steps_ms, median_step_ms=med,
+            steps_per_second=1e3 / med, loss_first=history[0],
+            loss_last=history[-1], steps=len(history),
+            device_busy_ms=busy_ms, profiled_seconds=wall_s,
+            busy_share=busy_ms / 1e3 / wall_s,
+            busy_share_of_median_step=busy_ms / med,
+            k4_device_ms=sum(ms for name, ms in per.items()
+                             if "segsum" in name),
+            top_device_ms=top, k4_step=tot,
+            model_fwd_flops=fwd,
+            model_step_flops=3 * fwd,          # the reference's 3 x forward
+            model_step_tflops_per_s=3 * fwd / (med / 1e3) / 1e12,
+            cpu_vs_card=cpu, seconds=time.perf_counter() - t_run)
+        log("zoo_train", **line)
+        if len(calls) != want or not (tot["within_tol"]
+                                      and tot["bit_identical"]):
+            raise SystemExit(f"{tag}: K4 on the recorded launches: "
+                             f"{len(calls)} calls, {tot}")
+        out["runs"][tag] = line
+        out["k4"][tag] = tot
+        del model, trainer, stream, batch, loss_fn, calls
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("zoo_summary", softmax=out["softmax"], k4=out["k4"],
+        seconds=out["seconds"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -3728,7 +4020,29 @@ def main() -> int:
     # ---------------------------------------------------------- 12. audit
     aud = audit_phase(dev, main_path)
 
-    # --------------------------------------------------------- 13. summary
+    # -------------------------------------------------------- 13. gnn_zoo
+    zoo = gnn_zoo_phase(dev, main_path)
+    zk = zoo["k4"]
+    gnn["kernel"].update({
+        "zoo_launches": {k: v["launches"] for k, v in zk.items()},
+        "matches_plain": gnn["kernel"]["matches_plain"] and all(
+            v["within_tol"] for v in zk.values()),
+        "max_abs_err": max(gnn["kernel"]["max_abs_err"],
+                           *(v["max_abs_err"] for v in zk.values())),
+        "max_scaled_err": max(gnn["kernel"]["max_scaled_err"],
+                              *(v["max_scaled_err"] for v in zk.values())),
+        "zoo": {tag: {k: v[k] for k in (
+            "launches", "ms", "host_paced_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "max_abs_err", "max_scaled_err")}
+            for tag, v in zk.items()},
+        "zoo_shape": "phase 13: every K4 launch of one training step of "
+                     "each run, timed and held against its plain version "
+                     "summed in float64: GAT on Cora (F 8, 64, 1, 7) and "
+                     "on a sampled minibatch_lg block, SchNet (F 64 x 3, "
+                     "then 1) and DimeNet (F 128 x 7, then 1) on the "
+                     "molecule shape"})
+
+    # --------------------------------------------------------- 14. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -3744,6 +4058,11 @@ def main() -> int:
         gnn_train={tag: {k: r[k] for k in (
             "median_step_ms", "steps_per_second", "loss_first", "loss_last",
             "memory", "busy_share")} for tag, r in gnn["runs"].items()},
+        gnn_zoo_train={tag: {k: r[k] for k in (
+            "median_step_ms", "steps_per_second", "loss_first", "loss_last",
+            "memory", "busy_share", "model_step_tflops_per_s")}
+            for tag, r in zoo["runs"].items()},
+        gnn_zoo_seconds=zoo["seconds"],
         serve_tc_batch={k: v["median_seconds"]
                         for k, v in stc["batch"].items()},
         serve_tc_graphs_per_second={

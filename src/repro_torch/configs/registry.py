@@ -1,9 +1,10 @@
 """The architectures the port runs, by ``--arch`` name: the counterpart of
 ``repro.configs.registry``'s ``ARCH_MODULES`` and ``arch_module``.
 
-The port serves the dense LMs and trains GatedGCN.  Every other
+The port serves the dense LMs and trains the four GNNs.  Every other
 architecture of the reference raises and names the ROADMAP item that
-brings it.
+brings it.  ``GNN_FWD_FLOPS`` carries the reference's rough forward
+FLOP formulas of the GNNs (``repro.configs.registry._GNN_FWD_FLOPS``).
 """
 from __future__ import annotations
 
@@ -14,15 +15,15 @@ ARCH_MODULES = {
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
     "gatedgcn": "repro_torch.configs.gatedgcn",
+    "gat-cora": "repro_torch.configs.gat_cora",
+    "schnet": "repro_torch.configs.schnet",
+    "dimenet": "repro_torch.configs.dimenet",
 }
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
     "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 13 (MoE)",
     "phi3.5-moe-42b-a6.6b": "ROADMAP Queue 1 item 13 (MoE)",
-    "gat-cora": "ROADMAP Queue 1 item 13 (GAT, with segment_softmax)",
-    "dimenet": "ROADMAP Queue 1 item 13 (DimeNet, with edge_vectors)",
-    "schnet": "ROADMAP Queue 1 item 13 (SchNet, with edge_vectors)",
     "bst": "ROADMAP Queue 1 item 13 (recsys BST)",
     "cover-edge-tc": "ROADMAP Queue 1 item 13 (configs; the engine itself "
                      "is repro_torch.api.TriangleEngine)",
@@ -38,3 +39,42 @@ def arch_module(name: str):
             f"--arch {name} is not ported yet: {NOT_PORTED[name]}")
     raise KeyError(f"unknown --arch {name!r}; the port runs "
                    f"{sorted(ARCH_MODULES)}")
+
+
+# ------------------------------------------------------------------- GNN
+# rough per-layer dense + edge costs of one forward, the reference's
+# formulas: n nodes, e edge slots, t triplet slots (DimeNet)
+
+
+def gatedgcn_fwd_flops(cfg, n: int, e: int) -> int:
+    return cfg.n_layers * (5 * n * cfg.d_hidden ** 2
+                           + 6 * e * cfg.d_hidden) * 2
+
+
+def gat_fwd_flops(cfg, n: int, e: int) -> int:
+    return (n * cfg.d_in * cfg.d_hidden * cfg.n_heads * 2
+            + n * cfg.d_hidden * cfg.n_heads * cfg.n_classes * 2
+            + 8 * e * cfg.d_hidden * cfg.n_heads)
+
+
+def schnet_fwd_flops(cfg, n: int, e: int) -> int:
+    return cfg.n_interactions * (
+        4 * n * cfg.d_hidden ** 2 * 2 + 2 * e * cfg.n_rbf * cfg.d_hidden
+        + 4 * e * cfg.d_hidden)
+
+
+def dimenet_fwd_flops(cfg, n: int, e: int, t: int = 0) -> int:
+    """``t``: the triplet budget of the shape."""
+    return cfg.n_blocks * (
+        2 * t * (cfg.d_hidden * cfg.n_bilinear           # w_kj gather-side
+                 + cfg.n_spherical * cfg.n_radial * cfg.n_bilinear
+                 + cfg.n_bilinear ** 2 * cfg.d_hidden)   # bilinear einsum
+        + 6 * e * cfg.d_hidden ** 2 * 2)
+
+
+GNN_FWD_FLOPS = {
+    "gatedgcn": gatedgcn_fwd_flops,
+    "gat-cora": gat_fwd_flops,
+    "schnet": schnet_fwd_flops,
+    "dimenet": dimenet_fwd_flops,
+}

@@ -5,8 +5,8 @@ steps (``lm_prefill_step``, ``lm_decode_step``) and ``init_for``.
 A training step is the forward, ``loss.backward()`` and ``opt_update``,
 in place on the model and the optimizer state.  The reference's
 gradient accumulation (``accum``) serves its dry-run compiler, which the
-port does not have; LM training and BST wait for ROADMAP Queue 1 item
-13.
+port does not have.  The four GNNs train; LM training and BST wait for
+ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -17,11 +17,17 @@ from torch import nn
 
 from repro_torch.configs.registry import arch_module
 from repro_torch.models import transformer as tfm
+from repro_torch.models.gnn import dimenet as dimenet_m
+from repro_torch.models.gnn import gat as gat_m
 from repro_torch.models.gnn import gatedgcn as gatedgcn_m
+from repro_torch.models.gnn import schnet as schnet_m
 from repro_torch.train.optimizer import OptConfig, opt_update
 
 GNN_MODULES = {
     "gatedgcn": gatedgcn_m,
+    "gat-cora": gat_m,
+    "schnet": schnet_m,
+    "dimenet": dimenet_m,
 }
 
 

@@ -4,9 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \\
       --steps 100 --gnn-nodes 2708 --gnn-edges 10556 --ckpt-dir ckpt
 
-It trains on the card unless ``--device cpu`` is given; without a card
-and without ``--device cpu`` it raises.  Every aggregation of the GNN's
-forward goes through K4 on the card.
+``--arch`` is one of the four GNNs: ``gatedgcn``, ``gat-cora``,
+``schnet`` or ``dimenet`` (the molecular nets get synthesized positions
+and atom types; DimeNet's triplet table is built on the host once, with
+the batch).  It trains on the card unless ``--device cpu`` is given;
+without a card and without ``--device cpu`` it raises.  Every segment
+sum of the GNN's forward goes through K4 on the card.
 
 Fault tolerance: ``--max-restarts N`` wraps the fit loop — on watchdog
 timeout or crash the loop reloads the latest checkpoint and resumes at
@@ -45,12 +48,15 @@ class FixedStream:
 
 def build_gnn_pieces(arch: str, cfg, args):
     """``(loss_fn(model, batch), stream)`` for a GNN on ``args.device``:
-    one synthetic graph (``configs.data.gnn_batch``) served every step."""
+    one synthetic batch (``configs.data.gnn_batch``) served every step:
+    one graph, or ``--gnn-graphs`` small graphs of ``--gnn-nodes`` nodes
+    and at most ``--gnn-edges`` edges each (the molecule shape)."""
     from repro_torch.configs.data import gnn_batch
 
     batch = gnn_batch(
         arch, cfg, n_nodes=args.gnn_nodes, n_edges_und=args.gnn_edges,
-        d_feat=getattr(cfg, "d_in", 16), seed=args.seed, device=args.device,
+        d_feat=getattr(cfg, "d_in", 16), n_graphs=args.gnn_graphs,
+        seed=args.seed, device=args.device,
     )
     return steps_mod.GNN_MODULES[arch].loss_fn, FixedStream(batch)
 
@@ -62,6 +68,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--gnn-nodes", type=int, default=512)
     ap.add_argument("--gnn-edges", type=int, default=2048)
+    ap.add_argument("--gnn-graphs", type=int, default=1,
+                    help="batched small graphs (the molecule shape: 128 "
+                         "graphs of 30 nodes and 64 edges); 1: one graph")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--opt", choices=["adamw", "adafactor"], default="adamw")
     ap.add_argument("--seed", type=int, default=0)

@@ -1,12 +1,14 @@
 """Weights carried across from the reference.
 
-``repro.models.transformer.init_params`` and
-``repro.models.gnn.gatedgcn.init_params`` return pytrees with stacked
-``[L, ...]`` layer leaves; their leaves as numpy arrays (``jax.tree.map(
-np.asarray, params)``) become the port's :class:`TransformerLM` or
-:class:`GatedGCN`, one layer module per slice.  The KV cache has the same ``[L, B, T, Hkv, D]``
-layout in both packages.  The tests use both to hold the port against the
-reference on the same weights.
+``repro.models.transformer.init_params`` and the GNNs' ``init_params``
+return pytrees; their leaves as numpy arrays (``jax.tree.map(
+np.asarray, params)``) become the port's :class:`TransformerLM`,
+:class:`GatedGCN`, :class:`GAT`, :class:`SchNet` or :class:`DimeNet`.
+Stacked ``[L, ...]`` layer or block leaves (scanned in the reference)
+become one module per slice; GAT's per-layer leaves ``W{i}``,
+``a_src{i}``, ``a_dst{i}`` one module per index.  The KV cache has the
+same ``[L, B, T, Hkv, D]`` layout in both packages.  The tests use both
+to hold the port against the reference on the same weights.
 """
 from __future__ import annotations
 
@@ -14,6 +16,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.gnn import dimenet as _dimenet
+from repro_torch.models.gnn import gat as _gat
+from repro_torch.models.gnn import schnet as _schnet
 from repro_torch.models.gnn.gatedgcn import (
     LAYER_LEAVES as _GNN_LEAVES,
     GatedGCN,
@@ -80,6 +85,70 @@ def gatedgcn_params_from_numpy(cfg: GatedGCNConfig, tree: dict,
             _copy(getattr(lp, name), layers[name][i], f"layers.{name}[{i}]")
     for name in ("embed_h", "embed_e", "readout"):
         _copy(getattr(model, name), tree[name], name)
+    return model.to(dev)
+
+
+@torch.no_grad()
+def gat_params_from_numpy(cfg: _gat.GATConfig, tree: dict,
+                          device: str | torch.device = "cuda") -> _gat.GAT:
+    """The reference's GAT parameter tree of ``cfg`` (numpy leaves ``W{i}``,
+    ``a_src{i}``, ``a_dst{i}`` for each layer i) as the port's model on
+    ``device``."""
+    dev = resolve_device(device)
+    model = _gat.GAT(cfg)
+    want = {f"{leaf}{i}" for leaf in _gat.LAYER_LEAVES
+            for i in range(cfg.n_layers)}
+    if set(tree) != want:
+        raise ValueError(f"the tree has leaves {sorted(tree)}; {cfg.name} "
+                         f"has {sorted(want)}")
+    for i, layer in enumerate(model.layers):
+        for leaf in _gat.LAYER_LEAVES:
+            _copy(getattr(layer, leaf), tree[f"{leaf}{i}"], f"{leaf}{i}")
+    return model.to(dev)
+
+
+def _stacked(model, tree: dict, blocks, block_leaves, top_leaves) -> None:
+    """Copy ``tree``'s top leaves and its ``blocks`` subtree (stacked
+    ``[L, ...]`` leaves) into ``model`` and its block modules."""
+    for name in block_leaves:
+        if len(tree["blocks"][name]) != len(blocks):
+            raise ValueError(f"blocks.{name}: {len(tree['blocks'][name])} "
+                             f"blocks, the model has {len(blocks)}")
+    for i, block in enumerate(blocks):
+        for name in block_leaves:
+            _copy(getattr(block, name), tree["blocks"][name][i],
+                  f"blocks.{name}[{i}]")
+    for name in top_leaves:
+        _copy(getattr(model, name), tree[name], name)
+
+
+@torch.no_grad()
+def schnet_params_from_numpy(cfg: _schnet.SchNetConfig, tree: dict,
+                             device: str | torch.device = "cuda"
+                             ) -> _schnet.SchNet:
+    """The reference's SchNet parameter tree of ``cfg`` (numpy leaves:
+    ``embed``, ``head_w1``, ``head_b1``, ``head_w2``, and ``blocks`` with
+    the ``vmap``-initialised ``[L, ...]`` leaves of the interaction
+    blocks) as the port's model on ``device``."""
+    dev = resolve_device(device)
+    model = _schnet.SchNet(cfg)
+    _stacked(model, tree, model.blocks, _schnet.BLOCK_LEAVES,
+             _schnet.TOP_LEAVES)
+    return model.to(dev)
+
+
+@torch.no_grad()
+def dimenet_params_from_numpy(cfg: _dimenet.DimeNetConfig, tree: dict,
+                              device: str | torch.device = "cuda"
+                              ) -> _dimenet.DimeNet:
+    """The reference's DimeNet parameter tree of ``cfg`` (numpy leaves:
+    ``embed``, ``w_edge_in``, ``w_out1``, ``w_out2``, and ``blocks`` with
+    stacked ``[L, ...]`` block leaves) as the port's model on
+    ``device``."""
+    dev = resolve_device(device)
+    model = _dimenet.DimeNet(cfg)
+    _stacked(model, tree, model.blocks, _dimenet.BLOCK_LEAVES,
+             _dimenet.TOP_LEAVES)
     return model.to(dev)
 
 

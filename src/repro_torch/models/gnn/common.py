@@ -5,8 +5,9 @@ edge list in local ids (the sentinel ``n_nodes`` drops out of segment
 ops), optional node features, 3-D positions and atom types for the
 molecular nets, a graph id per node for batched small graphs, and a
 triplet table (k->j, j->i edge-index pairs) for DimeNet, built on the
-host by ``build_triplets``.  ``edge_vectors`` waits for SchNet and
-DimeNet (ROADMAP Queue 1 item 13).
+host by ``build_triplets``.  The molecular nets (SchNet, DimeNet) share
+``edge_vectors`` (each edge's unit vector and length) and
+``graph_readout`` (the per-graph energy sum, through K4).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.segsum.ops import segment_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +90,30 @@ def build_triplets(
     kj[:t] = kj_list
     ji[:t] = ji_list
     return kj, ji
+
+
+def edge_vectors(g: GraphBatch):
+    """``(unit, dist, ok)`` per edge ``j -> i``: the unit vector from
+    ``positions[src]`` to ``positions[dst]`` [E, 3], its length
+    ``sqrt(max(|v|^2, 1e-12))`` [E], and ``ok``, true for a real edge
+    (both ends below ``n_nodes``); a padded edge gets length 1, so
+    nothing downstream divides by 0."""
+    n = g.n_nodes
+    ps = g.positions.index_select(0, g.src.clamp(0, n - 1).long())
+    pd = g.positions.index_select(0, g.dst.clamp(0, n - 1).long())
+    vec = pd - ps
+    dist = torch.sqrt(torch.clamp_min((vec * vec).sum(-1), 1e-12))
+    ok = (g.src < n) & (g.dst < n)
+    dist = torch.where(ok, dist, torch.ones((), dtype=dist.dtype,
+                                            device=dist.device))
+    return vec / dist[:, None], dist, ok
+
+
+def graph_readout(atom_e: torch.Tensor, g: GraphBatch) -> torch.Tensor:
+    """The per-graph sum of ``atom_e`` [N, 1] by ``graph_id`` (all zeros
+    when the batch has none), through K4 as ``[N, 1]``: [n_graphs], with
+    ``n_graphs`` the label count (1 without labels)."""
+    gid = g.graph_id if g.graph_id is not None else torch.zeros(
+        (g.n_nodes,), dtype=torch.int32, device=atom_e.device)
+    num_graphs = int(g.labels.shape[0]) if g.labels is not None else 1
+    return segment_sum(atom_e, gid, num_graphs)[:, 0]

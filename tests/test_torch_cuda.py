@@ -20,8 +20,10 @@ profile loading no library after its prewarm, in a fresh process; K5 against its
 attention, and the LM server going through it, its split decode launched
 twice and equal bit for bit; K4 against its plain segment sum, bit for
 bit across launches and against its chunk-then-carry order in plain
-PyTorch (RMAT hubs, a segment over more than 30 chunks), and a GatedGCN
-training step going through it.
+PyTorch (RMAT hubs, a segment over more than 30 chunks), a GatedGCN
+training step going through it, GAT's edge softmax with its denominator
+on K4, a training step of GAT, SchNet and DimeNet through K4 against the
+CPU, and a sampled block on the card equal to the CPU's.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -861,6 +863,75 @@ def test_gatedgcn_train_step_goes_through_k4_and_matches_the_cpu(
         launched = tsegk.LAUNCHES["segment_sum"] - before
         assert launched == (0 if dev == "cpu" else 2 * cfg.n_layers)
     assert abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + losses["cpu"])
+
+
+def test_segment_softmax_denominator_goes_through_k4(cuda_device):
+    """GAT's edge softmax over an RMAT hub at H = 8 with its denominator
+    on K4: one launch a call, equal bits across launches, within 1e-5 of
+    the plain version summed in float64."""
+    from repro_torch.graph.segment import segment_softmax
+
+    n = 4096
+    edges, _ = gen.rmat(12, 8, seed=0)
+    seg = torch.from_numpy(np.concatenate([edges[:, 1], [n, n]]).astype(
+        np.int32)).to(cuda_device)        # two sentinel (padded) rows
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    scores = torch.randn((seg.shape[0], 8), generator=g, device=cuda_device)
+    lay = tseg.build_layout(seg, n)
+    before = tsegk.LAUNCHES["segment_sum"]
+    got = segment_softmax(scores, seg, n, layout=lay)
+    again = segment_softmax(scores, seg, n, layout=lay)
+    assert tsegk.LAUNCHES["segment_sum"] - before == 2
+    assert torch.equal(got, again)
+    want = segment_softmax(scores.double().cpu(), seg.cpu(), n)
+    keep = (seg < n).cpu()
+    torch.testing.assert_close(got.cpu().double()[keep], want[keep],
+                               rtol=1e-5, atol=1e-5)
+    assert int(torch.bincount(seg[seg < n].long()).max()) >= 256
+
+
+GNN_ZOO = {  # arch -> (smoke config, n_graphs, K4 launches a forward)
+    "gat-cora": (tgnn.GAT_CORA_SMOKE, 1, 4),
+    "schnet": (tgnn.SCHNET_SMOKE, 4, 3),
+    "dimenet": (tgnn.DIMENET_SMOKE, 4, 4),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(GNN_ZOO))
+def test_gnn_zoo_train_step_goes_through_k4_and_matches_the_cpu(
+        cuda_device, arch):
+    cfg, n_graphs, want = GNN_ZOO[arch]
+    batch = tdata.gnn_batch(arch, cfg, n_nodes=60, n_edges_und=180,
+                            d_feat=getattr(cfg, "d_in", 8),
+                            n_graphs=n_graphs, device="cpu")
+    out, losses = {}, {}
+    for dev in ("cpu", cuda_device):
+        model = tsteps.init_for(arch, cfg, 0, dev)
+        out[str(dev)] = model(batch.to(dev)).detach().cpu()
+        step = tsteps.gnn_train_step(arch, cfg, topt.OptConfig())
+        state = topt.opt_init(topt.OptConfig(),
+                              dict(model.named_parameters()))
+        before = tsegk.LAUNCHES["segment_sum"]
+        state, metrics = step(model, state, batch.to(dev))
+        losses[str(dev)] = float(metrics["loss"])
+        launched = tsegk.LAUNCHES["segment_sum"] - before
+        assert launched == (0 if dev == "cpu" else want)
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4,
+                               atol=1e-4)
+    assert abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + losses["cpu"])
+
+
+def test_sampled_block_on_the_card_equals_the_cpu(cuda_device):
+    from repro_torch.train.data import GNNSampledStream
+
+    edges, n = gen.rmat(12, 16, seed=0)
+    blocks = {}
+    for dev in ("cpu", cuda_device):
+        g = from_edges(edges, n, device=dev)
+        blocks[str(dev)] = next(GNNSampledStream(g, 64, (15, 10), n,
+                                                 seed=3))
+    for a, b in zip(blocks["cpu"], blocks["cuda"]):
+        assert b.device.type == "cuda" and torch.equal(a, b.cpu())
 
 
 # ------------------------------------------------------------ batch route

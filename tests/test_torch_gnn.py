@@ -234,7 +234,8 @@ def test_configs_equal_the_reference():
         assert getattr(mod, which) == _port_cfg(getattr(jmod, which))
     assert mod.SHAPES == jmod.SHAPES == tgnn.GNN_SHAPES
     assert mod.FAMILY == "gnn" and "gatedgcn" in ARCH_MODULES
-    assert set(tsteps.GNN_MODULES) == {"gatedgcn"}
+    assert set(tsteps.GNN_MODULES) == {"gatedgcn", "gat-cora", "schnet",
+                                       "dimenet"}
 
 
 def test_graph_batch_to_device():
@@ -370,7 +371,7 @@ def test_train_main_needs_the_card_by_default(monkeypatch):
         tgat.init_params(tgnn.GATEDGCN_SMOKE)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "bst", "gat-cora"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "bst", "qwen2-moe-a2.7b"])
 def test_train_main_refuses_what_is_not_ported(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         ttrain.main(["--arch", arch, "--smoke", "--steps", "1", "--device",

@@ -346,11 +346,12 @@ def test_configs_equal_the_reference(name, which):
 def test_registry_lists_the_dense_lms():
     lms = {a for a in ARCH_MODULES if arch_module(a).FAMILY == "lm"}
     assert lms == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
-    assert set(ARCH_MODULES) == lms | {"gatedgcn"}
+    assert set(ARCH_MODULES) == lms | {"gatedgcn", "gat-cora", "schnet",
+                                       "dimenet"}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
-                                  "gat-cora", "bst"])
+                                  "cover-edge-tc", "bst"])
 def test_unported_archs_raise_naming_the_queue(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         arch_module(arch)
