@@ -4,9 +4,10 @@
 deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
 training, the batch route with its triangle server, the approx route
 with robust serving, distributed Algorithm 2, the trace-driven
-autotuner, the static auditor and the training of GAT, SchNet and
-DimeNet end to end on one NVIDIA H100, through the hand-written Hopper
-kernels K1 to K5.
+autotuner, the static auditor, the training of GAT, SchNet and DimeNet,
+LM training (smollm-135m) and the MoE LM qwen2-moe-a2.7b (served and
+trained) end to end on one NVIDIA H100, through the hand-written Hopper
+kernels K1 to K5 and K5's backward.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -249,7 +250,48 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                with every K4 call recorded and timed beside its bound,
                its plain version (compared) and ``index_add_``, and the
                step's model FLOPs (3 x the registry's forward formula).
- 14. summary — one JSON line per kernel, the card's name and power
+ 14. lm_train — smollm-135m trained at full width and depth (30
+               layers, d_model 576, vocab 49,152; float32, AdamW, random
+               weights from seed 0).  (a) K5's backward against its plain
+               version on the same CUDA tensors, each also against
+               float64, launched twice (equal bits), beside the forward's
+               log-sum-exp against the plain one, SDPA's backward and the
+               bound, at smollm's training shape (B 4, Hq 9, Hkv 3, S = T
+               4,096, D 64), qwen2-moe's (B 2, 16 heads, D 128), a
+               gemma3-1b local layer (D 256, window 512, GQA 4:1) and
+               smollm's in bf16.  (b) The first step on the card against
+               the CPU's plain path on the same weights and a B 1 x S 256
+               batch: the loss and every gradient leaf within 1e-4 (1 +
+               |cpu|), K5's forward twice a layer (remat) and its backward
+               once.  (c) Through ``launch/train.py``'s pieces at B 4 x S
+               4,096 (train_4k's sequence, its global batch cut to 4): a
+               warm-up step, one step with the launch counters set to 0
+               just before and read just after (K5 60, K5's backward 30),
+               20 timed steps (ms, tokens/s, the loss falling, peak
+               memory, model TFLOP/s), one profiled (busy share, K5's
+               forward and backward device ms a step).
+ 15. moe     — qwen2-moe-a2.7b at full width (d_model 2,048, 60 routed
+               experts in 64 slots, top 4, 4 shared as one 5,632-wide GLU;
+               float32, random weights from seed 0, drawn a layer at a
+               time).  (a) Served at full depth (24 layers) through
+               ``launch/serve.py``'s ``serve`` with the default request
+               (batch 4, prompt 32, 16 generated): a warm-up, 3 serves
+               (the first with the launch counters set to 0 just before
+               and read just after: K5 and K4 alone, 24 each a step),
+               the ids equal across them; prefill ms, decode ms a step,
+               tokens/s, peak memory, busy share, the dropped fraction of
+               (token, expert) entries at prefill and at decode (capacity
+               1 there, as in the reference); layer 0's MoE FFN against
+               the CPU on the same weights and input (routing integers
+               equal, output within 1e-4 (1 + |cpu|)); every K4 launch of
+               a prefill and a decode step timed beside its bound, its
+               plain version and ``index_add_``.  (b) Trained at 2 layers
+               (the depth cut for AdamW's memory): the first step against
+               the CPU on a B 1 x S 128 batch as in 14 (b), then as 14 (c)
+               at B 2 x S 4,096 with 10 timed steps (K5 4, its backward 2,
+               K4 4 a step), the aux loss logged, and every K4 launch of
+               one step timed.
+ 16. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -3489,6 +3531,526 @@ def gnn_zoo_phase(dev, main_path) -> dict:
     return out
 
 
+# ------------------------------------------------------------- LM training
+
+#: phase 14: smollm-135m trained at full width and depth, float32, AdamW,
+#: seed 0.  ``batch`` x ``seq``: the repo's train_4k sequence, its global
+#: batch of 256 cut to 4 for one card; ``check``: the short batch of the
+#: first step held against the CPU; ``steps``: timed after one warm-up
+#: and the main path's step
+LM_TRAIN = {"arch": "smollm-135m", "batch": 4, "seq": 4096,
+            "check": (1, 256), "steps": 20}
+
+#: K5's backward against its plain version on the same CUDA tensors, and
+#: each against float64: |kernel - want| <= tol * (1 + |want|).  float32:
+#: sums of up to Hq / Hkv x S rows in other orders (the GNN gate); bf16:
+#: the gradients rounded to bf16 (K5's forward tolerance)
+K5_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+#: K5's backward: (b, hq, hkv, s, d, window, dtype), causal, S = T.
+#: smollm-135m's training shape (the main path's), qwen2-moe-a2.7b's, a
+#: gemma3-1b local layer (D 256, window 512, GQA 4:1), and smollm's in bf16
+K5_BWD_CASES = [
+    (4, 9, 3, 4096, 64, None, torch.float32),
+    (2, 16, 16, 4096, 128, None, torch.float32),
+    (2, 4, 1, 4096, 256, 512, torch.float32),
+    (4, 9, 3, 4096, 64, None, torch.bfloat16),
+]
+
+#: phase 15: qwen2-moe-a2.7b at full width.  ``serve``: the server's
+#: default request (batch, prompt, generated) at full depth; ``train``:
+#: (layers, batch, seq, timed steps) -- the depth cut for AdamW's memory;
+#: ``check``: the short batch of the first training step held against
+#: the CPU
+MOE = {"arch": "qwen2-moe-a2.7b", "serve": (4, 32, 16),
+       "train": (2, 2, 4096, 10), "check": (1, 128)}
+
+
+def attention_bwd_bound(q, k, kw):
+    """K5's backward's least time for one call: ``(bound_ms, bound_by,
+    bytes, flops)``, the larger of (a) q, k, v, o, dO and lse read and dq,
+    dk, dv written once each over HBM's 3.35 TB/s and (b) its five S x T
+    x D products (S, dP, dV, dS^T Q, dS K: 10 D operations) per live
+    (row, key) pair over the card's peak rate for the operands' type:
+    67 TFLOP/s for float32, the tensor cores' 989 for bf16."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    _, _, _, flops_fwd = attention_bound(q, k, kw)   # 4 D per live pair
+    flops = flops_fwd // 4 * 10
+    nbytes = (q.element_size() * (6 * b * hq * s * d + 4 * b * hkv * s * d)
+              + 4 * b * hq * s)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rate = (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
+            else FP32_FLOPS_PER_S)
+    t_ops = flops / rate * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops
+    return t_ops, "operations", nbytes, flops
+
+
+def sdpa_bwd_call(q, k, v, do, kw):
+    """The yardstick: the backward of one ``scaled_dot_product_attention``
+    call with the same boolean mask and GQA (never called by the port)."""
+    qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+    out = sdpa_call(qq, kk, vv, kw)()
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), do,
+                                       retain_graph=True)
+
+
+def k5_bwd_case(q, k, v, kw) -> dict:
+    """K5's backward on one call's operands (random dO): its device and
+    host-paced milliseconds, equal bits across two launches, the plain
+    version's milliseconds and both against it and against float64, the
+    forward's log-sum-exp against the plain one, SDPA's backward and the
+    bound.  These launches are comparisons, not the main path."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref,
+        attention_ref,
+    )
+
+    o, lse = fa.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    _, lse_ref = attention_ref(q, k, v, return_lse=True, **kw)
+    lse_err, lse_ok = within(lse, lse_ref, K5_TOL[torch.float32])
+    same_out = bool(torch.equal(o, fa.flash_attention_fwd(q, k, v, **kw)[0]))
+    do = torch.randn(o.shape, device=q.device).to(q.dtype)
+
+    def run():
+        return fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+
+    got = run()
+    same = all(torch.equal(a, b) for a, b in zip(got, run()))
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    tol = K5_BWD_TOL[q.dtype]
+    errs = [within(a, b, tol) for a, b in zip(got, want)]
+    plain = [within(b, a, tol)[0] for a, b in zip(got, want)]
+    del want
+    want64 = attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                               lse.double(), **kw)
+    errs64 = [within(a, b, tol) for a, b in zip(got, want64)]
+    del want64
+    ms = device_ms(run, reps=3, spin=K5_SPIN * 4)
+    host_ms = cuda_ms(run)
+    lib_ms = device_ms(sdpa_bwd_call(q, k, v, do, kw), reps=3,
+                       spin=K5_SPIN * 4)
+    bound, by, nbytes, flops = attention_bwd_bound(q, k, kw)
+    del got, o, lse, do
+    torch.cuda.empty_cache()
+    return dict(
+        ms=ms, host_paced_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+        max_abs_err=max(e for e, _ in errs),
+        max_abs_err_float64=max(e for e, _ in errs64),
+        within_tol=all(ok for _, ok in errs + errs64),
+        max_abs_err_by_grad=dict(zip(("dq", "dk", "dv"),
+                                     (e for e, _ in errs))),
+        plain_max_abs_err=max(plain), tol=tol, bit_identical=same,
+        lse_max_abs_err=lse_err, lse_within_tol=lse_ok,
+        forward_bits_equal_without_lse=same_out)
+
+
+def lm_step_flops(cfg, b: int, s: int) -> int:
+    """A training step's model FLOPs: 3 x the forward's (the matmuls,
+    2 per weight a token, the unembedding included; K5's 4 D per live
+    causal pair a query head), the MoE layers at their active
+    parameters; the remat recompute is not counted."""
+    d, hq = cfg.d_model, cfg.n_heads * cfg.d_head
+    hk = cfg.n_kv_heads * cfg.d_head
+    ffn = (cfg.moe.active_param_count(d) if cfg.moe is not None
+           else 3 * d * cfg.d_ff)
+    per_layer = 2 * d * hq + 2 * d * hk + ffn
+    pairs = b * cfg.n_heads * s * (s + 1) // 2
+    fwd = (2 * b * s * (cfg.n_layers * per_layer + cfg.vocab * d)
+           + cfg.n_layers * 4 * cfg.d_head * pairs)
+    return 3 * fwd
+
+
+def lm_cpu_check(arch, cfg, model, batch, tag: str) -> dict:
+    """The first training step's loss and every gradient leaf on the card
+    against the port's CPU plain path on the same weights (copied) and
+    batch; raises past GNN_TOL.  The card's launches here are a
+    comparison, not the main path; the gradients are cleared after."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import transformer as tfm
+
+    with torch.device("cpu"):
+        cpu_model = tfm.TransformerLM(cfg)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    tok, lab = batch
+    t0 = time.perf_counter()
+    cpu_loss = tfm.loss_fn(cpu_model, tok.cpu(), lab.cpu())
+    cpu_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    before = dict(fa.LAUNCHES)
+    loss = tfm.loss_fn(model, tok, lab)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in before}
+    errs, ok = {}, True
+    cpu_params = dict(cpu_model.named_parameters())
+    for k, p in model.named_parameters():
+        err, good = within(p.grad.cpu(), cpu_params[k].grad, GNN_TOL)
+        errs[k] = err
+        ok &= good
+        p.grad = None
+    loss_err, loss_ok = within(loss.detach().cpu(), cpu_loss.detach(),
+                               GNN_TOL)
+    worst = max(errs, key=errs.get)
+    out = dict(batch=list(tok.shape), loss_card=loss.item(),
+               loss_cpu=cpu_loss.item(), loss_abs_err=loss_err,
+               grad_max_abs_err=errs[worst], grad_worst_param=worst,
+               leaves=len(errs), tol=GNN_TOL, within_tol=bool(ok and loss_ok),
+               k5_launches=launched, cpu_seconds=cpu_s)
+    log(tag, arch=arch, **out)
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    if not out["within_tol"] or launched != want:
+        raise SystemExit(f"{arch}: the card's first step differs from the "
+                         f"CPU's or did not run K5's backward: {out}")
+    del cpu_model
+    return out
+
+
+def train_run(tag, arch, cfg, model, stream, steps, main_path,
+              want_launches, loss_fn=None):
+    """A warm-up step, one step as a main path (``want_launches`` alone),
+    ``steps`` timed steps (the loss falling), one profiled step (busy
+    share, K5's and K4's device ms by kernel) of ``model`` through the
+    trainer on ``stream``.  Returns ``(the run's line, the trainer)``."""
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    b, s = stream.batch, stream.seq
+    opt = OptConfig(kind="adamw", lr=3e-4, warmup=10, total_steps=steps + 4)
+    trainer = Trainer(loss_fn or lsteps.lm_loss(cfg), model, opt, cfg=cfg,
+                      log_every=10**9)
+    first = trainer.fit(stream, 1)                              # warm-up
+    rep, _, _, got, mem = main_path(lambda c: trainer.fit(stream, 1))
+    if {k: v for k, v in got.items() if v} != want_launches:
+        raise SystemExit(f"{tag}: launched {got}; expected "
+                         f"{want_launches} alone")
+    timed = trainer.fit(stream, steps)
+    steps_ms = [x * 1e3 for x in timed["step_seconds"]]
+    history = first["history"] + rep["history"] + timed["history"]
+    if not (np.isfinite(history).all() and history[-1] < history[0]):
+        raise SystemExit(f"{tag}: the loss did not fall: {history}")
+    med = statistics.median(steps_ms)
+    busy_ms, wall_s, top, per = device_busy(lambda: trainer.fit(stream, 1))
+    flops = lm_step_flops(cfg, b, s)
+    line = dict(
+        run=tag, arch=arch, layers=cfg.n_layers, batch=b, seq=s,
+        params=sum(p.numel() for p in model.parameters()),
+        launches_per_step=got, memory=mem, step_ms=steps_ms,
+        median_step_ms=med, tokens_per_second=b * s / (med / 1e3),
+        loss=history, loss_first=history[0], loss_last=history[-1],
+        device_busy_ms=busy_ms, profiled_seconds=wall_s,
+        busy_share=busy_ms / 1e3 / wall_s,
+        k5_fwd_device_ms=sum(ms for n, ms in per.items()
+                             if "attn_prefill" in n),
+        k5_bwd_device_ms=sum(ms for n, ms in per.items() if "attn_bwd" in n),
+        k4_device_ms=sum(ms for n, ms in per.items() if "segsum" in n),
+        top_device_ms=top, model_step_flops=flops,
+        model_tflops_per_s=flops / (med / 1e3) / 1e12)
+    return line, trainer
+
+
+def lm_train_phase(dev, main_path) -> dict:
+    """Phase 14: smollm-135m trained at full width and depth, every
+    attention's forward and backward through K5 (see the module's
+    docstring); ``main_path`` is ``main``'s.  Returns the phase's summary
+    and the K5 backward's entry of the ``kernels`` line."""
+    from repro_torch.configs.data import lm_batch
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.steps import init_for
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {"cases": []}
+    # 14a. K5's backward against its plain version and float64
+    for b, hq, hkv, s, d, window, dt in K5_BWD_CASES:
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        kw = dict(causal=True, window=window, kv_offset=0)
+        c = dict(b=b, hq=hq, hkv=hkv, s=s, d=d, window=window,
+                 dtype=str(dt), **k5_bwd_case(q, k, v, kw))
+        log("k5_bwd_vs_plain", **c)
+        out["cases"].append(c)
+        if not (c["within_tol"] and c["bit_identical"]
+                and c["lse_within_tol"]
+                and c["forward_bits_equal_without_lse"]):
+            raise SystemExit(f"K5's backward at {(b, hq, hkv, s, d)}, "
+                             f"window {window}, {dt}: {c}")
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # 14b. the first step on the card against the CPU, full width and
+    # depth, a short batch
+    arch = LM_TRAIN["arch"]
+    cfg = arch_module(arch).CONFIG
+    model = init_for(arch, cfg, 0, dev)
+    out["init_seconds"] = model.init_seconds
+    cb, cs = LM_TRAIN["check"]
+    out["cpu_vs_card"] = lm_cpu_check(
+        arch, cfg, model, lm_batch(cfg, cb, cs, 0, device=dev),
+        "lm_train_cpu_vs_card")
+
+    # 14c. the timed steps at B x S through launch/train.py's pieces
+    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    args = ltrain.parse_args(["--arch", arch, "--batch", str(b), "--seq",
+                              str(s), "--steps", str(steps + 4)])
+    loss_fn, stream = ltrain.build_lm_pieces(cfg, args)
+    want = {"flash_attention": 2 * cfg.n_layers,
+            "flash_attention_bwd": cfg.n_layers}
+    line, trainer = train_run("smollm-135m", arch, cfg, model, stream,
+                              steps, main_path, want, loss_fn)
+    log("lm_train", **line)
+    out["run"] = line
+    del model, trainer, stream
+    torch.cuda.empty_cache()
+    main = out["cases"][0]
+    out["kernel"] = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": "none: the reference differentiates "
+                    "src/repro/models/transformer.py:143 (_attend) under "
+                    "XLA; its Pallas K5 has no backward",
+        "launches": line["launches_per_step"]["flash_attention_bwd"],
+        "matches_plain": all(c["within_tol"] for c in out["cases"]),
+        "bit_identical": all(c["bit_identical"] for c in out["cases"]),
+        "max_abs_err": max(c["max_abs_err"] for c in out["cases"]
+                           if c["dtype"] == str(torch.float32)),
+        "max_abs_err_bf16": max(c["max_abs_err"] for c in out["cases"]
+                                if c["dtype"] == str(torch.bfloat16)),
+        **{key: main[key] for key in (
+            "ms", "host_paced_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err_float64")},
+        "step_device_ms": line["k5_bwd_device_ms"],
+        "cases": {f"{c['b']}x{c['hq']}/{c['hkv']}x{c['s']}x{c['d']}"
+                  f"{'w' + str(c['window']) if c['window'] else ''}"
+                  f"{'-bf16' if 'bfloat16' in c['dtype'] else ''}": {
+                      key: c[key] for key in (
+                          "ms", "host_paced_ms", "plain_ms", "library_ms",
+                          "bound_ms", "bound_by", "max_abs_err",
+                          "max_abs_err_float64")}
+                  for c in out["cases"]},
+        "shape": "per launch at smollm-135m's training shape (B 4, Hq 9, "
+                 "Hkv 3, S = T 4,096, D 64, causal, float32), the shape of "
+                 "each of the main path's launches (launches: one training "
+                 "step's, 30 at 30 layers; step_device_ms: their profiled "
+                 "sum); cases: qwen2-moe's (B 2, 16 heads, D 128), a "
+                 "gemma3-1b local layer (D 256, window 512, GQA 4:1) and "
+                 "smollm's in bf16; library: the backward of SDPA with "
+                 "enable_gqa and the same boolean mask",
+    }
+    out["seconds"] = time.perf_counter() - t_phase
+    log("lm_train_summary", **{k: v for k, v in out.items()
+                               if k not in ("run", "cases")})
+    return out
+
+
+def moe_drops(run) -> dict:
+    """``run()`` with each MoE layer's routing recorded: the dropped
+    fraction of the (token, expert) entries of every call, by its token
+    count."""
+    from repro_torch.models import moe as tmoe
+
+    real, seen = tmoe.route, {}
+
+    def spy(router, cfg, tokens, capacity):
+        r = real(router, cfg, tokens, capacity)
+        seen.setdefault(tokens.shape[0], []).append(
+            (int(r.keep.numel()), int((~r.keep).sum().item()), capacity))
+        return r
+
+    tmoe.route = spy
+    try:
+        run()
+    finally:
+        tmoe.route = real
+    return {n: dict(calls=len(v), capacity=v[0][2],
+                    dropped=sum(x[1] for x in v),
+                    entries=sum(x[0] for x in v),
+                    drop_fraction=sum(x[1] for x in v) / sum(x[0] for x in v))
+            for n, v in seen.items()}
+
+
+def moe_layer_check(model, cfg, dev) -> dict:
+    """Layer 0's MoE FFN at full width on the card against the CPU, on the
+    same weights (copied) and a random [4, 32, d_model] input: the
+    routing integers equal, the output and aux loss within GNN_TOL."""
+    from repro_torch.models import moe as tmoe
+
+    leaves = model.layers[0].moe.leaves()
+    cpu_leaves = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                      else {n: t.detach().cpu() for n, t in v.items()})
+                  for k, v in leaves.items()}
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    with torch.no_grad():
+        got, aux = tmoe.moe_ffn(leaves, cfg.moe, x)
+        want, aux_cpu = tmoe.moe_ffn(cpu_leaves, cfg.moe, x.cpu())
+        n = x.shape[0] * x.shape[1]
+        cap = tmoe.capacity_for(cfg.moe, n)
+        r = tmoe.route(leaves["router"], cfg.moe, x.reshape(n, -1), cap)
+        rc = tmoe.route(cpu_leaves["router"], cfg.moe,
+                        x.cpu().reshape(n, -1), cap)
+    top = rc.probs.sort(-1, descending=True).values
+    k = cfg.moe.top_k
+    same = {f: bool(torch.equal(getattr(r, f).cpu(), getattr(rc, f)))
+            for f in ("expert_idx", "se", "stok", "pos", "keep")}
+    err, ok = within(got.cpu(), want, GNN_TOL)
+    aux_err, aux_ok = within(aux.cpu(), aux_cpu, GNN_TOL)
+    out = dict(tokens=n, capacity=cap, max_abs_err=err, aux_abs_err=aux_err,
+               tol=GNN_TOL, within_tol=bool(ok and aux_ok),
+               routing_equal=same,
+               smallest_topk_gap=float((top[:, k - 1] - top[:, k]).min()),
+               dropped=int((~rc.keep).sum()))
+    log("moe_layer_cpu_vs_card", **out)
+    if not (out["within_tol"] and all(same.values())):
+        raise SystemExit(f"the MoE layer on the card differs from the "
+                         f"CPU's: {out}")
+    return out
+
+
+def moe_phase(dev, main_path) -> dict:
+    """Phase 15: qwen2-moe-a2.7b at full width, served at full depth and
+    trained at 2 layers, every expert combine on K4 (see the module's
+    docstring); ``main_path`` is ``main``'s.  Returns the phase's summary
+    with K4's MoE entries."""
+    import dataclasses
+
+    from repro_torch.configs.data import lm_batch
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.serve import prompt_tokens, serve
+    from repro_torch.launch.steps import init_for
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    arch = MOE["arch"]
+    cfg = arch_module(arch).CONFIG
+    out = {"k4": {}}
+    # 15a. serving at full depth through launch/serve.py's path
+    model = init_for(arch, cfg, 0, dev)
+    torch.cuda.synchronize()
+    out["draw_seconds"] = model.init_seconds
+    out["params"] = sum(p.numel() for p in model.parameters())
+    out["weight_bytes"] = sum(p.numel() * p.element_size()
+                              for p in model.parameters())
+    b, p, gen = MOE["serve"]
+    tokens = prompt_tokens(cfg, b, p, dev)
+    serve(model, tokens, gen)                                   # warm-up
+    first, _, _, got, mem = main_path(lambda c: serve(model, tokens, gen))
+    want = {"flash_attention": cfg.n_layers * gen,
+            "segment_sum": cfg.n_layers * gen}
+    if {k: v for k, v in got.items() if v} != want:
+        raise SystemExit(f"{arch} serve: launched {got}; expected {want}")
+    runs = [first] + [serve(model, tokens, gen) for _ in range(2)]
+    same_ids = all(torch.equal(r.ids, first.ids) for r in runs)
+    finite = all(bool(torch.isfinite(r.logits).all()) for r in runs)
+    drops = moe_drops(lambda: serve(model, tokens, gen))
+    busy_ms, wall_s, top, per = device_busy(lambda: serve(model, tokens,
+                                                          gen))
+    steps = gen - 1
+    line = dict(
+        arch=arch, layers=cfg.n_layers, batch=b, prompt=p, generated=gen,
+        launches=got, launches_per_token={
+            k: v / (b * gen) for k, v in got.items() if v},
+        launches_per_step={k: v / gen for k, v in got.items() if v},
+        memory=mem, prefill_ms=[r.prefill_s * 1e3 for r in runs],
+        median_prefill_ms=statistics.median(r.prefill_s
+                                            for r in runs) * 1e3,
+        median_decode_ms_per_step=statistics.median(
+            r.decode_s for r in runs) / steps * 1e3,
+        decode_tokens_per_second=statistics.median(
+            b * steps / r.decode_s for r in runs),
+        drop_fraction={"prefill": drops[b * p]["drop_fraction"],
+                       "decode": drops[b]["drop_fraction"]},
+        drops=drops, ids_equal_across_runs=same_ids, finite=finite,
+        device_busy_ms=busy_ms, profiled_seconds=wall_s,
+        busy_share=busy_ms / 1e3 / wall_s,
+        k4_device_ms=sum(ms for n, ms in per.items() if "segsum" in n),
+        k5_device_ms=sum(ms for n, ms in per.items() if "attn_" in n),
+        top_device_ms=top, ids0=first.ids[0].tolist())
+    log("moe_serve", **line)
+    if not (same_ids and finite):
+        raise SystemExit(f"{arch} serve: ids differ across runs or logits "
+                         f"are not finite")
+    out["serve"] = line
+    out["layer_check"] = moe_layer_check(model, cfg, dev)
+    # K4 at the serving shapes: every launch of a prefill and one decode
+    # step, each timed and held against its plain version
+    calls = []
+    record_segsum(lambda: serve(model, tokens, 2),
+                  lambda m, lay, k: calls.append(time_segsum_call(m, lay,
+                                                                  k)))
+    for tag, rows in (("prefill", b * p * cfg.moe.top_k),
+                      ("decode", b * cfg.moe.top_k)):
+        mine = [c for c in calls if c["e"] == rows]
+        out["k4"][tag] = sum_segsum_calls(mine)
+        out["k4"][tag].update(e=rows, f=cfg.d_model)
+        log("moe_k4", part=tag, **out["k4"][tag])
+    del model, tokens, first, runs
+    torch.cuda.empty_cache()
+
+    # 15b. training at 2 layers: the first step against the CPU, then the
+    # timed steps at B x S through launch/train.py's pieces
+    layers, tb, ts, tsteps = MOE["train"]
+    cfg2 = dataclasses.replace(cfg, n_layers=layers)
+    model = init_for(arch, cfg2, 0, dev)
+    out["train_draw_seconds"] = model.init_seconds
+    cb, cs = MOE["check"]
+    out["cpu_vs_card"] = lm_cpu_check(
+        arch, cfg2, model, lm_batch(cfg2, cb, cs, 0, device=dev),
+        "moe_train_cpu_vs_card")
+    args = ltrain.parse_args(["--arch", arch, "--batch", str(tb), "--seq",
+                              str(ts), "--steps", str(tsteps + 4)])
+    _, stream = ltrain.build_lm_pieces(cfg2, args)
+    auxes = []
+
+    def loss_fn(m, tok, lab):   # the reference's loss, its aux kept
+        logits, aux = m(tok)
+        auxes.append(aux.detach())
+        return tfm.softmax_xent(logits, lab) + 0.01 * aux
+
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "segment_sum": 2 * layers}
+    line, trainer = train_run(f"{arch}-{layers}-layers", arch, cfg2, model,
+                              stream, tsteps, main_path, want, loss_fn)
+    line["aux_loss"] = [float(a) for a in auxes]
+    log("moe_train", **line)
+    out["train"] = line
+    calls = []
+    record_segsum(lambda: trainer.fit(stream, 1),
+                  lambda m, lay, k: calls.append(time_segsum_call(m, lay,
+                                                                  k)))
+    out["k4"]["train"] = sum_segsum_calls(calls)
+    out["k4"]["train"].update(e=tb * ts * cfg.moe.top_k, f=cfg.d_model)
+    log("moe_k4", part="train", **out["k4"]["train"])
+    bad = [t for t, v in out["k4"].items()
+           if not (v["within_tol"] and v["bit_identical"] and v["launches"])]
+    if bad:
+        raise SystemExit(f"K4 at the MoE shapes: {bad}: {out['k4']}")
+    del model, trainer, stream
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("moe_summary", **{k: v for k, v in out.items()
+                          if k not in ("serve", "train")})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -4042,7 +4604,41 @@ def main() -> int:
                      "then 1) and DimeNet (F 128 x 7, then 1) on the "
                      "molecule shape"})
 
-    # --------------------------------------------------------- 14. summary
+    # ------------------------------------------------------- 14. lm_train
+    lmt = lm_train_phase(dev, main_path)
+    lm["kernel"].update({
+        "train_launches_per_step": lmt["run"]["launches_per_step"][
+            "flash_attention"],
+        "train_step_device_ms": lmt["run"]["k5_fwd_device_ms"],
+        "train_lse_max_abs_err": max(c["lse_max_abs_err"]
+                                     for c in lmt["cases"])})
+
+    # ------------------------------------------------------------ 15. moe
+    moe = moe_phase(dev, main_path)
+    lm["kernel"]["moe_serve_launches"] = moe["serve"]["launches"][
+        "flash_attention"]
+    gnn["kernel"].update({
+        "moe_launches": {"serve": moe["serve"]["launches"]["segment_sum"],
+                         "train_step": moe["train"]["launches_per_step"][
+                             "segment_sum"]},
+        "matches_plain": gnn["kernel"]["matches_plain"] and all(
+            v["within_tol"] for v in moe["k4"].values()),
+        "max_scaled_err": max(gnn["kernel"]["max_scaled_err"],
+                              *(v["max_scaled_err"]
+                                for v in moe["k4"].values())),
+        "moe": {tag: {k: v[k] for k in (
+            "e", "f", "launches", "ms", "host_paced_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_scaled_err")} for tag, v in moe["k4"].items()},
+        "moe_shape": "phase 15: qwen2-moe-a2.7b's expert combine (T tokens "
+                     "of T x 4 rows, F = d_model 2,048): every launch of a "
+                     "prefill of 4 x 32 tokens (512 rows) and of one decode "
+                     "step (16 rows) at full depth, and of one 2-layer "
+                     "training step of 2 x 4,096 tokens (32,768 rows), "
+                     "each timed and held against its plain version "
+                     "summed in float64"})
+
+    # --------------------------------------------------------- 16. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -4063,6 +4659,20 @@ def main() -> int:
             "memory", "busy_share", "model_step_tflops_per_s")}
             for tag, r in zoo["runs"].items()},
         gnn_zoo_seconds=zoo["seconds"],
+        lm_train={k: lmt["run"][k] for k in (
+            "median_step_ms", "tokens_per_second", "loss_first",
+            "loss_last", "memory", "busy_share", "model_tflops_per_s",
+            "launches_per_step", "k5_fwd_device_ms", "k5_bwd_device_ms")},
+        lm_train_seconds=lmt["seconds"],
+        moe_serve={k: moe["serve"][k] for k in (
+            "median_prefill_ms", "median_decode_ms_per_step",
+            "decode_tokens_per_second", "memory", "busy_share",
+            "launches_per_token", "drop_fraction")},
+        moe_train={k: moe["train"][k] for k in (
+            "median_step_ms", "tokens_per_second", "loss_first",
+            "loss_last", "memory", "busy_share", "launches_per_step",
+            "k4_device_ms")},
+        moe_draw_seconds=moe["draw_seconds"], moe_seconds=moe["seconds"],
         serve_tc_batch={k: v["median_seconds"]
                         for k, v in stc["batch"].items()},
         serve_tc_graphs_per_second={
@@ -4272,7 +4882,7 @@ def main() -> int:
                  f"{DIST_P} shards of the card (main_path_launches: the "
                  f"warm-up run's; the rest: each launch of one more run, "
                  f"timed, bounded and sampled against the plain version)",
-    }, gnn["kernel"], lm["kernel"]]
+    }, gnn["kernel"], lm["kernel"], lmt["kernel"]]
     print(json.dumps({"kernels": kernels}))
     print(sh("nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"))

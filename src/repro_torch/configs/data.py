@@ -3,9 +3,11 @@
 
 ``gnn_batch`` makes the same numpy draws as the reference, so its
 arrays equal the reference's byte for byte; the edges are packed on the
-batch's device by ``graph.csr.from_edges``.  ``lm_batch`` and
-``bst_batch`` draw from ``jax.random`` in the reference and wait for LM
-training and BST (ROADMAP Queue 1 item 13).
+batch's device by ``graph.csr.from_edges``.  ``lm_batch`` draws its
+tokens from ``models.layers.seeded_generator(seed, cursor)``: the
+reference's ``jax.random`` draws cannot be reproduced, so the tokens
+differ from its (a deliberate difference).  ``bst_batch`` waits for the
+recsys BST (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -16,6 +18,18 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import generators as gen
 from repro_torch.graph.csr import from_edges
 from repro_torch.models.gnn.common import GraphBatch, build_triplets
+from repro_torch.models.layers import seeded_generator
+
+
+def lm_batch(cfg, batch: int, seq: int, seed: int = 0, *, cursor: int = 0,
+             device: str | torch.device = "cuda"):
+    """``(tokens, labels)``, int64 [batch, seq] each on ``device``: a
+    pure function of ``(seed, cursor)``; uniform ids in ``[0, vocab)``
+    drawn on the CPU, ``labels`` the tokens shifted by one."""
+    gen = seeded_generator(seed, cursor)
+    toks = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=gen)
+    toks = toks.to(resolve_device(device))
+    return toks[:, :-1], toks[:, 1:]
 
 
 def gnn_batch(

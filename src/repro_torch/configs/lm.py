@@ -1,12 +1,15 @@
-"""The dense LM architectures the port serves (exact public configs), the
-counterparts of ``repro.configs.lm``'s dense entries.
+"""The LM architectures the port trains and serves (exact public
+configs), the counterparts of ``repro.configs.lm``'s entries.
 
 ``*_SMOKE`` variants shrink width, depth and vocab only: the same code
-paths and family pattern (GQA ratios, gemma3's 5:1 local:global).  The
-MoE configs (qwen2-moe, phi3.5-moe) wait for ROADMAP Queue 1 item 13.
+paths and family pattern (GQA ratios, gemma3's 5:1 local:global, MoE
+top-k).  The reference's ``OPT`` knobs (chunked attention, bf16
+compute, the a2a dispatch) are execution settings of its TPU runs and
+are not carried.
 """
 from __future__ import annotations
 
+from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
 # [hf:HuggingFaceTB/SmolLM-135M; hf] — llama-arch small
@@ -43,4 +46,33 @@ GEMMA3_1B_SMOKE = LMConfig(
     name="gemma3-1b-smoke", n_layers=6, d_model=96, n_heads=2, n_kv_heads=1,
     d_head=48, d_ff=384, vocab=512, act="gelu", window=16, global_every=6,
     qk_norm=True,
+)
+
+# [hf:Qwen/Qwen1.5-MoE-A2.7B; hf] — 60 routed top-4 + 4 shared (4x1408 GLU)
+QWEN2_MOE_A2_7B = LMConfig(
+    name="qwen2-moe-a2.7b", n_layers=24, d_model=2048, n_heads=16,
+    n_kv_heads=16, d_head=128, d_ff=5632, vocab=151936, act="silu",
+    rope_theta=1_000_000.0, tie_embeddings=False,
+    moe=MoEConfig(n_experts=60, top_k=4, d_ff_expert=1408,
+                  d_ff_shared=5632, capacity_factor=1.25,
+                  pad_experts_to=64),  # the reference's 64 slots
+)
+QWEN2_MOE_SMOKE = LMConfig(
+    name="qwen2-moe-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+    d_head=16, d_ff=128, vocab=256, act="silu", tie_embeddings=False,
+    moe=MoEConfig(n_experts=8, top_k=4, d_ff_expert=32, d_ff_shared=128),
+)
+
+# [hf:microsoft/Phi-3.5-MoE-instruct; hf] — 16 experts top-2
+PHI35_MOE = LMConfig(
+    name="phi3.5-moe-42b-a6.6b", n_layers=32, d_model=4096, n_heads=32,
+    n_kv_heads=8, d_head=128, d_ff=6400, vocab=32064, act="silu",
+    rope_theta=10_000.0, tie_embeddings=False,
+    moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=6400,
+                  capacity_factor=1.25),
+)
+PHI35_MOE_SMOKE = LMConfig(
+    name="phi3.5-moe-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+    d_head=16, d_ff=128, vocab=256, act="silu", tie_embeddings=False,
+    moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64),
 )

@@ -1,10 +1,11 @@
 """The architectures the port runs, by ``--arch`` name: the counterpart of
 ``repro.configs.registry``'s ``ARCH_MODULES`` and ``arch_module``.
 
-The port serves the dense LMs and trains the four GNNs.  Every other
-architecture of the reference raises and names the ROADMAP item that
-brings it.  ``GNN_FWD_FLOPS`` carries the reference's rough forward
-FLOP formulas of the GNNs (``repro.configs.registry._GNN_FWD_FLOPS``).
+The port trains and serves the LMs (dense and MoE) and trains the four
+GNNs.  Every other architecture of the reference raises and names the
+ROADMAP item that brings it.  ``GNN_FWD_FLOPS`` carries the reference's
+rough forward FLOP formulas of the GNNs
+(``repro.configs.registry._GNN_FWD_FLOPS``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ ARCH_MODULES = {
     "smollm-135m": "repro_torch.configs.smollm_135m",
     "gemma3-4b": "repro_torch.configs.gemma3_4b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2_7b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi35_moe",
     "gatedgcn": "repro_torch.configs.gatedgcn",
     "gat-cora": "repro_torch.configs.gat_cora",
     "schnet": "repro_torch.configs.schnet",
@@ -22,8 +25,6 @@ ARCH_MODULES = {
 
 #: the reference's other architectures -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "qwen2-moe-a2.7b": "ROADMAP Queue 1 item 13 (MoE)",
-    "phi3.5-moe-42b-a6.6b": "ROADMAP Queue 1 item 13 (MoE)",
     "bst": "ROADMAP Queue 1 item 13 (recsys BST)",
     "cover-edge-tc": "ROADMAP Queue 1 item 13 (configs; the engine itself "
                      "is repro_torch.api.TriangleEngine)",

@@ -31,6 +31,8 @@ BUILD_DIR = _PKG.parents[2] / "build"
 SOURCES = {
     "intersect": _PKG / "intersect" / "csrc" / "intersect.cu",
     "flash_attention": _PKG / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _PKG / "flash_attention" / "csrc"
+    / "flash_attention_bwd.cu",
     "segsum": _PKG / "segsum" / "csrc" / "segsum.cu",
 }
 

@@ -65,6 +65,12 @@
 // Both forms give the same bits on the same operands: no atomics, and
 // every sum runs in a fixed order.
 //
+// For training, a prefill launch can also write each query row's
+// log-sum-exp (m + log l, in units of the scaled scores; +inf for a row
+// with no live key) to a float32 [B, Hq, S] buffer, which K5's backward
+// (flash_attention_bwd.cu) reads.  With a null pointer nothing is
+// written and the launch is the serving one.
+//
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes).  The entry point launches on the given stream, allocates
 // nothing, sets each kernel's shared-memory limit once, and returns
@@ -96,7 +102,13 @@ struct Args {
   // live keys, i < n_splits, and the float32 scratch of their parts
   int split_start, split_len, n_splits;
   float* part;
+  float* lse;  // prefill: [B, Hq, S] log-sum-exp of each row, or null
 };
+
+// the log-sum-exp of a row from its running max and sum
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
 
 // ------------------------------------------------------------- helpers
 
@@ -399,10 +411,14 @@ __global__ void __launch_bounds__(kFmaWarps * kWarp)
   float* og = static_cast<float*>(a.o) + b * a.o_b;
 #pragma unroll
   for (int r = 0; r < kRpw; ++r) {
-    const float denom = fmaxf(warp_sum(l[r]), 1e-30f);
+    const float sum = warp_sum(l[r]);
+    const float denom = fmaxf(sum, 1e-30f);
     if (!valid[r]) continue;
     const int row = row0 + warp * kRpw + r;
     const int h = kvh * a.group + row % a.group;
+    if (a.lse != nullptr && lane == 0)
+      a.lse[(static_cast<long long>(b) * a.hq + h) * a.s_len + row / a.group] =
+          row_lse(m[r], sum);
     float* orow =
         og + h * a.o_h + static_cast<long long>(row / a.group) * a.o_s;
 #pragma unroll
@@ -625,7 +641,11 @@ __global__ void __launch_bounds__(Tiled<D>::kWarps * kWarp)
     const float denom = fmaxf(sum, 1e-30f);
     if (!valid[i]) continue;
     const int row = wrow + 4 * g + i;
-    float* orow = og + (kvh * a.group + row % a.group) * a.o_h +
+    const int h = kvh * a.group + row % a.group;
+    if (a.lse != nullptr && c4 == 0)
+      a.lse[(static_cast<long long>(b) * a.hq + h) * a.s_len + row / a.group] =
+          row_lse(m[i], sum);
+    float* orow = og + h * a.o_h +
                   static_cast<long long>(row / a.group) * a.o_s + 4 * c4;
 #pragma unroll
     for (int u = 0; u < kDl / 4; ++u)
@@ -843,7 +863,11 @@ __global__ void __launch_bounds__(Mma<D>::kWarps * kWarp)
     const float denom = fmaxf(sum, 1e-30f);
     if (!valid[h]) continue;
     const int row = wrow + g + 8 * h;
-    T* orow = og + (kvh * a.group + row % a.group) * a.o_h +
+    const int head = kvh * a.group + row % a.group;
+    if (a.lse != nullptr && t == 0)
+      a.lse[(static_cast<long long>(b) * a.hq + head) * a.s_len +
+            row / a.group] = row_lse(m[h], sum);
+    T* orow = og + head * a.o_h +
               static_cast<long long>(row / a.group) * a.o_s;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
@@ -1074,7 +1098,7 @@ cudaError_t allow_smem(K* kernel, size_t bytes) {
 
 template <int D, typename T>
 int launch(const Args& a, int batch, int hkv, cudaStream_t st) {
-  if (a.s_len == 1) {
+  if (a.s_len == 1 && a.lse == nullptr) {
     using C = Decode<D, T>;
     static const cudaError_t attr = allow_smem(attn_decode<D, T>, C::kSmem);
     if (attr != cudaSuccess) return attr;
@@ -1137,7 +1161,9 @@ extern "C" {
 // otherwise float32.  window <= 0 means no window.  A decode step (S = 1)
 // also takes its splits of the live keys (split_start, split_len,
 // n_splits) and float32 scratch part [B * Hq][n_splits * 2][D + 2]; the
-// prefill ignores them.  Returns a cudaError_t (0 = launched).
+// prefill ignores them.  Given a non-null lse, float32 [B, Hq, S]
+// contiguous, the launch is a prefill whatever S is and writes each
+// row's log-sum-exp there.  Returns a cudaError_t (0 = launched).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, long long q_b, long long q_h,
                            long long q_s, long long k_b, long long k_h,
@@ -1147,13 +1173,15 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            int s_len, int t_len, int d, int is_bf16,
                            int causal, int window, int kv_offset,
                            float scale, int split_start, int split_len,
-                           int n_splits, void* part, void* stream) {
+                           int n_splits, void* part, void* lse,
+                           void* stream) {
   if (batch <= 0 || s_len <= 0 || hkv <= 0 || hq % hkv != 0) return 0;
   const Args a{q,     k,          v,         o,     q_b,      q_h,
                q_s,   k_b,        k_h,       k_t,   v_b,      v_h,
                v_t,   o_b,        o_h,       o_s,   s_len,    t_len,
                hq / hkv, hq,      causal,    window, kv_offset, scale,
-               split_start, split_len, n_splits, static_cast<float*>(part)};
+               split_start, split_len, n_splits, static_cast<float*>(part),
+               static_cast<float*>(lse)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(a, d, batch, hkv, st)
                  : dispatch<float>(a, d, batch, hkv, st);

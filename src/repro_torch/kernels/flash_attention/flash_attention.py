@@ -22,6 +22,17 @@ scratch allocated here, and a second launch merges them in order;
 :func:`~repro_torch.kernels.flash_attention.ref.attention_split_ref` is
 that split-then-combine in plain PyTorch.  Either is one call and one
 count in ``LAUNCHES``.
+
+Training: when a gradient is wanted (grad mode on and q, k or v requires
+grad), :func:`flash_attention` goes through :class:`FlashAttention`, whose
+forward asks the prefill launch for each row's log-sum-exp and whose
+backward is K5's backward (``csrc/flash_attention_bwd.cu``, launched by
+:func:`flash_attention_bwd`: three launches, one count in
+``LAUNCHES["flash_attention_bwd"]``) on the card, or
+:func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref` on the
+CPU.  The backward takes S = T and ``kv_offset`` 0 (training never
+decodes).  Without a gradient the launch is the serving one, with no
+log-sum-exp.
 """
 from __future__ import annotations
 
@@ -29,10 +40,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref,
+    attention_ref,
+)
 
 #: kernel name -> number of times it was launched in this process
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: head widths the kernel is instantiated for
 HEAD_DIMS = (32, 48, 64, 128, 256)
@@ -49,19 +63,22 @@ DECODE_TARGET_BLOCKS = 2 * 132
 _DTYPES = (torch.float32, torch.bfloat16)
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = [_P, _P, _P, _P, *([_L] * 12), *([_I] * 10), ctypes.c_float,
-             _I, _I, _I, _P, _P]
-_FN: list = []
+             _I, _I, _I, _P, _P, _P]
+_BWD_ARGTYPES = [*([_P] * 10), *([_L] * 24), *([_I] * 8), ctypes.c_float,
+                 _P]
+_FN: dict = {}
 
 
-def _launcher():
-    if not _FN:
+def _launcher(bwd: bool = False):
+    key = "flash_attention_bwd" if bwd else "flash_attention"
+    if key not in _FN:
         from repro_torch.kernels.build import library
 
-        fn = library("flash_attention").flash_attention_launch
-        fn.argtypes = _ARGTYPES
+        fn = getattr(library(key), f"{key}_launch")
+        fn.argtypes = _BWD_ARGTYPES if bwd else _ARGTYPES
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FN[key] = fn
+    return _FN[key]
 
 
 def _check(q, k, v, window) -> None:
@@ -160,24 +177,69 @@ def flash_attention(
     sits at position ``i + kv_offset`` and sees key t when ``t <= pos``
     (``causal``) and ``pos - t < window`` (when given).  ``kv_offset`` and
     ``window`` are plain run-time ints: a decode step's position changes
-    every step and rebuilds nothing."""
+    every step and rebuilds nothing.  Differentiable through
+    :class:`FlashAttention` when grad mode is on and q, k or v requires
+    grad."""
     _check(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, causal, window, kv_offset,
+                                    scale)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               kv_offset=kv_offset, scale=scale)[0]
+
+
+class FlashAttention(torch.autograd.Function):
+    """K5 with its gradient: the forward saves q, k, v, the output and
+    each row's log-sum-exp; the backward is :func:`flash_attention_bwd`
+    (K5's backward on the card, its plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_offset, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, kv_offset=kv_offset,
+                                       scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = dict(causal=causal, window=window, kv_offset=kv_offset,
+                      scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, grad_out, lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_fwd(q, k, v, *, causal=True, window=None, kv_offset=0,
+                        scale=None, with_lse=False):
+    """``(out, lse)`` with no autograd: the plain version on CPU tensors,
+    else one K5 launch; ``lse``, each row's log-sum-exp (float32
+    [B, Hq, S]), only when ``with_lse`` (a prefill launch that also
+    writes it; S = T and ``kv_offset`` 0, as the backward needs), else
+    None."""
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             kv_offset=kv_offset, scale=scale)
+        res = attention_ref(q, k, v, causal=causal, window=window,
+                            kv_offset=kv_offset, scale=scale,
+                            return_lse=with_lse)
+        return res if with_lse else (res, None)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     check_kernel_operands(q, k, v)
     b, hq, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
+    if with_lse:
+        check_backward_operands(q, k, kv_offset)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
     out = torch.empty((b, s, hq, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if b == 0 or s == 0:
-        return out
+        return out, lse
     scale = scale if scale is not None else d ** -0.5
     split, part = (0, 0, 0), None
-    if s == 1:
+    if s == 1 and not with_lse:
         units = b * hkv * -(-(hq // hkv) // DECODE_ROWS)
         split = decode_splits(t, int(kv_offset), causal=causal,
                               window=window, units=units, d=d)
@@ -192,11 +254,91 @@ def flash_attention(
             int(q.dtype == torch.bfloat16), int(causal),
             0 if window is None else int(window), int(kv_offset),
             float(scale), *split, 0 if part is None else part.data_ptr(),
-            stream,
+            0 if lse is None else lse.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"flash_attention launch failed: cudaError {err} (B={b}, "
             f"Hq={hq}, Hkv={hkv}, S={s}, T={t}, D={d}, {q.dtype})")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def check_backward_operands(q, k, kv_offset: int) -> None:
+    """Raise on what K5's backward does not take: S != T or a
+    ``kv_offset``.  At S = T with ``kv_offset`` 0 every query row sees at
+    least its own key, so no row's log-sum-exp is empty."""
+    s, t = q.shape[2], k.shape[2]
+    if s != t or int(kv_offset) != 0:
+        raise ValueError(f"K5's backward takes S = T and kv_offset 0 (a "
+                         f"training forward); got S={s}, T={t}, "
+                         f"kv_offset={kv_offset}")
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,     # [B, Hq, S, D]
+    k: torch.Tensor,     # [B, Hkv, T, D]
+    v: torch.Tensor,
+    o: torch.Tensor,     # [B, Hq, S, D], the forward's output
+    do: torch.Tensor,    # [B, Hq, S, D], its gradient
+    lse: torch.Tensor,   # float32 [B, Hq, S], the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    kv_offset: int = 0,
+    scale: float | None = None,
+):
+    """``(dq, dk, dv)`` of :func:`flash_attention`, each in its input's
+    dtype: :func:`~repro_torch.kernels.flash_attention.ref.attention_bwd_ref`
+    on CPU tensors; on CUDA tensors K5's backward (three launches, one
+    count) or an error.  ``dq`` is the ``[B, Hq, S, D]`` view of a
+    ``[B, S, Hq, D]`` buffer, ``dk`` and ``dv`` of ``[B, T, Hkv, D]``
+    ones, the layouts the transformer's projections come from."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                                 window=window, kv_offset=kv_offset,
+                                 scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    check_kernel_operands(q, k, v)
+    check_backward_operands(q, k, kv_offset)
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} must be like q {tuple(q.shape)} "
+                             f"{q.dtype}; got {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device}")
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be float32 [{b}, {hq}, {s}]; got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    q, k, v, o, do = (_aligned(x) for x in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq = torch.empty((b, s, hq, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dv = torch.empty_like(dk)
+    if b == 0 or s == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    scale = scale if scale is not None else d ** -0.5
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _launcher(bwd=True)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
+            *dk.stride()[:3], *dv.stride()[:3],
+            b, hq, hkv, s, d, int(q.dtype == torch.bfloat16), int(causal),
+            0 if window is None else int(window), float(scale), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: cudaError {err} (B={b}, "
+            f"Hq={hq}, Hkv={hkv}, S={s}, D={d}, {q.dtype})")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

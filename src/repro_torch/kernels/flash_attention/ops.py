@@ -2,7 +2,9 @@
 
 Counterpart of ``repro.kernels.flash_attention.ops.attention`` without its
 ``use_pallas`` switch: a CUDA tensor goes to K5, a CPU tensor to the plain
-version, and nothing else chooses.
+version, and nothing else chooses.  A call that needs a gradient goes
+through ``FlashAttention`` on either device, so its backward is K5's
+backward on the card and the plain backward on the CPU.
 """
 from __future__ import annotations
 

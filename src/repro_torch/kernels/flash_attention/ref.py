@@ -7,8 +7,12 @@ its mask semantics:
   window:   q_pos - k_pos < window   (sliding window, gemma3 local layers)
 
 GQA: the query heads are a multiple of the KV heads, and query head h
-reads KV head ``h // (Hq // Hkv)``.  The softmax is float32; the output
-is in q's dtype.
+reads KV head ``h // (Hq // Hkv)``.  The softmax is float32 (float64 for
+float64 inputs); the output is in q's dtype.
+
+:func:`attention_bwd_ref` is the gradient of that function, written as
+FlashAttention-2's backward step by step from the forward's output and
+its log-sum-exp: the plain version of K5's backward.
 """
 from __future__ import annotations
 
@@ -24,27 +28,99 @@ def attention_ref(
     window: int | None = None,
     kv_offset: int = 0,
     scale: float | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """Masked softmax attention, [B, Hq, S, D] in q's dtype; with
+    ``return_lse`` also each query row's log-sum-exp of its scaled,
+    masked scores, float32 [B, Hq, S] (float64 for float64 inputs;
+    ``-inf`` for a row with no live key), as ``(out, lse)``."""
     b, hq, s, d = q.shape
     t = k.shape[2]
     rep = hq // k.shape[1]
+    acc = _acc_dtype(q)
     k = k.repeat_interleave(rep, dim=1)
     v = v.repeat_interleave(rep, dim=1)
     scale = scale if scale is not None else d ** -0.5
-    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
-    qpos = torch.arange(s, device=q.device)[:, None] + kv_offset
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    logits = torch.einsum("bhsd,bhtd->bhst", q.to(acc), k.to(acc)) * scale
+    mask = attention_mask(s, t, causal=causal, window=window,
+                          kv_offset=kv_offset, device=q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    m = logits.amax(-1, keepdim=True)
+    probs = torch.exp(logits - m)
+    denom = probs.sum(-1, keepdim=True)
+    out = torch.einsum("bhst,bhtd->bhsd", probs / denom.clamp_min(1e-30),
+                       v.to(acc)).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = (m + torch.log(denom))[..., 0]
+    return out, lse
+
+
+def _acc_dtype(q: torch.Tensor) -> torch.dtype:
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
+def attention_mask(s: int, t: int, *, causal: bool, window: int | None,
+                   kv_offset: int, device) -> torch.Tensor:
+    """bool [S, T]: key t is visible to query row i (position i +
+    kv_offset)."""
+    qpos = torch.arange(s, device=device)[:, None] + kv_offset
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window is not None:
         mask &= (qpos - kpos) < window
-    logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.exp(logits - logits.amax(-1, keepdim=True))
-    denom = probs.sum(-1, keepdim=True)
-    out = torch.einsum("bhst,bhtd->bhsd", probs / denom.clamp_min(1e-30),
-                       v.float())
-    return out.to(q.dtype)
+    return mask
+
+
+def attention_bwd_ref(
+    q: torch.Tensor,     # [B, Hq, S, D]
+    k: torch.Tensor,     # [B, Hkv, T, D]
+    v: torch.Tensor,     # [B, Hkv, T, D]
+    o: torch.Tensor,     # [B, Hq, S, D], the forward's output
+    do: torch.Tensor,    # [B, Hq, S, D], the gradient of the output
+    lse: torch.Tensor,   # float32 [B, Hq, S], the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    kv_offset: int = 0,
+    scale: float | None = None,
+):
+    """``(dq, dk, dv)`` of :func:`attention_ref`, each in its input's
+    dtype, by FlashAttention-2's backward (float32 sums; float64 for
+    float64 inputs):
+
+      P  = exp(S * scale - lse) on the visible keys, 0 elsewhere
+      D  = rowsum(dO * O)
+      dV = P^T dO
+      dS = P * (dO V^T - D)
+      dQ = dS K * scale
+      dK = dS^T Q * scale
+
+    GQA sums dK and dV over the ``Hq / Hkv`` query heads that share a kv
+    head.  ``lse`` must be finite on every row (each row sees a key)."""
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    acc = _acc_dtype(q)
+    scale = scale if scale is not None else d ** -0.5
+    qf, of, dof = q.to(acc), o.to(acc), do.to(acc)
+    kf = k.to(acc).repeat_interleave(rep, dim=1)
+    vf = v.to(acc).repeat_interleave(rep, dim=1)
+    mask = attention_mask(s, t, causal=causal, window=window,
+                          kv_offset=kv_offset, device=q.device)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    p = torch.where(mask, torch.exp(logits - lse.to(acc)[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    dv = torch.einsum("bhst,bhsd->bhtd", p, dof)
+    dp = torch.einsum("bhsd,bhtd->bhst", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bhst,bhtd->bhsd", ds, kf) * scale
+    dk = torch.einsum("bhst,bhsd->bhtd", ds, qf) * scale
+    dk = dk.view(b, hkv, rep, t, d).sum(2)
+    dv = dv.view(b, hkv, rep, t, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_split_ref(
@@ -72,13 +148,9 @@ def attention_split_ref(
     v = v.repeat_interleave(rep, dim=1).float()
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k) * scale
-    qpos = torch.arange(s, device=q.device)[:, None] + kv_offset
+    mask = attention_mask(s, t, causal=causal, window=window,
+                          kv_offset=kv_offset, device=q.device)
     kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
     start, length, count = splits
     neg_inf = torch.tensor(float("-inf"), device=q.device)
     m_all = torch.full((b, hq, s), float("-inf"), device=q.device)

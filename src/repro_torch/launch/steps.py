@@ -5,8 +5,8 @@ steps (``lm_prefill_step``, ``lm_decode_step``) and ``init_for``.
 A training step is the forward, ``loss.backward()`` and ``opt_update``,
 in place on the model and the optimizer state.  The reference's
 gradient accumulation (``accum``) serves its dry-run compiler, which the
-port does not have.  The four GNNs train; LM training and BST wait for
-ROADMAP Queue 1 item 13.
+port does not have.  The LMs (dense and MoE) and the four GNNs train;
+BST waits for ROADMAP Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -53,6 +53,16 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptConfig):
 
 
 # ------------------------------------------------------------------- LM
+
+def lm_loss(cfg: tfm.LMConfig):
+    """``loss(model, tokens, labels)``: the reference's ``lm_loss``."""
+    del cfg  # the model carries its config
+    return tfm.loss_fn
+
+
+def lm_train_step(cfg: tfm.LMConfig, opt_cfg: OptConfig):
+    return make_train_step(lm_loss(cfg), opt_cfg)
+
 
 def lm_prefill_step(cfg: tfm.LMConfig, max_len: int):
     def step(model: tfm.TransformerLM, tokens: torch.Tensor):

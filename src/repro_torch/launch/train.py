@@ -1,15 +1,21 @@
 """End-to-end training entry point, the counterpart of
 ``repro.launch.train``.
 
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+      --batch 4 --seq 4096 --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \\
       --steps 100 --gnn-nodes 2708 --gnn-edges 10556 --ckpt-dir ckpt
 
-``--arch`` is one of the four GNNs: ``gatedgcn``, ``gat-cora``,
-``schnet`` or ``dimenet`` (the molecular nets get synthesized positions
-and atom types; DimeNet's triplet table is built on the host once, with
-the batch).  It trains on the card unless ``--device cpu`` is given;
-without a card and without ``--device cpu`` it raises.  Every segment
-sum of the GNN's forward goes through K4 on the card.
+``--arch`` is an LM (``smollm-135m``, ``gemma3-1b``, ``gemma3-4b``,
+``qwen2-moe-a2.7b``, ``phi3.5-moe-42b-a6.6b``: next-token batches of
+``--batch`` x ``--seq`` from ``LMStream``) or one of the four GNNs:
+``gatedgcn``, ``gat-cora``, ``schnet`` or ``dimenet`` (the molecular
+nets get synthesized positions and atom types; DimeNet's triplet table
+is built on the host once, with the batch).  It trains on the card
+unless ``--device cpu`` is given; without a card and without ``--device
+cpu`` it raises.  On the card every attention's forward and backward
+goes through K5 and every segment sum (a GNN's, an MoE combine) through
+K4.
 
 Fault tolerance: ``--max-restarts N`` wraps the fit loop — on watchdog
 timeout or crash the loop reloads the latest checkpoint and resumes at
@@ -17,8 +23,8 @@ the stored data cursor.  Each attempt starts from the initial weights
 (a copy kept when the model is built), since a step updates them in
 place: a relaunch before the first checkpoint equals a clean run, as in
 the reference, which rebuilds each ``Trainer`` from its untouched
-``params``.  The port trains the GNN family; LM training and
-the recsys BST wait for ROADMAP Queue 1 item 13 and raise.
+``params``.  The recsys BST waits for ROADMAP Queue 1 item 13 and
+raises.
 """
 from __future__ import annotations
 
@@ -46,6 +52,16 @@ class FixedStream:
         return (self.batch,)
 
 
+def build_lm_pieces(cfg, args):
+    """``(loss_fn(model, tokens, labels), stream)`` for an LM: the
+    reference's ``build_lm_pieces``, on ``args.device``."""
+    from repro_torch.train.data import LMStream
+
+    stream = LMStream(cfg, args.batch, args.seq, seed=args.seed,
+                      device=args.device)
+    return steps_mod.lm_loss(cfg), stream
+
+
 def build_gnn_pieces(arch: str, cfg, args):
     """``(loss_fn(model, batch), stream)`` for a GNN on ``args.device``:
     one synthetic batch (``configs.data.gnn_batch``) served every step:
@@ -66,6 +82,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8,
+                    help="LM sequences a step")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM tokens a sequence")
     ap.add_argument("--gnn-nodes", type=int, default=512)
     ap.add_argument("--gnn-edges", type=int, default=2048)
     ap.add_argument("--gnn-graphs", type=int, default=1,
@@ -89,18 +109,21 @@ def main(argv=None) -> dict | None:
     args = parse_args(argv)
     args.device = resolve_device(args.device)
     mod = arch_module(args.arch)
-    if mod.FAMILY != "gnn":
+    if mod.FAMILY not in ("gnn", "lm"):
         raise NotImplementedError(
             f"--arch {args.arch}: training the {mod.FAMILY} family is not "
             f"ported yet (ROADMAP Queue 1 item 13); the port trains the "
-            f"GNNs")
+            f"LMs and the GNNs")
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
     model = steps_mod.init_for(args.arch, cfg, args.seed, args.device)
     initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.arch}: {n_params/1e6:.2f}M params "
           f"({'smoke' if args.smoke else 'full'} config) on {args.device}")
-    loss, stream = build_gnn_pieces(args.arch, cfg, args)
+    if mod.FAMILY == "lm":
+        loss, stream = build_lm_pieces(cfg, args)
+    else:
+        loss, stream = build_gnn_pieces(args.arch, cfg, args)
     opt_cfg = OptConfig(kind=args.opt, lr=args.lr, warmup=10,
                         total_steps=args.steps)
 

@@ -44,7 +44,9 @@ def lm_params_from_numpy(cfg: LMConfig, tree: dict,
                          ) -> TransformerLM:
     """The reference's parameter tree of ``cfg`` (numpy leaves: ``embed``,
     ``ln_final``, optional ``unembed``, and ``layers`` with stacked
-    ``[L, ...]`` leaves) as the port's model on ``device``."""
+    ``[L, ...]`` leaves: ``mlp.*``, or for an MoE config ``moe.router``
+    [L, d, E], ``moe.experts.{w_gate, w_up, w_down}`` [L, E, ...] and
+    ``moe.shared.*``) as the port's model on ``device``."""
     dev = resolve_device(device)
     model = TransformerLM(cfg)
     layers = tree["layers"]
@@ -52,9 +54,20 @@ def lm_params_from_numpy(cfg: LMConfig, tree: dict,
     for i, lp in enumerate(model.layers):
         for name in names:
             _copy(getattr(lp, name), layers[name][i], f"layers.{name}[{i}]")
-        for name in _MLP_LEAVES:
-            _copy(lp.mlp[name], layers["mlp"][name][i],
-                  f"layers.mlp.{name}[{i}]")
+        if cfg.moe is None:
+            for name in _MLP_LEAVES:
+                _copy(lp.mlp[name], layers["mlp"][name][i],
+                      f"layers.mlp.{name}[{i}]")
+            continue
+        moe = layers["moe"]
+        _copy(lp.moe.router, moe["router"][i], f"layers.moe.router[{i}]")
+        parts = {"experts": lp.moe.experts}
+        if lp.moe.shared is not None:
+            parts["shared"] = lp.moe.shared
+        for part, mods in parts.items():
+            for name in _MLP_LEAVES:
+                _copy(mods[name], moe[part][name][i],
+                      f"layers.moe.{part}.{name}[{i}]")
     _copy(model.embed, tree["embed"], "embed")
     _copy(model.ln_final, tree["ln_final"], "ln_final")
     if model.unembed is not None:

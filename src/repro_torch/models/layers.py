@@ -12,10 +12,39 @@ same weights on the CPU and on the card.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 # ---------------------------------------------------------------- init utils
+
+
+def seeded_generator(*words: int) -> torch.Generator:
+    """A CPU ``torch.Generator`` seeded by numpy's ``SeedSequence(words)``:
+    the same draws on every host and for every device they feed."""
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
+
+
+def draw_parallel(jobs) -> list:
+    """Run ``jobs``, each ``(words, fn)``, as ``fn(seeded_generator(
+    *words))`` on a pool of threads (at most 8, one per CPU): each draw
+    has its own generator and releases the GIL, so the results do not
+    depend on the threads, only on the words."""
+    threads = min(8, os.cpu_count() or 1)
+
+    def one(job):
+        words, fn = job
+        return fn(seeded_generator(*words))
+
+    if len(jobs) <= 1 or threads <= 1:
+        return [one(j) for j in jobs]
+    with ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(one, jobs))
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -71,15 +100,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 # ---------------------------------------------------------------- mlp
-
-
-def glu_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
-                 dtype=torch.float32) -> dict[str, torch.Tensor]:
-    return {
-        "w_gate": dense_init(gen, d_model, d_ff, dtype),
-        "w_up": dense_init(gen, d_model, d_ff, dtype),
-        "w_down": dense_init(gen, d_ff, d_model, dtype),
-    }
 
 
 def glu_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:

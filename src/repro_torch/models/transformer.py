@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM (llama / gemma3 families), the counterpart
-of ``repro.models.transformer`` for serving: prefill into a KV cache, then
-one-token decode steps.
+"""Decoder-only transformer LM (llama / gemma3 families, and the MoE LMs
+qwen2-moe and phi3.5-moe), the counterpart of ``repro.models.transformer``:
+training (``forward`` and ``loss_fn``) and serving (prefill into a KV
+cache, then one-token decode steps).
 
 * one ``nn.Module`` per layer, looped over in Python (the reference scans
   over stacked ``[L, ...]`` leaves; ``models/convert.py`` unstacks them);
@@ -12,37 +13,46 @@ one-token decode steps.
   :func:`repro_torch.kernels.flash_attention.ops.attention`: K5 on the
   card, its plain version on the CPU.  ``attn_impl`` "dense" and
   "chunked" name two XLA formulations of the same function in the
-  reference and take the same path here;
+  reference and take the same path here.  Under a gradient the call is
+  differentiable through K5's backward (on the card) or the plain
+  backward (on the CPU);
+* a config with ``moe`` replaces each layer's GLU by
+  :func:`repro_torch.models.moe.moe_ffn` (its combine on K4), and
+  ``forward`` sums the layers' aux losses, as the reference's scan does;
+* ``remat="block"`` (the reference's default) recomputes each layer in
+  the backward (``torch.utils.checkpoint``, non-reentrant), as the
+  reference's ``jax.checkpoint`` of the scanned block: a training step
+  then runs each layer's K5 forward twice;
 * the KV cache is ``(k, v)``, each ``[L, B, T, Hkv, D]`` as in the
   reference, and a decode step writes its position in place rather than
   returning a new cache.
 
-A config with ``moe`` raises ``NotImplementedError``: MoE layers come with
-ROADMAP Queue 1 item 13.  The reference's sharding hint
-(``distributed.constrain.maybe_constrain``) has no meaning on one card and
-is dropped.
+The reference's sharding hint (``distributed.constrain.maybe_constrain``)
+has no meaning on one card and is dropped.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.layers import (
     apply_rope,
     dense_init,
+    draw_parallel,
     embed_init,
     glu_mlp,
-    glu_mlp_init,
     rmsnorm,
     rope_freqs,
+    softmax_xent,
 )
-
-MOE_QUEUE = "ROADMAP Queue 1 item 13"
+from repro_torch.models.moe import MoE, MoEConfig, moe_ffn, moe_init_tasks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +72,9 @@ class LMConfig:
     norm_eps: float = 1e-6
     qk_norm: bool = False
     tie_embeddings: bool = True
-    moe: Optional[object] = None   # MoE layers are not ported yet
+    moe: Optional[MoEConfig] = None
     dtype: str = "float32"
+    remat: str = "block"           # "block" | "none": recompute per layer
     attn_impl: str = "dense"       # "dense" | "chunked": the same function
     act_dtype: str = "float32"     # compute/activation dtype
 
@@ -78,9 +89,9 @@ class LMConfig:
 
 
 def _check_config(cfg: LMConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet ({MOE_QUEUE})")
+    if cfg.remat not in ("block", "none"):
+        raise ValueError(f"remat must be 'block' or 'none'; got "
+                         f"{cfg.remat!r}")
     if cfg.attn_impl not in ("dense", "chunked"):
         raise ValueError(f"attn_impl must be 'dense' or 'chunked'; got "
                          f"{cfg.attn_impl!r}")
@@ -111,11 +122,14 @@ class Layer(nn.Module):
         if cfg.qk_norm:
             self.q_norm = _param(cfg.d_head, dtype=dt)
             self.k_norm = _param(cfg.d_head, dtype=dt)
-        self.mlp = nn.ParameterDict({
-            "w_gate": _param(d, cfg.d_ff, dtype=dt),
-            "w_up": _param(d, cfg.d_ff, dtype=dt),
-            "w_down": _param(cfg.d_ff, d, dtype=dt),
-        })
+        if cfg.moe is not None:
+            self.moe = MoE(cfg.moe, d, dtype=dt)
+        else:
+            self.mlp = nn.ParameterDict({
+                "w_gate": _param(d, cfg.d_ff, dtype=dt),
+                "w_up": _param(d, cfg.d_ff, dtype=dt),
+                "w_down": _param(cfg.d_ff, d, dtype=dt),
+            })
 
 
 class TransformerLM(nn.Module):
@@ -157,7 +171,9 @@ class TransformerLM(nn.Module):
         return cos[:, :, None, :], sin[:, :, None, :]
 
     def _layer(self, i: int, x: torch.Tensor, *, rope, cache=None,
-               cache_index: int = 0) -> torch.Tensor:
+               cache_index: int = 0):
+        """One decoder block: ``(x, aux)``, ``aux`` the MoE layer's loss
+        (None for a dense layer)."""
         cfg, lp = self.cfg, self.layers[i]
         b, s, _ = x.shape
         act = getattr(torch, cfg.act_dtype)
@@ -187,19 +203,33 @@ class TransformerLM(nn.Module):
         attn = attn.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
         x = x + attn @ w(lp.wo)
         h = rmsnorm(x, lp.ln_mlp, eps=cfg.norm_eps)
+        if cfg.moe is not None:
+            ff, aux = moe_ffn(lp.moe.leaves(w), cfg.moe, h)
+            return x + ff, aux
         mlp = {name: w(p) for name, p in lp.mlp.items()}
-        return x + glu_mlp(mlp, h, act=cfg.act)
+        return x + glu_mlp(mlp, h, act=cfg.act), None
 
     # ------------------------------------------------------------ entry points
 
     def forward(self, tokens: torch.Tensor):
-        """tokens int[B, S] -> (logits f32[B, S, V], aux loss 0.0)."""
+        """tokens int[B, S] -> (logits f32[B, S, V], aux loss): the sum of
+        the MoE layers' aux losses (0.0 for a dense model).  With
+        ``remat="block"`` and a gradient wanted, each layer is
+        recomputed in the backward."""
         x = self._embed(tokens)
         b, s, _ = x.shape
         rope = self._rope(torch.arange(s, device=x.device).expand(b, s))
+        remat = self.cfg.remat == "block" and torch.is_grad_enabled()
+        aux = 0.0
         for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope=rope)
-        return self._logits(x), 0.0
+            if remat:
+                x, a = checkpoint(self._layer, i, x, rope=rope,
+                                  use_reentrant=False)
+            else:
+                x, a = self._layer(i, x, rope=rope)
+            if a is not None:
+                aux = aux + a
+        return self._logits(x), aux
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, max_len: int):
@@ -212,7 +242,7 @@ class TransformerLM(nn.Module):
         rope = self._rope(torch.arange(s, device=x.device).expand(b, s))
         cache = init_cache(self.cfg, b, max_len, x.dtype, x.device)
         for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope=rope, cache=cache, cache_index=0)
+            x, _ = self._layer(i, x, rope=rope, cache=cache, cache_index=0)
         return self._logits(x[:, -1]), cache
 
     @torch.no_grad()
@@ -229,8 +259,17 @@ class TransformerLM(nn.Module):
         rope = self._rope(torch.full((b, 1), index, dtype=torch.int32,
                                      device=x.device))
         for i in range(self.cfg.n_layers):
-            x = self._layer(i, x, rope=rope, cache=cache, cache_index=index)
+            x, _ = self._layer(i, x, rope=rope, cache=cache,
+                               cache_index=index)
         return self._logits(x)[:, 0], cache
+
+
+def loss_fn(model: TransformerLM, tokens: torch.Tensor,
+            labels: torch.Tensor) -> torch.Tensor:
+    """The reference's ``loss_fn``: the mean next-token cross-entropy of
+    ``forward``'s logits plus 0.01 x the summed MoE aux loss."""
+    logits, aux = model(tokens)
+    return softmax_xent(logits, labels) + 0.01 * aux
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
@@ -243,27 +282,65 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
             torch.zeros(shape, dtype=dtype, device=dev))
 
 
+def _layer_tasks(cfg: LMConfig) -> list:
+    """One layer's draws in the reference's order of leaves: ``(name,
+    index, d_in, d_out)`` (``name`` a path into the layer, ``index`` an
+    expert slot or None), each a ``dense_init`` draw."""
+    d, hq = cfg.d_model, cfg.n_heads * cfg.d_head
+    hk = cfg.n_kv_heads * cfg.d_head
+    tasks = [(("wq",), None, d, hq), (("wk",), None, d, hk),
+             (("wv",), None, d, hk), (("wo",), None, hq, d)]
+    if cfg.moe is not None:
+        return tasks + [(("moe",) + path, idx, di, do) for path, idx, di, do
+                        in moe_init_tasks(cfg.moe, d)]
+    return tasks + [(("mlp", "w_gate"), None, d, cfg.d_ff),
+                    (("mlp", "w_up"), None, d, cfg.d_ff),
+                    (("mlp", "w_down"), None, cfg.d_ff, d)]
+
+
+def _leaf(module: nn.Module, path: tuple) -> torch.Tensor:
+    for name in path:
+        module = module[name] if isinstance(module, nn.ParameterDict) \
+            else getattr(module, name)
+    return module
+
+
 @torch.no_grad()
 def init_params(cfg: LMConfig, seed: int = 0,
                 device: str | torch.device = "cuda") -> TransformerLM:
-    """A model with random weights drawn from ``torch.Generator`` seeded
-    with ``seed`` on the CPU (the reference's initialisers: ``dense_init``
-    for matrices, ``embed_init`` for embeddings, zeros for norms), then
-    moved to ``device`` — the same weights on every device."""
+    """A model with random weights (the reference's initialisers:
+    ``dense_init`` for matrices, ``embed_init`` for embeddings, zeros for
+    norms), built on ``device`` and filled one layer at a time, so the
+    host never holds the whole model (a 15 B-parameter MoE is 60.6 GB of
+    float32).  Each leaf (each expert's matrix apart) is drawn on the CPU
+    from its own generator, seeded by ``(seed, layer, leaf)`` through
+    ``SeedSequence`` (the embeddings by ``(seed, n_layers, 0 or 1)``), on a
+    pool of threads: the same weights on every device, whatever the
+    threads.  ``model.init_seconds`` holds the draw's seconds."""
     dev = resolve_device(device)
-    model = TransformerLM(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = TransformerLM(cfg)
     dt = getattr(torch, cfg.dtype)
-    d, hq = cfg.d_model, cfg.n_heads * cfg.d_head
-    hk = cfg.n_kv_heads * cfg.d_head
-    for lp in model.layers:
-        lp.wq.copy_(dense_init(gen, d, hq, dt))
-        lp.wk.copy_(dense_init(gen, d, hk, dt))
-        lp.wv.copy_(dense_init(gen, d, hk, dt))
-        lp.wo.copy_(dense_init(gen, hq, d, dt))
-        for name, val in glu_mlp_init(gen, d, cfg.d_ff, dt).items():
-            lp.mlp[name].copy_(val)
-    model.embed.copy_(embed_init(gen, cfg.vocab, d, dt))
+    tasks = _layer_tasks(cfg)
+    for li, lp in enumerate(model.layers):
+        vals = draw_parallel([
+            ((seed, li, ti), lambda g, di=di, do=do: dense_init(g, di, do, dt))
+            for ti, (_, _, di, do) in enumerate(tasks)])
+        for (path, idx, _, _), val in zip(tasks, vals):
+            leaf = _leaf(lp, path)
+            (leaf if idx is None else leaf[idx]).copy_(val)
+        del vals
+    n = cfg.n_layers
+    embeds = [(model.embed, (seed, n, 0))]
     if model.unembed is not None:
-        model.unembed.copy_(embed_init(gen, cfg.vocab, d, dt))
-    return model.to(dev)
+        embeds.append((model.unembed, (seed, n, 1)))
+    vals = draw_parallel([(words, lambda g: embed_init(g, cfg.vocab,
+                                                        cfg.d_model, dt))
+                          for _, words in embeds])
+    for (leaf, _), val in zip(embeds, vals):
+        leaf.copy_(val)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    model.init_seconds = time.perf_counter() - t0
+    return model

@@ -6,26 +6,21 @@ stores the cursor) and position-addressable, so a stream restarted at
 cursor c yields the c-th batch of a fresh one.  ``GNNSampledStream``
 samples ``minibatch_lg`` blocks (``graph/sampler.py``) on the base
 graph's device; ``block_batch`` turns a block into the ``GraphBatch``
-the GNNs consume.  ``LMStream`` and ``BSTStream`` draw from
-``jax.random`` in the reference and wait for LM training and BST
-(ROADMAP Queue 1 item 13).
+the GNNs consume.  ``LMStream`` yields ``configs.data.lm_batch`` at its
+cursor: uniform token ids from ``seeded_generator(seed, cursor)``, which
+cannot reproduce the reference's ``jax.random`` draws (a deliberate
+difference, as for ``GNNSampledStream``).  ``BSTStream`` waits for the
+recsys BST (ROADMAP Queue 1 item 13).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
+from repro_torch.configs.data import lm_batch
+from repro_torch.device import resolve_device
 from repro_torch.graph.sampler import sample_blocks
 from repro_torch.models.gnn.common import GraphBatch
-
-
-def cursor_generator(seed: int, cursor: int) -> torch.Generator:
-    """A CPU ``torch.Generator`` seeded by ``(seed, cursor)`` through
-    numpy's ``SeedSequence``: the same draws on every host and for every
-    device the stream feeds."""
-    state = np.random.SeedSequence([int(seed), int(cursor)]).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator().manual_seed(int(state) & (2**63 - 1))
+from repro_torch.models.layers import seeded_generator
 
 
 class GNNSampledStream:
@@ -34,8 +29,8 @@ class GNNSampledStream:
     ``deg``).  Each ``next()`` returns ``sample_blocks``' ``(nodes, src,
     dst, seed_mask)`` for ``seeds_per_batch`` seeds drawn uniformly from
     ``[0, n_nodes)``; seeds and uniforms come from
-    :func:`cursor_generator` on the CPU and are moved to the graph's
-    device, so the card and the CPU sample the same block."""
+    ``seeded_generator(seed, cursor)`` on the CPU and are moved to the
+    graph's device, so the card and the CPU sample the same block."""
 
     def __init__(self, graph, seeds_per_batch: int, fanouts, n_nodes: int,
                  *, seed: int = 0, cursor: int = 0):
@@ -44,7 +39,7 @@ class GNNSampledStream:
         self.seed, self.cursor = seed, cursor
 
     def __next__(self):
-        gen = cursor_generator(self.seed, self.cursor)
+        gen = seeded_generator(self.seed, self.cursor)
         self.cursor += 1
         seeds = torch.randint(0, self.n, (self.bs,), generator=gen,
                               dtype=torch.int32)
@@ -76,12 +71,25 @@ def block_batch(block, node_feat: torch.Tensor,
 
 
 class LMStream:
-    """Waits for LM training (ROADMAP Queue 1 item 13)."""
+    """Next-token batches ``(tokens, labels)``, each int64 [batch, seq] on
+    ``device``: batch c is ``configs.data.lm_batch(cfg, batch, seq,
+    seed, cursor=c)``, so a stream restarted at cursor c resumes the
+    batches of a fresh one."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "LMStream is not ported yet: ROADMAP Queue 1 item 13 (LM "
-            "training)")
+    def __init__(self, cfg, batch: int, seq: int, *, seed: int = 0,
+                 cursor: int = 0, device: str | torch.device = "cuda"):
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.seed, self.cursor = seed, cursor
+        self.device = resolve_device(device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        out = lm_batch(self.cfg, self.batch, self.seq, self.seed,
+                       cursor=self.cursor, device=self.device)
+        self.cursor += 1
+        return out
 
 
 class BSTStream:

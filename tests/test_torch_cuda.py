@@ -23,7 +23,11 @@ bit across launches and against its chunk-then-carry order in plain
 PyTorch (RMAT hubs, a segment over more than 30 chunks), a GatedGCN
 training step going through it, GAT's edge softmax with its denominator
 on K4, a training step of GAT, SchNet and DimeNet through K4 against the
-CPU, and a sampled block on the card equal to the CPU's.
+CPU, and a sampled block on the card equal to the CPU's; K5's backward
+against its plain version and bit for bit across launches, the
+``grad_fn`` of K5's output on the card, an LM training step through
+K5's backward against the CPU, and one MoE layer (its combine on K4)
+against the CPU.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -721,6 +725,118 @@ def test_serve_goes_through_k5_and_matches_the_cpu(cuda_device, cfg):
     assert tflash.LAUNCHES["flash_attention"] - before == 6 * cfg.n_layers
     torch.testing.assert_close(got.logits.cpu(), want.logits, rtol=1e-4,
                                atol=1e-4)
+
+
+# K5's backward: (b, hq, hkv, s, d, causal, window, dtype), S = T
+BWD_CASES = [
+    (2, 9, 3, 300, 64, True, None, torch.float32),
+    (1, 4, 1, 257, 256, True, 40, torch.float32),
+    (2, 6, 2, 130, 48, True, 17, torch.float32),
+    (1, 2, 2, 96, 32, False, None, torch.float32),
+    (1, 4, 4, 200, 128, False, 33, torch.float32),
+    (2, 9, 3, 300, 64, True, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "x".join(
+    str(x) for x in c[:5]) + f"-{c[5]}-{c[6]}-{str(c[7])[6:]}")
+def test_flash_attention_bwd_matches_plain_and_repeats_bit_for_bit(
+        cuda_device, case):
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    b, hq, hkv, s, d, causal, window, dt = case
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda_device).to(dt)
+               for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)))
+    kw = dict(causal=causal, window=window)
+    o, lse = tflash.flash_attention_fwd(q, k, v, with_lse=True, **kw)
+    _, want_lse = attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want_lse, rtol=0, atol=2e-5)
+    assert torch.equal(o, tflash.flash_attention(q, k, v, **kw))
+    do = torch.randn(o.shape, generator=g, device=cuda_device).to(dt)
+    before = tflash.LAUNCHES["flash_attention_bwd"]
+    got = tflash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = tflash.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert tflash.LAUNCHES["flash_attention_bwd"] - before == 2
+    want = attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    for x, y, z in zip(got, again, want):
+        assert x.dtype == dt and x.shape == z.shape
+        assert torch.equal(x, y)
+        diff = (x.float() - z.float()).abs()
+        assert bool((diff <= tol * (1 + z.float().abs())).all()), \
+            float(diff.max())
+
+
+def test_flash_attention_output_has_grad_fn_on_the_card(cuda_device):
+    q, k, v = (torch.randn((1, 4, 64, 64), device=cuda_device)
+               for _ in range(3))
+    q.requires_grad_()
+    before = dict(tflash.LAUNCHES)
+    out = tflash.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
+    assert tflash.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert tflash.LAUNCHES["flash_attention_bwd"] == before[
+        "flash_attention_bwd"] + 1
+    with torch.no_grad():
+        assert tflash.flash_attention(q, k, v).grad_fn is None
+    with pytest.raises(ValueError, match="S = T and kv_offset 0"):
+        tflash.flash_attention(q, k, v, kv_offset=3)
+
+
+@pytest.mark.parametrize("cfg", [tlm.SMOLLM_135M_SMOKE, tlm.GEMMA3_1B_SMOKE,
+                                 tlm.QWEN2_MOE_SMOKE],
+                         ids=lambda c: c.name)
+def test_lm_train_step_goes_through_k5_bwd_and_matches_the_cpu(cuda_device,
+                                                              cfg):
+    tok, lab = tdata.lm_batch(cfg, 2, 64, 0, device="cpu")
+    grads, losses = {}, {}
+    for dev in ("cpu", cuda_device):
+        model = ttfm.init_params(cfg, seed=0, device=dev)
+        before = dict(tflash.LAUNCHES)
+        loss = ttfm.loss_fn(model, tok.to(dev), lab.to(dev))
+        loss.backward()
+        launched = {k: tflash.LAUNCHES[k] - before[k] for k in before}
+        want = ({"flash_attention": 0, "flash_attention_bwd": 0}
+                if dev == "cpu" else
+                {"flash_attention": 2 * cfg.n_layers,
+                 "flash_attention_bwd": cfg.n_layers})
+        assert launched == want
+        losses[str(dev)] = float(loss)
+        grads[str(dev)] = {n: p.grad.cpu() for n, p in
+                           model.named_parameters()}
+    assert abs(losses["cpu"] - losses["cuda"]) <= 1e-4 * (1 + losses["cpu"])
+    for name, want in grads["cpu"].items():
+        torch.testing.assert_close(grads["cuda"][name], want, rtol=1e-4,
+                                   atol=1e-4, msg=name)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu(cuda_device):
+    from repro_torch.models import moe as tmoe
+
+    cfg = tlm.QWEN2_MOE_A2_7B.moe
+    d = tlm.QWEN2_MOE_A2_7B.d_model
+    g = torch.Generator().manual_seed(0)
+    layer = tmoe.MoE(cfg, d)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    x = torch.randn((4, 32, d), generator=g)
+    want, want_aux = tmoe.moe_ffn(layer.leaves(), cfg, x)
+    layer = layer.to(cuda_device)
+    before = tsegk.LAUNCHES["segment_sum"]
+    got, aux = tmoe.moe_ffn(layer.leaves(), cfg, x.to(cuda_device))
+    assert tsegk.LAUNCHES["segment_sum"] - before == 1
+    torch.testing.assert_close(got.cpu(), want.detach(), rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-5, atol=1e-6)
+    n, cap = 4 * 32, tmoe.capacity_for(cfg, 4 * 32)
+    r = tmoe.route(layer.router, cfg, x.to(cuda_device).reshape(n, d), cap)
+    rc = tmoe.route(layer.router.cpu(), cfg, x.reshape(n, d), cap)
+    for f in ("expert_idx", "se", "stok", "pos", "keep"):
+        assert torch.equal(getattr(r, f).cpu(), getattr(rc, f)), f
 
 
 # K5 decode at the models' shapes: (b, hq, hkv, t, d, window, kv_offset)

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention as tkern
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.convert import cache_from_numpy, lm_params_from_numpy
 
@@ -43,7 +44,10 @@ BF16_TOL = 3e-2
 
 def _port_cfg(jcfg) -> ttfm.LMConfig:
     names = {f.name for f in dataclasses.fields(ttfm.LMConfig)}
-    return ttfm.LMConfig(**{n: getattr(jcfg, n) for n in names})
+    kw = {n: getattr(jcfg, n) for n in names}
+    if jcfg.moe is not None:
+        kw["moe"] = tmoe.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    return ttfm.LMConfig(**kw)
 
 
 # (config, batch, prompt length, generated tokens)
@@ -331,7 +335,8 @@ def test_init_cache_is_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("name,which", [
-    (a, w) for a in ("smollm-135m", "gemma3-1b", "gemma3-4b")
+    (a, w) for a in ("smollm-135m", "gemma3-1b", "gemma3-4b",
+                     "qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b")
     for w in ("CONFIG", "SMOKE")])
 def test_configs_equal_the_reference(name, which):
     from repro.configs.registry import arch_module as j_arch_module
@@ -344,8 +349,12 @@ def test_configs_equal_the_reference(name, which):
 
 
 def test_registry_lists_the_dense_lms():
+    """The dense LMs, and since LM training and MoE are ported the two
+    MoE LMs beside them."""
     lms = {a for a in ARCH_MODULES if arch_module(a).FAMILY == "lm"}
-    assert lms == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
+    dense = {a for a in lms if arch_module(a).CONFIG.moe is None}
+    assert dense == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
+    assert lms - dense == {"qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"}
     assert set(ARCH_MODULES) == lms | {"gatedgcn", "gat-cora", "schnet",
                                        "dimenet"}
 
@@ -353,6 +362,14 @@ def test_registry_lists_the_dense_lms():
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
                                   "cover-edge-tc", "bst"])
 def test_unported_archs_raise_naming_the_queue(arch):
+    """The MoE LMs are ported: their config modules resolve and their
+    smoke models build.  ``cover-edge-tc`` and ``bst`` still raise."""
+    if arch.startswith(("qwen2", "phi3.5")):
+        mod = arch_module(arch)
+        assert mod.FAMILY == "lm" and mod.SMOKE.moe is not None
+        model = tsteps.init_for(arch, mod.SMOKE, device="cpu")
+        assert all(hasattr(lp, "moe") for lp in model.layers)
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         arch_module(arch)
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
@@ -367,7 +384,13 @@ def test_unknown_arch_raises():
 @pytest.mark.parametrize("jcfg", [jlm.QWEN2_MOE_SMOKE, jlm.PHI35_MOE_SMOKE],
                          ids=lambda c: c.name)
 def test_moe_config_raises(jcfg):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        ttfm.TransformerLM(_port_cfg(jcfg))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        ttfm.init_params(_port_cfg(jcfg), device="cpu")
+    """MoE configs build now (ported with LM training): both smoke
+    models, with the reference's parameter count."""
+    cfg = _port_cfg(jcfg)
+    built = ttfm.TransformerLM(cfg)
+    drawn = ttfm.init_params(cfg, device="cpu")
+    for model in (built, drawn):
+        assert sum(p.numel() for p in model.parameters()) == \
+            jcfg.param_count()
+    logits, aux = drawn(torch.zeros((1, 4), dtype=torch.long))
+    assert logits.shape == (1, 4, jcfg.vocab) and torch.isfinite(aux)

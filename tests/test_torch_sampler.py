@@ -163,5 +163,16 @@ def test_block_batch_feeds_gat():
 
 @pytest.mark.parametrize("stream", ["LMStream", "BSTStream"])
 def test_streams_of_unported_models_raise_naming_the_queue(stream):
+    """``LMStream`` is ported (LM training) and yields next-token
+    batches; ``BSTStream`` still waits for the recsys BST."""
+    if stream == "LMStream":
+        from repro_torch.configs import lm as tlm
+
+        lm = tdata.LMStream(tlm.SMOLLM_135M_SMOKE, 4, 16, seed=0,
+                            device="cpu")
+        tok, lab = next(lm)
+        assert tok.shape == lab.shape == (4, 16) and lm.cursor == 1
+        assert torch.equal(tok[:, 1:], lab[:, :-1])
+        return
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         getattr(tdata, stream)(None, 4)
