@@ -254,22 +254,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                layers, d_model 576, vocab 49,152; float32, AdamW, random
                weights from seed 0).  (a) K5's backward against its plain
                version on the same CUDA tensors, each also against
-               float64, launched twice (equal bits), beside the forward's
+               float64, launched twice (equal bits), each pass's device
+               ms from one profiled window of calls, beside the forward's
                log-sum-exp against the plain one, SDPA's backward and the
-               bound, at smollm's training shape (B 4, Hq 9, Hkv 3, S = T
-               4,096, D 64), qwen2-moe's (B 2, 16 heads, D 128), a
-               gemma3-1b local layer (D 256, window 512, GQA 4:1) and
-               smollm's in bf16.  (b) The first step on the card against
-               the CPU's plain path on the same weights and a B 1 x S 256
-               batch: the loss and every gradient leaf within 1e-4 (1 +
-               |cpu|), K5's forward twice a layer (remat) and its backward
-               once.  (c) Through ``launch/train.py``'s pieces at B 4 x S
-               4,096 (train_4k's sequence, its global batch cut to 4): a
-               warm-up step, one step with the launch counters set to 0
-               just before and read just after (K5 60, K5's backward 30),
-               20 timed steps (ms, tokens/s, the loss falling, peak
-               memory, model TFLOP/s), one profiled (busy share, K5's
-               forward and backward device ms a step).
+               bound, and K5's forward with the log-sum-exp (device ms,
+               bound, SDPA's forward), at smollm's training shape (B 4,
+               Hq 9, Hkv 3, S = T 4,096, D 64), qwen2-moe's (B 2, 16
+               heads, D 128), a gemma3-1b local layer (D 256, window 512,
+               GQA 4:1), smollm's in bf16 and two ragged ones in bf16 (S 1,000,
+               window 300, GQA 2:1, D 64 and 128).  (b) The first step
+               on the card against the CPU's plain path on the same
+               weights and a B 1 x S 256 batch: the loss and every
+               gradient leaf within 1e-4 (1 + |cpu|), K5's forward twice
+               a layer (remat) and its backward once.  (c) Through
+               ``launch/train.py``'s pieces at B 4 x S 4,096 (train_4k's
+               sequence, its global batch cut to 4): a warm-up step, one
+               step with the launch counters set to 0 just before and
+               read just after (K5 60, K5's backward 30), 20 timed steps
+               (ms, tokens/s, the loss falling, peak memory, model
+               TFLOP/s), one profiled (busy share, K5's forward and
+               backward device ms a step).
  15. moe     — qwen2-moe-a2.7b at full width (d_model 2,048, 60 routed
                experts in 64 slots, top 4, 4 shared as one 5,632-wide GLU;
                float32, random weights from seed 0, drawn a layer at a
@@ -302,6 +306,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -341,6 +346,33 @@ def log(tag: str, **fields) -> None:
 def sh(*cmd: str) -> str:
     out = subprocess.run(cmd, capture_output=True, text=True, check=True)
     return out.stdout.strip()
+
+
+def sass_census(lib: str) -> dict:
+    """Each kernel of a built library (``attn_bwd_dkdv_mma<64>``) with
+    its count of tensor-core products (HMMA), float32 FMAs (FFMA) and
+    atomics (ATOM, ATOMS, ATOMG, RED), from ``cuobjdump -sass``."""
+    from repro_torch.kernels import build
+
+    tool = str(Path(build.nvcc_path()).resolve().with_name("cuobjdump"))
+    census: dict = {}
+    counts = None
+    for line in sh(tool, "-sass", lib).splitlines():
+        fn = re.search(r"Function : \S*?\d+(attn_\w+?)ILi(\d+)E(f|13__nv_bf)?",
+                       line)
+        if fn:
+            kind = {"f": ", float", "13__nv_bf": ", bf16"}.get(fn[3], "")
+            counts = census.setdefault(f"{fn[1]}<{fn[2]}{kind}>",
+                                       {"HMMA": 0, "FFMA": 0, "atomics": 0})
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if op and counts is not None:
+            if op[1] in ("HMMA", "FFMA"):
+                counts[op[1]] += 1
+            elif op[1] in ("ATOM", "ATOMS", "ATOMG", "RED"):
+                counts["atomics"] += 1
+    return census
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -3549,13 +3581,20 @@ K5_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 #: K5's backward: (b, hq, hkv, s, d, window, dtype), causal, S = T.
 #: smollm-135m's training shape (the main path's), qwen2-moe-a2.7b's, a
-#: gemma3-1b local layer (D 256, window 512, GQA 4:1), and smollm's in bf16
+#: gemma3-1b local layer (D 256, window 512, GQA 4:1), smollm's in bf16,
+#: and two ragged ones in bf16 (S 1,000, a window of 300, GQA 2:1) at D 64
+#: and 128, whose tiles end inside the tensor-core sub-tiles
 K5_BWD_CASES = [
     (4, 9, 3, 4096, 64, None, torch.float32),
     (2, 16, 16, 4096, 128, None, torch.float32),
     (2, 4, 1, 4096, 256, 512, torch.float32),
     (4, 9, 3, 4096, 64, None, torch.bfloat16),
+    (1, 4, 2, 1000, 64, 300, torch.bfloat16),
+    (1, 4, 2, 1000, 128, 300, torch.bfloat16),
 ]
+
+#: K5's backward's three launches, by the kernel names the profiler shows
+K5_BWD_PASSES = ("attn_bwd_delta", "attn_bwd_dkdv", "attn_bwd_dq")
 
 #: phase 15: qwen2-moe-a2.7b at full width.  ``serve``: the server's
 #: default request (batch, prompt, generated) at full depth; ``train``:
@@ -3577,7 +3616,7 @@ def attention_bwd_bound(q, k, kw):
     hkv = k.shape[1]
     _, _, _, flops_fwd = attention_bound(q, k, kw)   # 4 D per live pair
     flops = flops_fwd // 4 * 10
-    nbytes = (q.element_size() * (6 * b * hq * s * d + 4 * b * hkv * s * d)
+    nbytes = (q.element_size() * (4 * b * hq * s * d + 4 * b * hkv * s * d)
               + 4 * b * hq * s)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     rate = (BF16_FLOPS_PER_S if q.dtype == torch.bfloat16
@@ -3586,6 +3625,37 @@ def attention_bwd_bound(q, k, kw):
     if t_bytes >= t_ops:
         return t_bytes, "bytes", nbytes, flops
     return t_ops, "operations", nbytes, flops
+
+
+def k5_bwd_passes(run, ms: float) -> dict:
+    """K5's backward's device milliseconds a launch by pass, from one
+    profiled window of back-to-back ``run()`` calls (``ms`` each; ~30 ms
+    of work, 3 to 400 calls): each pass's mean over the launches the
+    profiler caught, and how many it caught of how many ran.  Late in
+    this process a window loses ~57 kernel records (19 of each pass in a
+    window of 21 calls or more, every one in a window of 4), so 256 empty
+    launches pad the window on each side and are lost in their place."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = max(3, min(400, int(30 / max(ms, 1e-3)) + 1))
+    pad = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(256):
+            pad.add_(0)
+        for _ in range(reps):
+            run()
+        for _ in range(256):
+            pad.add_(0)
+        torch.cuda.synchronize()
+    out = {"launched": reps}
+    for p in K5_BWD_PASSES:
+        t = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and p in e.name]
+        out[p] = sum(t) / len(t) if t else None
+        out[p + "_caught"] = len(t)
+    return out
 
 
 def sdpa_bwd_call(q, k, v, do, kw):
@@ -3599,10 +3669,13 @@ def sdpa_bwd_call(q, k, v, do, kw):
 
 def k5_bwd_case(q, k, v, kw) -> dict:
     """K5's backward on one call's operands (random dO): its device and
-    host-paced milliseconds, equal bits across two launches, the plain
-    version's milliseconds and both against it and against float64, the
-    forward's log-sum-exp against the plain one, SDPA's backward and the
-    bound.  These launches are comparisons, not the main path."""
+    host-paced milliseconds, each pass's device milliseconds
+    (``k5_bwd_passes``), equal bits across two launches, the plain version's
+    milliseconds and both against it and against float64, the forward's
+    log-sum-exp against the plain one, SDPA's backward and the bound; and
+    K5's forward with the log-sum-exp at the same shape (device ms, bound,
+    SDPA's forward).  These launches are comparisons, not the main
+    path."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_ref,
@@ -3637,14 +3710,25 @@ def k5_bwd_case(q, k, v, kw) -> dict:
     del want64
     ms = device_ms(run, reps=3, spin=K5_SPIN * 4)
     host_ms = cuda_ms(run)
+    pass_ms = k5_bwd_passes(run, ms)
     lib_ms = device_ms(sdpa_bwd_call(q, k, v, do, kw), reps=3,
                        spin=K5_SPIN * 4)
     bound, by, nbytes, flops = attention_bwd_bound(q, k, kw)
     del got, o, lse, do
+    fwd_ms = device_ms(lambda: fa.flash_attention_fwd(q, k, v, with_lse=True,
+                                                      **kw),
+                       reps=3, spin=K5_SPIN * 2)
+    fwd_bound, fwd_by, fwd_bytes, fwd_flops = attention_bound(q, k, kw)
+    fwd_lib_ms = device_ms(sdpa_call(q, k, v, kw), reps=3, spin=K5_SPIN * 2)
     torch.cuda.empty_cache()
     return dict(
-        ms=ms, host_paced_ms=host_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        ms=ms, host_paced_ms=host_ms, pass_ms=pass_ms, plain_ms=plain_ms,
+        library_ms=lib_ms,
         bound_ms=bound, bound_by=by, bytes=nbytes, flops=flops,
+        fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound, fwd_bound_by=fwd_by,
+        fwd_tensor_core_bound_ms=tensor_core_bound_ms(q, fwd_bytes,
+                                                      fwd_flops),
+        fwd_library_ms=fwd_lib_ms,
         max_abs_err=max(e for e, _ in errs),
         max_abs_err_float64=max(e for e, _ in errs64),
         within_tol=all(ok for _, ok in errs + errs64),
@@ -3756,6 +3840,8 @@ def train_run(tag, arch, cfg, model, stream, steps, main_path,
         k5_fwd_device_ms=sum(ms for n, ms in per.items()
                              if "attn_prefill" in n),
         k5_bwd_device_ms=sum(ms for n, ms in per.items() if "attn_bwd" in n),
+        k5_bwd_pass_device_ms={p: sum(ms for n, ms in per.items() if p in n)
+                               for p in K5_BWD_PASSES},
         k4_device_ms=sum(ms for n, ms in per.items() if "segsum" in n),
         top_device_ms=top, model_step_flops=flops,
         model_tflops_per_s=flops / (med / 1e3) / 1e12)
@@ -3834,25 +3920,32 @@ def lm_train_phase(dev, main_path) -> dict:
         "max_abs_err_bf16": max(c["max_abs_err"] for c in out["cases"]
                                 if c["dtype"] == str(torch.bfloat16)),
         **{key: main[key] for key in (
-            "ms", "host_paced_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "max_abs_err_float64")},
+            "ms", "host_paced_ms", "pass_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err_float64")},
         "step_device_ms": line["k5_bwd_device_ms"],
         "cases": {f"{c['b']}x{c['hq']}/{c['hkv']}x{c['s']}x{c['d']}"
                   f"{'w' + str(c['window']) if c['window'] else ''}"
                   f"{'-bf16' if 'bfloat16' in c['dtype'] else ''}": {
                       key: c[key] for key in (
-                          "ms", "host_paced_ms", "plain_ms", "library_ms",
-                          "bound_ms", "bound_by", "max_abs_err",
-                          "max_abs_err_float64")}
+                          "ms", "host_paced_ms", "pass_ms", "plain_ms",
+                          "library_ms", "bound_ms", "bound_by", "max_abs_err",
+                          "max_abs_err_float64", "fwd_ms", "fwd_bound_ms",
+                          "fwd_tensor_core_bound_ms", "fwd_library_ms")}
                   for c in out["cases"]},
         "shape": "per launch at smollm-135m's training shape (B 4, Hq 9, "
                  "Hkv 3, S = T 4,096, D 64, causal, float32), the shape of "
                  "each of the main path's launches (launches: one training "
                  "step's, 30 at 30 layers; step_device_ms: their profiled "
-                 "sum); cases: qwen2-moe's (B 2, 16 heads, D 128), a "
-                 "gemma3-1b local layer (D 256, window 512, GQA 4:1) and "
-                 "smollm's in bf16; library: the backward of SDPA with "
-                 "enable_gqa and the same boolean mask",
+                 "sum; pass_ms: each pass's device ms a launch, the mean "
+                 "over the launches one profiled window caught); cases: "
+                 "qwen2-moe's (B 2, 16 heads, D 128), a gemma3-1b local "
+                 "layer (D 256, window 512, GQA 4:1), smollm's in bf16 and "
+                 "two ragged bf16 ones (S 1,000, "
+                 "window 300, GQA 2:1, D 64 and 128), each also with K5's "
+                 "forward with the log-sum-exp at its shape (fwd_*: device "
+                 "ms, the FMA and tensor-core bounds, SDPA's forward); "
+                 "library: the backward of SDPA with enable_gqa and the "
+                 "same boolean mask",
     }
     out["seconds"] = time.perf_counter() - t_phase
     log("lm_train_summary", **{k: v for k, v in out.items()
@@ -4141,6 +4234,15 @@ def main() -> int:
     log("build", seconds=time.perf_counter() - t0,
         sources={k: {"nvcc_seconds": s, "ptxas": e.strip().splitlines()}
                  for k, (s, e) in build.BUILD_LOG.items()})
+    # K5's backward: bf16 products on the tensor cores, float32 on FMA,
+    # no atomics (its sums run in a fixed order)
+    census = sass_census(build.library("flash_attention_bwd")._name)
+    log("k5_bwd_sass", kernels=census)
+    if not census:
+        raise SystemExit("cuobjdump found no kernel in K5's backward")
+    for fn, c in census.items():
+        if c["atomics"] or (c["HMMA"] > 0) != ("_mma<" in fn):
+            raise SystemExit(f"K5's backward {fn}: {c}")
     eng = TriangleEngine(device=dev)
     max_err = 0
     max_err_hits = 0

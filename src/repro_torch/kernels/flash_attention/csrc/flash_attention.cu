@@ -1141,6 +1141,7 @@ int launch(const Args& a, int batch, int hkv, cudaStream_t st) {
 template <typename T>
 int dispatch(const Args& a, int d, int batch, int hkv, cudaStream_t st) {
   switch (d) {
+    case 16: return launch<16, T>(a, batch, hkv, st);
     case 32: return launch<32, T>(a, batch, hkv, st);
     case 48: return launch<48, T>(a, batch, hkv, st);
     case 64: return launch<64, T>(a, batch, hkv, st);

@@ -49,11 +49,11 @@ from repro_torch.kernels.flash_attention.ref import (
 LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 #: head widths the kernel is instantiated for
-HEAD_DIMS = (32, 48, 64, 128, 256)
+HEAD_DIMS = (16, 32, 48, 64, 128, 256)
 
 #: the decode kernel's shape (``Decode`` in ``csrc/flash_attention.cu``):
 #: keys per staged tile by head width, query heads and warps per block
-DECODE_TILE_KEYS = {32: 64, 48: 64, 64: 64, 128: 32, 256: 16}
+DECODE_TILE_KEYS = {16: 64, 32: 64, 48: 64, 64: 64, 128: 32, 256: 16}
 DECODE_ROWS = 4
 DECODE_WARPS = 2
 

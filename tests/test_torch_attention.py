@@ -155,7 +155,7 @@ def test_kernel_takes_its_head_widths(d):
     tkern.check_kernel_operands(q.bfloat16(), k.bfloat16(), k.bfloat16())
 
 
-@pytest.mark.parametrize("d,dtype", [(96, torch.float32), (16, torch.float32),
+@pytest.mark.parametrize("d,dtype", [(96, torch.float32), (24, torch.float32),
                                      (512, torch.float32),
                                      (64, torch.float16)])
 def test_kernel_refuses_what_it_was_not_built_for(d, dtype):
@@ -202,6 +202,7 @@ def _live(t, off, window):
     (70, 69, 16, 2, 48),           # gemma3-1b smoke
     (512, 511, None, 1, 128),      # the reference's decode case
     (300, 0, None, 4, 32),         # the first position: one key
+    (64, 63, None, 8, 16),         # qwen2-moe smoke
 ])
 def test_decode_split_plan(t, off, window, units, d):
     start, length, count = tkern.decode_splits(

@@ -7,8 +7,9 @@ forward's output and log-sum-exp) against ``jax.vjp`` of
 attention, which XLA differentiates), on the same numpy inputs made from
 a seed: causal with and without a window, GQA 3:1 and 4:1, D 32, 48 and
 64.  Also the plain backward against torch's autograd through the plain
-forward in float64, the forward's log-sum-exp, and when the output
-carries a ``grad_fn``."""
+forward in float64, the forward's log-sum-exp, when the output carries
+a ``grad_fn``, and an emulation of the bf16 kernel's tensor-core
+rounding against float64 within the card tests' bf16 gate."""
 from __future__ import annotations
 
 import jax
@@ -23,6 +24,7 @@ from repro_torch.kernels.flash_attention import flash_attention as tkern
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
+    attention_mask,
     attention_ref,
 )
 
@@ -36,6 +38,9 @@ TOL = 2e-5
 # float64: the plain backward against torch's autograd of the plain
 # forward, the same function in another order of operations
 TOL64 = 1e-10
+
+# bf16: K5's backward on the card against float64 (the card tests' gate)
+BF16_TOL = 2e-2
 
 B, S = 2, 24
 HEADS = {"gqa3": (6, 2), "gqa4": (8, 2)}
@@ -120,6 +125,65 @@ def test_plain_backward_equals_autograd_in_float64(causal, window, hq, hkv,
     for g, w in zip(got, want):
         assert g.dtype == torch.float64
         torch.testing.assert_close(g, w, rtol=0, atol=TOL64)
+
+
+# the card tests' bf16 cases (tests/test_torch_cuda.py, BWD_CASES):
+# (b, hq, hkv, s, d, causal, window)
+BF16_CASES = [(2, 9, 3, 300, 64, True, None), (1, 4, 1, 257, 256, True, 40),
+              (2, 6, 2, 130, 48, True, 17), (1, 2, 2, 96, 32, False, None),
+              (1, 4, 4, 200, 128, False, 33), (2, 4, 2, 70, 16, True, 24)]
+
+
+def _tensor_core_bwd(q, k, v, o, do, lse, causal, window):
+    """K5's bf16 backward's arithmetic in plain PyTorch: products of bf16
+    operands summed in float32, P and dS rounded to bf16 before they enter
+    dV, dK and dQ, each gradient rounded to bf16 once.  The plain version
+    rounds only its outputs, so it says nothing of the kernel's own
+    rounding."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    rep = hq // hkv
+    scale = d ** -0.5
+    qf, kf, vf, of, dof = (x.float() for x in (q, k, v, o, do))
+    kf, vf = (x.repeat_interleave(rep, dim=1) for x in (kf, vf))
+    mask = attention_mask(s, s, causal=causal, window=window, kv_offset=0,
+                          device=q.device)
+    logits = torch.einsum("bhsd,bhtd->bhst", qf, kf) * scale
+    p = torch.where(mask, torch.exp(logits - lse[..., None]), 0.0)
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bhsd,bhtd->bhst", dof, vf) - delta)
+    pb, dsb = (x.bfloat16().float() for x in (p, ds))
+    dv = torch.einsum("bhst,bhsd->bhtd", pb, dof)
+    dk = torch.einsum("bhst,bhsd->bhtd", dsb, qf)
+    dq = torch.einsum("bhst,bhtd->bhsd", dsb, kf) * scale
+    dk = dk.view(b, hkv, rep, s, d).sum(2) * scale
+    dv = dv.view(b, hkv, rep, s, d).sum(2)
+    return tuple(x.bfloat16() for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("case", BF16_CASES, ids=lambda c: "x".join(
+    str(x) for x in c[:5]) + f"-{c[5]}-{c[6]}")
+def test_tensor_core_rounding_is_within_the_bf16_gate(case):
+    """The kernel's rounding, and the wrapper's plain version on bf16 CPU
+    tensors, both within the card tests' bf16 gate of float64."""
+    b, hq, hkv, s, d, causal, window = case
+    rng = np.random.default_rng(3)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16() for shape in (
+            (b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d)))
+    kw = dict(causal=causal, window=window)
+    o, lse = attention_ref(q, k, v, return_lse=True, **kw)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    want = attention_bwd_ref(*(x.double() for x in (q, k, v, o, do)),
+                             lse.double(), **kw)
+    before = dict(tkern.LAUNCHES)
+    plain = tkern.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert tkern.LAUNCHES == before
+    emulated = _tensor_core_bwd(q, k, v, o, do, lse, causal, window)
+    for got in (plain, emulated):
+        for x, y in zip(got, want):
+            assert x.dtype == torch.bfloat16 and x.shape == y.shape
+            _close(x.double().numpy(), y.numpy(), BF16_TOL)
 
 
 def test_lse_is_the_rows_log_sum_exp():

@@ -669,6 +669,8 @@ FLASH_CASES = [
     (1, 4, 1, 300, 300, 256, True, 128, 0),    # gemma3 local layer
     (2, 2, 1, 1, 70, 48, True, 16, 69),        # gemma3-1b smoke decode
     (2, 3, 1, 33, 33, 32, True, None, 0),      # smollm smoke
+    (2, 4, 4, 64, 64, 16, True, None, 0),      # qwen2-moe smoke
+    (2, 4, 2, 1, 40, 16, True, None, 39),      # phi3.5-moe smoke decode
 ]
 
 
@@ -734,7 +736,14 @@ BWD_CASES = [
     (2, 6, 2, 130, 48, True, 17, torch.float32),
     (1, 2, 2, 96, 32, False, None, torch.float32),
     (1, 4, 4, 200, 128, False, 33, torch.float32),
+    (2, 4, 2, 70, 16, True, 24, torch.float32),
     (2, 9, 3, 300, 64, True, None, torch.bfloat16),
+    # the bf16 twins of the float32 cases, on the tensor cores' tiling
+    (1, 4, 1, 257, 256, True, 40, torch.bfloat16),
+    (2, 6, 2, 130, 48, True, 17, torch.bfloat16),
+    (1, 2, 2, 96, 32, False, None, torch.bfloat16),
+    (1, 4, 4, 200, 128, False, 33, torch.bfloat16),
+    (2, 4, 2, 70, 16, True, 24, torch.bfloat16),
 ]
 
 
