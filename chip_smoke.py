@@ -5,9 +5,10 @@ deltas), LM serving (smollm-135m prefill and KV-cache decode), GatedGCN
 training, the batch route with its triangle server, the approx route
 with robust serving, distributed Algorithm 2, the trace-driven
 autotuner, the static auditor, the training of GAT, SchNet and DimeNet,
-LM training (smollm-135m) and the MoE LM qwen2-moe-a2.7b (served and
-trained) end to end on one NVIDIA H100, through the hand-written Hopper
-kernels K1 to K5 and K5's backward.
+LM training (smollm-135m), the MoE LM qwen2-moe-a2.7b (served and
+trained) and the recsys BST (trained, served and scored over 10^6
+candidates) end to end on one NVIDIA H100, through the hand-written
+Hopper kernels K1 to K5 and K5's backward.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -187,7 +188,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                baseline, the baseline equal to the sequential loop on
                every id; graphs/s, p50 / p99, each rung's ranking.  (b)
                Phase 8's rmat12_16_64 mix, recorded in memory at batch
-               8, swept the same at 1 timed replay.  (c) For each, the
+               8, swept the same at 1 timed replay over 6 of the 13
+               configs (``TUNE_REAL_SPACE``).  (c) For each, the
                winner's profile (its ``objective`` naming the card and
                its power limit) saved, loaded and served by
                ``prewarm_replay`` on a fresh engine: ``plan_hit`` 1.0,
@@ -295,7 +297,34 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                at B 2 x S 4,096 with 10 timed steps (K5 4, its backward 2,
                K4 4 a step), the aux loss logged, and every K4 launch of
                one step timed.
- 16. summary — one JSON line per kernel, the card's name and power
+ 16. bst     — the recsys BST at full width (embed_dim 32, 20 items,
+               one block of 8 heads, MLP 1,024-512-256, a 1,048,576-row
+               item table and a 65,536-row profile table; float32, AdamW,
+               random weights from seed 0) through ``launch/steps.py``
+               and ``launch/train.py``'s pieces.  (a) At batch 512, the
+               card's logits, loss, every gradient leaf and one AdamW
+               step against the CPU's plain path on the same weights and
+               batch, within 1e-4 (1 + |cpu|).  (c) ``bst_serve_step`` at
+               512 and 262,144: a warm-up, one serve as a main path (K4
+               alone, once: the profile bags), 5 timed (ms, samples/s,
+               peak memory), the first 4,096 rows against the CPU.  (d)
+               ``bst_retrieval_step`` over 1,000,000 candidates in slices
+               of 262,144: a main path (no kernel of the port: the
+               profile vector is zero), 3 timed (seconds, candidates/s,
+               peak memory), the first 4,096 scores against the CPU's.
+               (b) Training at batch 65,536 through ``BSTStream``: a
+               warm-up step, one step as a main path (K4 alone, once), 20
+               timed steps (ms, samples/s, the loss falling, peak
+               memory), one profiled (busy share, K4's device ms), one
+               with its K4 launch recorded and timed beside its bound,
+               its plain version (within 1e-5 (1 + S) of float64, bit
+               for bit across launches) and ``index_add_``.  (e) The
+               whole bag function at that shape (the gather, the layout,
+               K4) against ``F.embedding_bag(mode="sum")``.  (f)
+               ``cover-edge-tc``'s ``rmat_smoke`` through Algorithm 2 in
+               the config's ring mode over ``LocalShards(8, "cuda")``,
+               equal to the local count.
+ 17. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -748,7 +777,10 @@ def device_busy(run):
     the five largest by name, and every name's milliseconds.  Only the
     device is traced: host events add nothing to these sums, and a run
     of many small ops (a long serve) took ~90 s to post-process with
-    them."""
+    them.  The sums read the profiler's raw records
+    (``kineto_results.events()``), not ``prof.events()``, whose
+    function-event tree took ~39 s to build for a long serve's ~10^5
+    device records."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -759,9 +791,10 @@ def device_busy(run):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     per: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name()
+            per[name] = per.get(name, 0.0) + e.duration_ns() / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1])[:5]
     return (sum(per.values()) / 1e3, wall,
             [(name[:60], us / 1e3) for name, us in top],
@@ -2757,6 +2790,14 @@ def distributed_phase(dev, main_path, runs: int, scale: int, edges, n: int,
 TUNE_SYNTH = 96
 #: phase 11's sweeps: each trace and its timed replays a config
 TUNE_REPEATS = {"synth_96": 3, "rmat12_16_64": 1}
+#: phase 11 (b)'s configs: the default and the single-knob changes of the
+#: local route (bucket widths, row quantization, the budget grid) of the
+#: card's 13 (~3 s an evaluation at real size: 11 evaluations for 24);
+#: the distributed route's ``hedge:ring``, ``query_chunk:256`` (2.2
+#: graphs/s at rung 0 against ~20 for the rest) and the combined
+#: configs are swept on (a)'s trace alone
+TUNE_REAL_SPACE = ("default", "grid:128x1024xf4", "widths:8-64",
+                   "row_mult:16", "widths:64", "row_mult:128")
 #: phase 11 (d): requests of the real-size trace that each fresh process
 #: serves, one at a time, twice
 TUNE_FIRST = 3
@@ -2954,9 +2995,17 @@ def tune_phase(dev, main_path, stc) -> dict:
                                    len(stc["requests"]["rmat12_16_64"])):
         raise SystemExit(f"tune: recorded {len(synth)} and {len(real)} "
                          f"requests")
-    space = default_space(device=dev)
+    full_space = default_space(device=dev)
+    spaces = {"synth_96": full_space,
+              "rmat12_16_64": [c for c in full_space
+                               if c.label in TUNE_REAL_SPACE]}
+    if sorted(c.label for c in spaces["rmat12_16_64"]) != sorted(
+            TUNE_REAL_SPACE):
+        raise SystemExit(f"tune: the card's space lacks one of "
+                         f"{TUNE_REAL_SPACE}")
     for name, records in traces.items():
         reps = TUNE_REPEATS[name]
+        space = spaces[name]
         sweep, secs, _, got, mem = main_path(
             lambda c, records=records, reps=reps: successive_halving(
                 space, records, batch_size=8, repeats=reps, device=dev,
@@ -4144,6 +4193,366 @@ def moe_phase(dev, main_path) -> dict:
     return out
 
 
+
+# -------------------------------------------------------------------- BST
+
+#: phase 16: the card against the port's CPU path on the same weights
+#: (logits, loss, every gradient leaf, one AdamW step, served logits,
+#: retrieval scores), |card - cpu| <= tol * (1 + |cpu|): float32 matmuls,
+#: softmax and LayerNorm in other orders, and atomics in the tables'
+#: gradients (``index_add_``)
+BST_TOL = 1e-4
+#: phase 16 (b): timed training steps after a warm-up and the main path
+BST_TIMED = 20
+#: phase 16 (c): timed serves of each size
+BST_SERVES = 5
+#: phase 16 (d): the retrieval's first scores held against the CPU's
+BST_CHECK_SCORES = 4096
+#: phase 16 (d): timed retrievals after a warm-up and the main path
+BST_RETRIEVALS = 3
+
+
+def bst_cpu_check(cfg, model, cpu_model, dev) -> dict:
+    """Phase 16 (a): at ``serve_p99``'s batch of 512 (``bst_batch`` seed
+    0, drawn on the CPU), the card's logits, loss, every gradient leaf
+    and the weights after one AdamW step through ``bst_train_step``
+    against the port's CPU path on the same weights (``cpu_model``, a
+    copy); raises past BST_TOL.  The card's launches here are a
+    comparison, not the main path; both models get their weights back
+    after."""
+    from repro_torch.configs.data import bst_batch
+    from repro_torch.configs.recsys import RECSYS_SHAPES
+    from repro_torch.kernels.segsum import segsum as k4
+    from repro_torch.launch.steps import bst_train_step
+    from repro_torch.models.recsys.bst import loss_fn
+    from repro_torch.train.optimizer import OptConfig, opt_init
+
+    b = RECSYS_SHAPES["serve_p99"]["batch"]
+    batch = bst_batch(cfg, b, 0, device="cpu")
+    card_batch = tuple(t.to(dev) for t in batch)
+    saved = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        cpu_logits = cpu_model(*batch[:4])
+        card_logits = model(*card_batch[:4])
+    logit_err, logit_ok = within(card_logits.cpu(), cpu_logits, BST_TOL)
+    t0 = time.perf_counter()
+    cpu_loss = loss_fn(cpu_model, *batch)
+    cpu_loss.backward()
+    cpu_s = time.perf_counter() - t0
+    before = k4.LAUNCHES["segment_sum"]
+    loss = loss_fn(model, *card_batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    launched = k4.LAUNCHES["segment_sum"] - before
+    cpu_params = dict(cpu_model.named_parameters())
+    grad_errs, ok = {}, logit_ok
+    for k, p in model.named_parameters():
+        grad_errs[k], good = within(p.grad.cpu(), cpu_params[k].grad, BST_TOL)
+        ok &= good
+        p.grad = None
+        cpu_params[k].grad = None
+    loss_err, loss_ok = within(loss.detach().cpu(), cpu_loss.detach(),
+                               BST_TOL)
+    opt = OptConfig(kind="adamw", lr=3e-4, warmup=10,
+                    total_steps=BST_TIMED + 4)
+    step = bst_train_step(cfg, opt)
+    _, cpu_m = step(cpu_model, opt_init(opt, cpu_params), *batch)
+    _, card_m = step(model, opt_init(opt, dict(model.named_parameters())),
+                     *card_batch)
+    step_errs = {}
+    for k, p in model.named_parameters():
+        step_errs[k], good = within(p.detach().cpu(), cpu_params[k].detach(),
+                                    BST_TOL)
+        ok &= good
+    moved = max(float((cpu_params[k].detach() - saved[k].cpu()).abs().max())
+                for k in cpu_params)
+    with torch.no_grad():
+        for k, p in model.state_dict().items():
+            p.copy_(saved[k])
+        for k, p in cpu_model.state_dict().items():
+            p.copy_(saved[k].cpu())
+    for m in (model, cpu_model):
+        for p in m.parameters():
+            p.grad = None
+    tables = ("item_embed", "profile_embed")
+    dense = {k: v for k, v in grad_errs.items() if k not in tables}
+    out = dict(
+        batch=b, logits_max_abs_err=logit_err, loss_card=loss.item(),
+        loss_cpu=cpu_loss.item(), loss_abs_err=loss_err,
+        dense_grad_max_abs_err=max(dense.values()),
+        dense_grad_worst_leaf=max(dense, key=dense.get),
+        table_grad_max_abs_err={k: grad_errs[k] for k in tables},
+        adamw_step_max_abs_err=max(step_errs.values()),
+        adamw_step_worst_leaf=max(step_errs, key=step_errs.get),
+        adamw_step_moved=moved, adamw_loss=[float(card_m["loss"]),
+                                            float(cpu_m["loss"])],
+        leaves=len(grad_errs), tol=BST_TOL, k4_launches=launched,
+        within_tol=bool(ok and loss_ok), cpu_seconds=cpu_s)
+    log("bst_cpu_vs_card", **out)
+    if not out["within_tol"] or launched != 1 or moved <= 0:
+        raise SystemExit(f"bst: the card's first step differs from the "
+                         f"CPU's or did not run K4: {out}")
+    return out
+
+
+def bst_serve_runs(cfg, model, cpu_model, dev, main_path) -> dict:
+    """Phase 16 (c): ``bst_serve_step`` at ``serve_p99`` and
+    ``serve_bulk``: a warm-up, one serve as a main path (K4 alone, once),
+    BST_SERVES timed serves (each synchronised), the first
+    BST_CHECK_SCORES rows against the CPU's."""
+    from repro_torch.configs.data import bst_batch
+    from repro_torch.configs.recsys import RECSYS_SHAPES
+    from repro_torch.launch.steps import bst_serve_step
+
+    serve = bst_serve_step(cfg)
+    out = {}
+    for tag in ("serve_p99", "serve_bulk"):
+        b = RECSYS_SHAPES[tag]["batch"]
+        batch = bst_batch(cfg, b, 1, device=dev)
+
+        def run(_clock=None, batch=batch):
+            y = serve(model, *batch[:4])
+            torch.cuda.synchronize()
+            return y
+
+        run()
+        first, _, _, got, mem = main_path(run)
+        if {k: v for k, v in got.items() if v} != {"segment_sum": 1}:
+            raise SystemExit(f"bst {tag}: launched {got}; expected "
+                             f"segment_sum alone, once")
+        ms, same = [], True
+        for _ in range(BST_SERVES):
+            t0 = time.perf_counter()
+            y = run()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            same &= bool(torch.equal(y, first))
+        k = min(b, BST_CHECK_SCORES)
+        hist, target, pidx, pbag = (batch[0][:k], batch[1][:k],
+                                    batch[2][:k * cfg.profile_bag],
+                                    batch[3][:k * cfg.profile_bag])
+        with torch.no_grad():
+            want = cpu_model(hist.cpu(), target.cpu(), pidx.cpu(),
+                             pbag.cpu())
+        err, ok = within(first[:k].cpu(), want, BST_TOL)
+        med = statistics.median(ms)
+        line = dict(shape=tag, batch=b, launches=got, memory=mem, ms=ms,
+                    median_ms=med, samples_per_second=b / (med / 1e3),
+                    bit_identical_across_serves=same,
+                    checked_rows=k, max_abs_err=err, tol=BST_TOL,
+                    within_tol=ok,
+                    finite=bool(torch.isfinite(first).all()))
+        log("bst_serve", **line)
+        if not (ok and line["finite"] and first.shape == (b,)):
+            raise SystemExit(f"bst {tag}: {line}")
+        out[tag] = line
+        del batch, first, y
+    return out
+
+
+def bst_retrieval_run(cfg, model, cpu_model, dev, main_path) -> dict:
+    """Phase 16 (d): ``bst_retrieval_step`` over ``retrieval_cand``'s
+    10^6 candidates in slices of ``bst.RETRIEVAL_SLICE``: a warm-up, one
+    run as a main path (no kernel of the port: the profile vector is
+    zero, so no bag sum), BST_RETRIEVALS timed runs; every score finite,
+    the first BST_CHECK_SCORES against the CPU's one-shot call."""
+    from repro_torch.configs.recsys import RECSYS_SHAPES
+    from repro_torch.launch.steps import bst_retrieval_step
+    from repro_torch.models.recsys.bst import RETRIEVAL_SLICE
+
+    c = RECSYS_SHAPES["retrieval_cand"]["n_candidates"]
+    gen = torch.Generator().manual_seed(2)
+    cands = torch.randint(0, cfg.item_vocab, (c,), generator=gen)
+    hist = torch.randint(0, cfg.item_vocab, (cfg.seq_len - 1,),
+                         generator=gen)
+    cands_d, hist_d = cands.to(dev), hist.to(dev)
+    retrieve = bst_retrieval_step(cfg)
+
+    def run(_clock=None):
+        y = retrieve(model, hist_d, cands_d)
+        torch.cuda.synchronize()
+        return y
+
+    run()
+    first, secs, _, got, mem = main_path(run)
+    if any(got.values()):
+        raise SystemExit(f"bst retrieval: launched {got}; its path has no "
+                         f"kernel of the port")
+    times, same = [], True
+    for _ in range(BST_RETRIEVALS):
+        t0 = time.perf_counter()
+        y = run()
+        times.append(time.perf_counter() - t0)
+        same &= bool(torch.equal(y, first))
+    k = BST_CHECK_SCORES
+    with torch.no_grad():
+        want = cpu_model.score_candidates(hist, cands[:k])
+    err, ok = within(first[:k].cpu(), want, BST_TOL)
+    med = statistics.median(times)
+    line = dict(candidates=c, chunk=RETRIEVAL_SLICE, launches=got, memory=mem,
+                main_path_seconds=secs, seconds=times,
+                median_seconds=med, candidates_per_second=c / med,
+                bit_identical_across_runs=same, checked_scores=k,
+                max_abs_err=err, tol=BST_TOL, within_tol=ok,
+                finite=bool(torch.isfinite(first).all()))
+    log("bst_retrieval", **line)
+    if not (ok and line["finite"] and first.shape == (c,)):
+        raise SystemExit(f"bst retrieval: {line}")
+    return line
+
+
+def bst_k4_shape(cfg, model, dev) -> dict:
+    """Phase 16 (e): the whole bag function at the training shape (524,288
+    lookups into 65,536 bags, F 32) on a fresh batch: the port's
+    ``embedding_bag`` (the gather, the layout, K4) against
+    ``F.embedding_bag(mode="sum")``, the library call for the whole
+    function, each timed on the device and held against the float64 sum;
+    the port's twice, equal bit for bit."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.data import bst_batch
+    from repro_torch.configs.recsys import RECSYS_SHAPES
+    from repro_torch.graph.segment import embedding_bag
+
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    _, _, pidx, pbag, _ = bst_batch(cfg, b, 3, device=dev)
+    table = model.profile_embed.detach()
+    offsets = torch.arange(b, device=dev) * cfg.profile_bag
+    with torch.no_grad():
+        ms = device_ms(lambda: embedding_bag(table, pidx, pbag, b))
+        lib_ms = device_ms(lambda: F.embedding_bag(pidx, table, offsets,
+                                                   mode="sum"))
+        got = embedding_bag(table, pidx, pbag, b)
+        same = bool(torch.equal(got, embedding_bag(table, pidx, pbag, b)))
+        rows = table.index_select(0, pidx)
+        err, scaled, ok = k4_within(got, rows, pbag, b, K4_TOL[torch.float32])
+        lib_err, lib_scaled, _ = k4_within(
+            F.embedding_bag(pidx, table, offsets, mode="sum"), rows, pbag, b,
+            K4_TOL[torch.float32])
+    # the gather reads each looked-up row once and the bag sum writes each
+    # bag once; the indices and bag ids are read once
+    nbytes = (pidx.numel() * (cfg.embed_dim * 4 + 8 + 8)
+              + b * cfg.embed_dim * 4)
+    line = dict(lookups=pidx.numel(), bags=b, f=cfg.embed_dim,
+                embedding_bag_ms=ms, f_embedding_bag_ms=lib_ms,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bytes=nbytes, max_abs_err=err, max_scaled_err=scaled,
+                within_tol=ok, bit_identical=same,
+                library_max_abs_err=lib_err,
+                library_max_scaled_err=lib_scaled)
+    log("bst_embedding_bag", **line)
+    if not (ok and same):
+        raise SystemExit(f"bst embedding_bag: {line}")
+    return line
+
+
+def bst_phase(dev, main_path) -> dict:
+    """Phase 16: the recsys BST at full width (see the module's
+    docstring); ``main_path`` is ``main``'s.  Returns the phase's summary,
+    with K4's sums at BST's shape."""
+    import dataclasses
+
+    from repro_torch.api import TriangleEngine
+    from repro_torch.configs.recsys import RECSYS_SHAPES
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.steps import init_for
+    from repro_torch.models.recsys.bst import BST
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = arch_module("bst").CONFIG
+    model = init_for("bst", cfg, 0, dev)
+    with torch.device("cpu"):
+        cpu_model = BST(cfg)
+    cpu_model.load_state_dict({k: v.cpu()
+                               for k, v in model.state_dict().items()})
+    out = {"init_seconds": model.init_seconds,
+           "params": sum(p.numel() for p in model.parameters()),
+           "weight_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters())}
+    log("bst_setup", config=dataclasses.asdict(cfg), shapes=RECSYS_SHAPES,
+        **out)
+    out["cpu_vs_card"] = bst_cpu_check(cfg, model, cpu_model, dev)
+    out["serve"] = bst_serve_runs(cfg, model, cpu_model, dev, main_path)
+    out["retrieval"] = bst_retrieval_run(cfg, model, cpu_model, dev,
+                                         main_path)
+    del cpu_model
+
+    # (b) training at train_batch through launch/train.py's pieces
+    t_run = time.perf_counter()
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    args = ltrain.parse_args(["--arch", "bst", "--batch", str(b), "--steps",
+                              str(BST_TIMED + 4), "--device", str(dev)])
+    loss_fn, stream = ltrain.build_bst_pieces(cfg, args)
+    opt = OptConfig(kind="adamw", lr=3e-4, warmup=10,
+                    total_steps=BST_TIMED + 4)
+    trainer = Trainer(loss_fn, model, opt, cfg=cfg, log_every=10**9)
+    first = trainer.fit(stream, 1)                              # warm-up
+    rep, _, _, got, mem = main_path(lambda c: trainer.fit(stream, 1))
+    if {k: v for k, v in got.items() if v} != {"segment_sum": 1}:
+        raise SystemExit(f"bst train: launched {got}; expected segment_sum "
+                         f"alone, once a step")
+    timed = trainer.fit(stream, BST_TIMED)
+    steps_ms = [x * 1e3 for x in timed["step_seconds"]]
+    history = first["history"] + rep["history"] + timed["history"]
+    if not (np.isfinite(history).all() and history[-1] < history[0]):
+        raise SystemExit(f"bst train: the loss did not fall: {history}")
+    med = statistics.median(steps_ms)
+    busy_ms, wall_s, top, per = device_busy(lambda: trainer.fit(stream, 1))
+    calls = []
+    record_segsum(lambda: trainer.fit(stream, 1),
+                  lambda m, lay, k: calls.append(time_segsum_call(m, lay,
+                                                                  k)))
+    for i, c in enumerate(calls):
+        log("bst_k4_launch", launch=i, **c)
+    tot = sum_segsum_calls(calls)
+    line = dict(
+        batch=b, launches_per_step=got, memory=mem, step_ms=steps_ms,
+        median_step_ms=med, samples_per_second=b / (med / 1e3),
+        loss=history, loss_first=history[0], loss_last=history[-1],
+        device_busy_ms=busy_ms, profiled_seconds=wall_s,
+        busy_share=busy_ms / 1e3 / wall_s,
+        k4_device_ms=sum(ms for n, ms in per.items() if "segsum" in n),
+        top_device_ms=top, k4_step=tot,
+        seconds=time.perf_counter() - t_run)
+    log("bst_train", **line)
+    if len(calls) != 1 or not (tot["within_tol"] and tot["bit_identical"]):
+        raise SystemExit(f"bst train: K4 on the recorded launches: "
+                         f"{len(calls)} calls, {tot}")
+    out["train"] = line
+    out["k4"] = tot
+    out["embedding_bag"] = bst_k4_shape(cfg, model, dev)
+    del model, trainer, stream, loss_fn, calls
+    torch.cuda.empty_cache()
+
+    # (f) cover-edge-tc's rmat_smoke through Algorithm 2 in its ring mode
+    mod = arch_module("cover-edge-tc")
+    edges, n = mod.shape_graph("rmat_smoke")
+    eng = TriangleEngine(device=dev, mesh=LocalShards(8, dev))
+    eng.count((edges, n), route="distributed", options=mod.options())
+    dist, secs, _, got, _ = main_path(lambda c: eng.count(
+        (edges, n), route="distributed", options=mod.options()))
+    local = eng.count((edges, n), route="local")
+    tc = dict(shape="rmat_smoke", triangles=dist.triangles,
+              local_triangles=local.triangles, plan_id=dist.plan_id,
+              per_device=dist.per_device.tolist(), launches=got,
+              seconds=secs, overflow=[dist.overflow.transpose,
+                                      dist.overflow.hedge])
+    log("bst_cover_edge_tc", **tc)
+    if (dist.triangles != local.triangles or dist.triangles
+            != EXPECTED[mod.SHAPES["rmat_smoke"]["scale"]][0]
+            or dist.plan_id != "hedge/ring/p8" or any(tc["overflow"])
+            or not got["intersect_count"]):
+        raise SystemExit(f"cover-edge-tc rmat_smoke: {tc}")
+    out["cover_edge_tc"] = tc
+    out["seconds"] = time.perf_counter() - t_phase
+    log("bst_summary", **{k: v for k, v in out.items()
+                          if k not in ("train", "serve")})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=20, choices=sorted(EXPECTED),
@@ -4740,7 +5149,31 @@ def main() -> int:
                      "each timed and held against its plain version "
                      "summed in float64"})
 
-    # --------------------------------------------------------- 16. summary
+    # ------------------------------------------------------------ 16. bst
+    bst = bst_phase(dev, main_path)
+    bk = bst["k4"]
+    gnn["kernel"].update({
+        "bst_launches": {"train_step": bst["train"]["launches_per_step"][
+            "segment_sum"], **{tag: v["launches"]["segment_sum"]
+                               for tag, v in bst["serve"].items()}},
+        "matches_plain": gnn["kernel"]["matches_plain"] and bk["within_tol"],
+        "max_abs_err": max(gnn["kernel"]["max_abs_err"], bk["max_abs_err"]),
+        "max_scaled_err": max(gnn["kernel"]["max_scaled_err"],
+                              bk["max_scaled_err"]),
+        "bst": {**{k: bk[k] for k in (
+            "launches", "ms", "host_paced_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bytes", "max_abs_err", "max_scaled_err",
+            "bit_identical")},
+            **{f"whole_function_{k}": v for k, v in bst[
+                "embedding_bag"].items()}},
+        "bst_shape": "phase 16: BST's profile bags in one training step at "
+                     "train_batch (524,288 lookups into 65,536 bags, F 32): "
+                     "its one launch timed and held against its plain "
+                     "version summed in float64; library: index_add_; "
+                     "whole_function_*: the gather, the layout and K4 "
+                     "(embedding_bag) against F.embedding_bag(mode='sum')"})
+
+    # --------------------------------------------------------- 17. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -4775,6 +5208,17 @@ def main() -> int:
             "loss_last", "memory", "busy_share", "launches_per_step",
             "k4_device_ms")},
         moe_draw_seconds=moe["draw_seconds"], moe_seconds=moe["seconds"],
+        bst={"train": {k: bst["train"][k] for k in (
+            "median_step_ms", "samples_per_second", "loss_first",
+            "loss_last", "memory", "busy_share", "k4_device_ms")},
+             "serve": {tag: {k: v[k] for k in (
+                 "median_ms", "samples_per_second", "memory")}
+                 for tag, v in bst["serve"].items()},
+             "retrieval": {k: bst["retrieval"][k] for k in (
+                 "median_seconds", "candidates_per_second", "memory",
+                 "chunk")},
+             "cover_edge_tc": bst["cover_edge_tc"]["triangles"],
+             "seconds": bst["seconds"]},
         serve_tc_batch={k: v["median_seconds"]
                         for k, v in stc["batch"].items()},
         serve_tc_graphs_per_second={

@@ -6,8 +6,8 @@ arrays equal the reference's byte for byte; the edges are packed on the
 batch's device by ``graph.csr.from_edges``.  ``lm_batch`` draws its
 tokens from ``models.layers.seeded_generator(seed, cursor)``: the
 reference's ``jax.random`` draws cannot be reproduced, so the tokens
-differ from its (a deliberate difference).  ``bst_batch`` waits for the
-recsys BST (ROADMAP Queue 1 item 13).
+differ from its (a deliberate difference).  ``bst_batch`` draws the same
+way, from ``seeded_generator(seed, cursor)``.
 """
 from __future__ import annotations
 
@@ -108,3 +108,24 @@ def gnn_batch(
         trip_kj=trip_kj,
         trip_ji=trip_ji,
     )
+
+
+def bst_batch(cfg, batch: int, seed: int = 0, *, cursor: int = 0,
+              device: str | torch.device = "cuda"):
+    """``(history, target, profile_idx, profile_bag, labels)`` on
+    ``device``, a pure function of ``(seed, cursor)``: history int64
+    [batch, seq_len - 1] and target int64 [batch] uniform in ``[0,
+    item_vocab)``, profile_idx int64 [batch * profile_bag] uniform in
+    ``[0, profile_vocab)``, profile_bag ``repeat(arange(batch),
+    profile_bag)`` and labels float32 [batch], Bernoulli(0.3), as the
+    reference's; drawn on the CPU."""
+    gen = seeded_generator(seed, cursor)
+    hist = torch.randint(0, cfg.item_vocab, (batch, cfg.seq_len - 1),
+                         generator=gen)
+    target = torch.randint(0, cfg.item_vocab, (batch,), generator=gen)
+    pidx = torch.randint(0, cfg.profile_vocab, (batch * cfg.profile_bag,),
+                         generator=gen)
+    pbag = torch.arange(batch).repeat_interleave(cfg.profile_bag)
+    labels = (torch.rand((batch,), generator=gen) < 0.3).float()
+    dev = resolve_device(device)
+    return tuple(t.to(dev) for t in (hist, target, pidx, pbag, labels))

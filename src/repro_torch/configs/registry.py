@@ -1,11 +1,12 @@
 """The architectures the port runs, by ``--arch`` name: the counterpart of
 ``repro.configs.registry``'s ``ARCH_MODULES`` and ``arch_module``.
 
-The port trains and serves the LMs (dense and MoE) and trains the four
-GNNs.  Every other architecture of the reference raises and names the
-ROADMAP item that brings it.  ``GNN_FWD_FLOPS`` carries the reference's
-rough forward FLOP formulas of the GNNs
-(``repro.configs.registry._GNN_FWD_FLOPS``).
+Every architecture of the reference resolves: the LMs (dense and MoE,
+trained and served), the four GNNs, the recsys BST (trained, served and
+scored) and ``cover-edge-tc``, the paper's own workload (counted by
+``repro_torch.api.TriangleEngine``; it trains nothing).
+``GNN_FWD_FLOPS`` carries the reference's rough forward FLOP formulas of
+the GNNs (``repro.configs.registry._GNN_FWD_FLOPS``).
 """
 from __future__ import annotations
 
@@ -21,13 +22,8 @@ ARCH_MODULES = {
     "gat-cora": "repro_torch.configs.gat_cora",
     "schnet": "repro_torch.configs.schnet",
     "dimenet": "repro_torch.configs.dimenet",
-}
-
-#: the reference's other architectures -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "bst": "ROADMAP Queue 1 item 13 (recsys BST)",
-    "cover-edge-tc": "ROADMAP Queue 1 item 13 (configs; the engine itself "
-                     "is repro_torch.api.TriangleEngine)",
+    "bst": "repro_torch.configs.bst",
+    "cover-edge-tc": "repro_torch.configs.cover_edge_tc",
 }
 
 
@@ -35,9 +31,6 @@ def arch_module(name: str):
     """The config module of ``name`` (``CONFIG``, ``SMOKE``, ``FAMILY``)."""
     if name in ARCH_MODULES:
         return importlib.import_module(ARCH_MODULES[name])
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"--arch {name} is not ported yet: {NOT_PORTED[name]}")
     raise KeyError(f"unknown --arch {name!r}; the port runs "
                    f"{sorted(ARCH_MODULES)}")
 

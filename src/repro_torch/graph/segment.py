@@ -6,9 +6,9 @@ scatter.  ``segment_max``, ``segment_mean`` and ``segment_softmax`` (the
 GAT edge-softmax primitive) follow the reference's conventions: ids
 outside ``[0, num_segments)`` are dropped, an empty segment's max is the
 dtype's identity and its mean exactly 0.  The GNNs' float aggregations
-go through ``kernels/segsum/ops.py`` (K4 on the card), and so does the
-softmax's denominator when a K4 layout is given.  ``embedding_bag``
-waits for BST (ROADMAP Queue 1 item 13).
+go through ``kernels/segsum/ops.py`` (K4 on the card), and so do the
+softmax's denominator when a K4 layout is given and ``embedding_bag``'s
+bag sum (BST's profile features).
 """
 from __future__ import annotations
 
@@ -111,3 +111,32 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                             device=exp.device).index_add(0, ids, exp)[:n]
     denom = denom.clamp_min(1e-9)
     return exp / denom.index_select(0, clipped)
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  bag_ids: torch.Tensor, num_bags: int, *,
+                  mode: str = "sum",
+                  weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``torch.nn.EmbeddingBag`` over flat multi-hot lookups: the rows of
+    ``table`` at ``indices`` (clipped to the table), times the
+    per-lookup ``weights`` when given, reduced by ``bag_ids`` into
+    ``[num_bags, d]`` of the table's dtype.
+
+    A lookup whose bag id is outside ``[0, num_bags)`` is dropped.
+    ``"sum"`` is :func:`repro_torch.kernels.segsum.ops.segment_sum`: K4
+    on a CUDA tensor, its plain version on the CPU; ``"mean"`` follows
+    :func:`segment_mean` (an empty bag is exactly 0, a dropped lookup
+    joins neither the sum nor the count); ``"max"`` is
+    :func:`segment_max` (an empty bag holds ``-inf``).  The gradient of
+    ``table`` is the gather's backward, an ``index_add_`` of the rows'
+    gradients."""
+    reduce = {"sum": lambda r, b, n: segops.segment_sum(r, b, n).to(
+                  table.dtype),
+              "mean": segment_mean, "max": segment_max}.get(mode)
+    if reduce is None:
+        raise ValueError(f"unknown mode {mode!r}")
+    idx = indices.long().clamp(0, table.shape[0] - 1)
+    rows = table.index_select(0, idx)
+    if weights is not None:
+        rows = rows * weights[:, None]
+    return reduce(rows, bag_ids, num_bags)

@@ -1,12 +1,14 @@
 """Step builders, the counterparts of ``repro.launch.steps``: the
-training step (``make_train_step``, ``gnn_train_step``), the LM serving
-steps (``lm_prefill_step``, ``lm_decode_step``) and ``init_for``.
+training step (``make_train_step``; ``gnn_train_step`` and
+``bst_train_step`` over it), the LM serving steps (``lm_prefill_step``,
+``lm_decode_step``), BST's serving and retrieval
+steps (``bst_serve_step``, ``bst_retrieval_step``) and ``init_for``.
 
 A training step is the forward, ``loss.backward()`` and ``opt_update``,
 in place on the model and the optimizer state.  The reference's
 gradient accumulation (``accum``) serves its dry-run compiler, which the
-port does not have.  The LMs (dense and MoE) and the four GNNs train;
-BST waits for ROADMAP Queue 1 item 13.
+port does not have.  The LMs (dense and MoE), the four GNNs and BST
+train; a serving or retrieval step runs without gradients.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.models.gnn import dimenet as dimenet_m
 from repro_torch.models.gnn import gat as gat_m
 from repro_torch.models.gnn import gatedgcn as gatedgcn_m
 from repro_torch.models.gnn import schnet as schnet_m
+from repro_torch.models.recsys import bst as bst_m
 from repro_torch.train.optimizer import OptConfig, opt_update
 
 GNN_MODULES = {
@@ -83,16 +86,52 @@ def gnn_train_step(arch: str, cfg, opt_cfg: OptConfig):
     return make_train_step(GNN_MODULES[arch].loss_fn, opt_cfg)
 
 
+# ------------------------------------------------------------------- BST
+
+def bst_train_step(cfg: bst_m.BSTConfig, opt_cfg: OptConfig):
+    """``step(model, opt_state, history, target, profile_idx,
+    profile_bag, labels)``: ``bst.loss_fn``'s gradients, one update."""
+    del cfg  # the model carries its config
+    return make_train_step(bst_m.loss_fn, opt_cfg)
+
+
+def bst_serve_step(cfg: bst_m.BSTConfig):
+    """``step(model, history, target, profile_idx, profile_bag)``: the
+    CTR logits [B], without gradients."""
+    del cfg
+
+    @torch.no_grad()
+    def step(model: bst_m.BST, history, target, profile_idx, profile_bag):
+        return model(history, target, profile_idx, profile_bag)
+    return step
+
+
+def bst_retrieval_step(cfg: bst_m.BSTConfig):
+    """``step(model, history, candidates)``: the scores [C] of one
+    history against C candidates (``score_candidates``, in slices of
+    ``bst.RETRIEVAL_SLICE``), without gradients."""
+    del cfg
+
+    @torch.no_grad()
+    def step(model: bst_m.BST, history, candidates):
+        return model.score_candidates(history, candidates)
+    return step
+
+
 # ------------------------------------------------------------------- init
 
 def init_for(arch: str, cfg, seed: int = 0,
              device: str | torch.device = "cuda") -> nn.Module:
-    """Random weights of ``cfg`` from ``seed``; ``arch`` must be one the
-    port runs (``configs.registry``)."""
+    """Random weights of ``cfg`` from ``seed`` for a model of
+    ``configs.registry``; ``cover-edge-tc`` (family ``tc``) has none and
+    raises."""
     mod = arch_module(arch)
     if arch in GNN_MODULES:
         return GNN_MODULES[arch].init_params(cfg, seed, device)
+    if mod.FAMILY == "recsys":
+        return bst_m.init_params(cfg, seed, device)
     if mod.FAMILY != "lm":
-        raise NotImplementedError(f"--arch {arch}: family {mod.FAMILY} is "
-                                  f"not ported")
+        raise ValueError(f"--arch {arch}: the {mod.FAMILY} family has no "
+                         f"weights; repro_torch.api.TriangleEngine counts "
+                         f"its graphs")
     return tfm.init_params(cfg, seed, device)

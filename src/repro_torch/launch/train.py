@@ -5,17 +5,22 @@
       --batch 4 --seq 4096 --steps 100
   PYTHONPATH=src python -m repro_torch.launch.train --arch gatedgcn \\
       --steps 100 --gnn-nodes 2708 --gnn-edges 10556 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --arch bst \\
+      --batch 65536 --steps 100
 
 ``--arch`` is an LM (``smollm-135m``, ``gemma3-1b``, ``gemma3-4b``,
 ``qwen2-moe-a2.7b``, ``phi3.5-moe-42b-a6.6b``: next-token batches of
 ``--batch`` x ``--seq`` from ``LMStream``) or one of the four GNNs:
 ``gatedgcn``, ``gat-cora``, ``schnet`` or ``dimenet`` (the molecular
 nets get synthesized positions and atom types; DimeNet's triplet table
-is built on the host once, with the batch).  It trains on the card
+is built on the host once, with the batch), or the recsys ``bst``
+(``--batch`` users a step from ``BSTStream``).  ``cover-edge-tc``, the
+paper's triangle count, trains nothing: it exits, as the reference's
+entry point does.  It trains on the card
 unless ``--device cpu`` is given; without a card and without ``--device
 cpu`` it raises.  On the card every attention's forward and backward
-goes through K5 and every segment sum (a GNN's, an MoE combine) through
-K4.
+goes through K5 and every segment sum (a GNN's, an MoE combine, BST's
+profile bags) through K4.
 
 Fault tolerance: ``--max-restarts N`` wraps the fit loop — on watchdog
 timeout or crash the loop reloads the latest checkpoint and resumes at
@@ -23,8 +28,7 @@ the stored data cursor.  Each attempt starts from the initial weights
 (a copy kept when the model is built), since a step updates them in
 place: a relaunch before the first checkpoint equals a clean run, as in
 the reference, which rebuilds each ``Trainer`` from its untouched
-``params``.  The recsys BST waits for ROADMAP Queue 1 item 13 and
-raises.
+``params``.
 """
 from __future__ import annotations
 
@@ -77,13 +81,25 @@ def build_gnn_pieces(arch: str, cfg, args):
     return steps_mod.GNN_MODULES[arch].loss_fn, FixedStream(batch)
 
 
+def build_bst_pieces(cfg, args):
+    """``(loss_fn(model, history, target, profile_idx, profile_bag,
+    labels), stream)`` for BST: ``args.batch`` users a step from
+    ``BSTStream`` on ``args.device``, the reference's
+    ``build_bst_pieces``."""
+    from repro_torch.models.recsys import bst as bst_m
+    from repro_torch.train.data import BSTStream
+
+    stream = BSTStream(cfg, args.batch, seed=args.seed, device=args.device)
+    return bst_m.loss_fn, stream
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8,
-                    help="LM sequences a step")
+                    help="LM sequences or BST users a step")
     ap.add_argument("--seq", type=int, default=128,
                     help="LM tokens a sequence")
     ap.add_argument("--gnn-nodes", type=int, default=512)
@@ -109,11 +125,10 @@ def main(argv=None) -> dict | None:
     args = parse_args(argv)
     args.device = resolve_device(args.device)
     mod = arch_module(args.arch)
-    if mod.FAMILY not in ("gnn", "lm"):
-        raise NotImplementedError(
-            f"--arch {args.arch}: training the {mod.FAMILY} family is not "
-            f"ported yet (ROADMAP Queue 1 item 13); the port trains the "
-            f"LMs and the GNNs")
+    if mod.FAMILY not in ("gnn", "lm", "recsys"):
+        raise SystemExit(f"--arch {args.arch} is not trainable (family "
+                         f"{mod.FAMILY}); see repro_torch.api.TriangleEngine "
+                         f"/ examples/torch")
     cfg = mod.SMOKE if args.smoke else mod.CONFIG
     model = steps_mod.init_for(args.arch, cfg, args.seed, args.device)
     initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -122,8 +137,10 @@ def main(argv=None) -> dict | None:
           f"({'smoke' if args.smoke else 'full'} config) on {args.device}")
     if mod.FAMILY == "lm":
         loss, stream = build_lm_pieces(cfg, args)
-    else:
+    elif mod.FAMILY == "gnn":
         loss, stream = build_gnn_pieces(args.arch, cfg, args)
+    else:
+        loss, stream = build_bst_pieces(cfg, args)
     opt_cfg = OptConfig(kind=args.opt, lr=args.lr, warmup=10,
                         total_steps=args.steps)
 

@@ -1,12 +1,14 @@
 """Weights carried across from the reference.
 
-``repro.models.transformer.init_params`` and the GNNs' ``init_params``
-return pytrees; their leaves as numpy arrays (``jax.tree.map(
-np.asarray, params)``) become the port's :class:`TransformerLM`,
-:class:`GatedGCN`, :class:`GAT`, :class:`SchNet` or :class:`DimeNet`.
+``repro.models.transformer.init_params``, the GNNs' and BST's
+``init_params`` return pytrees; their leaves as numpy arrays
+(``jax.tree.map(np.asarray, params)``) become the port's
+:class:`TransformerLM`, :class:`GatedGCN`, :class:`GAT`, :class:`SchNet`,
+:class:`DimeNet` or :class:`BST`.
 Stacked ``[L, ...]`` layer or block leaves (scanned in the reference)
 become one module per slice; GAT's per-layer leaves ``W{i}``,
-``a_src{i}``, ``a_dst{i}`` one module per index.  The KV cache has the
+``a_src{i}``, ``a_dst{i}`` one module per index; BST's list of blocks
+one module per entry.  The KV cache has the
 same ``[L, B, T, Hkv, D]`` layout in both packages.  The tests use both
 to hold the port against the reference on the same weights.
 """
@@ -24,6 +26,7 @@ from repro_torch.models.gnn.gatedgcn import (
     GatedGCN,
     GatedGCNConfig,
 )
+from repro_torch.models.recsys import bst as _bst
 from repro_torch.models.transformer import LMConfig, TransformerLM
 
 _LAYER_LEAVES = ("ln_attn", "ln_mlp", "wq", "wk", "wv", "wo")
@@ -162,6 +165,32 @@ def dimenet_params_from_numpy(cfg: _dimenet.DimeNetConfig, tree: dict,
     model = _dimenet.DimeNet(cfg)
     _stacked(model, tree, model.blocks, _dimenet.BLOCK_LEAVES,
              _dimenet.TOP_LEAVES)
+    return model.to(dev)
+
+
+@torch.no_grad()
+def bst_params_from_numpy(cfg: _bst.BSTConfig, tree: dict,
+                          device: str | torch.device = "cuda") -> _bst.BST:
+    """The reference's BST parameter tree of ``cfg`` (numpy leaves:
+    ``item_embed``, ``pos_embed``, ``profile_embed``, ``blocks``, a list
+    of dicts of the block leaves, and ``mlp``, ``w{i}`` and ``b{i}``) as
+    the port's model on ``device``."""
+    dev = resolve_device(device)
+    model = _bst.BST(cfg)
+    if len(tree["blocks"]) != len(model.blocks):
+        raise ValueError(f"the tree has {len(tree['blocks'])} blocks, the "
+                         f"model {len(model.blocks)}")
+    if set(tree["mlp"]) != set(model.mlp):
+        raise ValueError(f"mlp leaves {sorted(tree['mlp'])}; the model has "
+                         f"{sorted(model.mlp)}")
+    for i, block in enumerate(model.blocks):
+        for name in _bst.BLOCK_LEAVES:
+            _copy(getattr(block, name), tree["blocks"][i][name],
+                  f"blocks[{i}].{name}")
+    for name in _bst.TOP_LEAVES:
+        _copy(getattr(model, name), tree[name], name)
+    for name, leaf in model.mlp.items():
+        _copy(leaf, tree["mlp"][name], f"mlp.{name}")
     return model.to(dev)
 
 

@@ -1,2 +1,2 @@
-"""The port's graph neural networks (GatedGCN; GAT, SchNet and DimeNet
-wait for ROADMAP Queue 1 item 13)."""
+"""The port's graph neural networks: GatedGCN, GAT, SchNet and DimeNet,
+every aggregation a segment sum through K4 on the card."""

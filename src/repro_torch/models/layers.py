@@ -1,8 +1,8 @@
 """Building blocks of the port's models, counterparts of
 ``repro.models.layers``: initialisers drawn from an explicit
 ``torch.Generator``, RMSNorm with its ``(1 + weight)`` scale, LayerNorm,
-rotary embeddings (split halves), the gated MLP and the masked softmax
-cross-entropy.
+rotary embeddings (split halves), the gated MLP, the plain MLP stack,
+the masked softmax cross-entropy and the binary cross-entropy on logits.
 
 Weights keep the reference's layout, ``[d_in, d_out]`` applied as
 ``x @ w``, so a JAX parameter tree carries across as it is
@@ -117,6 +117,29 @@ def glu_mlp(params, x: torch.Tensor, *, act: str = "silu") -> torch.Tensor:
     return (gate * up) @ params["w_down"]
 
 
+def mlp_stack_init(gen: torch.Generator, dims: tuple[int, ...],
+                   dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """``w{i}`` [dims[i], dims[i + 1]] (``dense_init``, in order) and
+    ``b{i}`` zeros [dims[i + 1]] for each of the ``len(dims) - 1``
+    layers."""
+    n = len(dims) - 1
+    return ({f"w{i}": dense_init(gen, dims[i], dims[i + 1], dtype)
+             for i in range(n)}
+            | {f"b{i}": torch.zeros((dims[i + 1],), dtype=dtype)
+               for i in range(n)})
+
+
+def mlp_stack(params, x: torch.Tensor, *, n: int) -> torch.Tensor:
+    """``n`` layers ``x @ w{i} + b{i}``, ReLU between them and none after
+    the last (the reference's defaults; no caller sets its ``act`` or
+    ``final_act``)."""
+    for i in range(n):
+        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        if i < n - 1:
+            x = F.relu(x)
+    return x
+
+
 # ---------------------------------------------------------------- losses
 
 
@@ -135,3 +158,12 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, *,
     nll = torch.where(keep, nll, torch.zeros((), dtype=nll.dtype,
                                              device=nll.device))
     return nll.sum() / keep.sum().clamp_min(1)
+
+
+def bce_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy of ``logits`` against ``labels`` in
+    [0, 1], in float32, in the stable form ``max(x, 0) - x y +
+    log1p(exp(-|x|))``."""
+    x = logits.float()
+    return (x.clamp_min(0) - x * labels
+            + torch.log1p(torch.exp(-x.abs()))).mean()

@@ -9,14 +9,15 @@ graph's device; ``block_batch`` turns a block into the ``GraphBatch``
 the GNNs consume.  ``LMStream`` yields ``configs.data.lm_batch`` at its
 cursor: uniform token ids from ``seeded_generator(seed, cursor)``, which
 cannot reproduce the reference's ``jax.random`` draws (a deliberate
-difference, as for ``GNNSampledStream``).  ``BSTStream`` waits for the
-recsys BST (ROADMAP Queue 1 item 13).
+difference, as for ``GNNSampledStream``).  ``BSTStream`` yields
+``configs.data.bst_batch`` at its cursor the same way (the reference
+seeds its batch c with ``seed + c``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.data import lm_batch
+from repro_torch.configs.data import bst_batch, lm_batch
 from repro_torch.device import resolve_device
 from repro_torch.graph.sampler import sample_blocks
 from repro_torch.models.gnn.common import GraphBatch
@@ -93,9 +94,22 @@ class LMStream:
 
 
 class BSTStream:
-    """Waits for the recsys BST (ROADMAP Queue 1 item 13)."""
+    """BST batches ``(history, target, profile_idx, profile_bag,
+    labels)`` on ``device``: batch c is ``configs.data.bst_batch(cfg,
+    batch, seed, cursor=c)``, so a stream restarted at cursor c resumes
+    the batches of a fresh one."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "BSTStream is not ported yet: ROADMAP Queue 1 item 13 (recsys "
-            "BST)")
+    def __init__(self, cfg, batch: int, *, seed: int = 0, cursor: int = 0,
+                 device: str | torch.device = "cuda"):
+        self.cfg, self.batch = cfg, batch
+        self.seed, self.cursor = seed, cursor
+        self.device = resolve_device(device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        out = bst_batch(self.cfg, self.batch, self.seed, cursor=self.cursor,
+                        device=self.device)
+        self.cursor += 1
+        return out

@@ -13,7 +13,7 @@ A step is the forward, ``loss.backward()`` and ``opt_update``
 loss back is the step's one host sync, so a step's seconds include its
 device time.  The reference's ``int8_compressed_psum`` is a
 data-parallel gradient reduction of the model zoo: it comes with
-``distributed/*``, ROADMAP Queue 1 item 13.
+``distributed/*``, ROADMAP Queue 1 item 13.4.
 """
 from __future__ import annotations
 

@@ -27,6 +27,7 @@ CPU, and a sampled block on the card equal to the CPU's; K5's backward
 against its plain version and bit for bit across launches, the
 ``grad_fn`` of K5's output on the card, an LM training step through
 K5's backward against the CPU, and one MoE layer (its combine on K4)
+against the CPU; BST's bag sum on K4 and a BST training step
 against the CPU.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
@@ -1323,3 +1324,69 @@ print(json.dumps([at_start, first, srv.summary()["jit_compiles"],
         proc.stdout.strip().splitlines()[-1])
     assert at_start >= 1 and (first, after, hit) == (0, 0, 1.0)
     assert got == want
+
+
+# ------------------------------------------------------------------- BST
+
+def test_bst_embedding_bag_runs_k4_within_tol_and_repeats(cuda_device):
+    """``embedding_bag``'s sum on the card is one K4 launch at BST's own
+    layout (8 lookups a bag, F 32; bag ids past the end dropped, an empty
+    bag), within 1e-5 (1 + S) of the float64 sum and bit for bit across
+    calls; mean and max equal the CPU's."""
+    from repro_torch.graph import segment as tgseg
+
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    table = torch.randn((4096, 32), generator=g, device=cuda_device)
+    idx = torch.randint(-3, 4100, (65536,), generator=g, device=cuda_device)
+    bags = torch.arange(8192, device=cuda_device).repeat_interleave(8)
+    bags[:8] = 8192                                  # bag 0 empty
+    before = tsegk.LAUNCHES["segment_sum"]
+    got = tgseg.embedding_bag(table, idx, bags, 8192)
+    assert tsegk.LAUNCHES["segment_sum"] == before + 1
+    assert torch.equal(got, tgseg.embedding_bag(table, idx, bags, 8192))
+    rows = table.index_select(0, idx.clamp(0, 4095)).double()
+    want = segment_sum_ref(rows, bags, 8192)
+    scale = 1 + segment_sum_ref(rows.abs(), bags, 8192)
+    assert bool(((got.double() - want).abs() <= 1e-5 * scale).all())
+    assert not got[0].any()
+    cpu = [t.cpu() for t in (table, idx, bags)]
+    for mode in ("mean", "max"):
+        torch.testing.assert_close(
+            tgseg.embedding_bag(table, idx, bags, 8192, mode=mode).cpu(),
+            tgseg.embedding_bag(*cpu, 8192, mode=mode), rtol=0, atol=1e-6)
+
+
+def test_bst_train_step_on_the_card_matches_the_cpu(cuda_device,
+                                                    monkeypatch):
+    """BST's smoke config: the logits, loss and every gradient leaf on the
+    card (the profile bags on K4, once a forward) against the CPU's plain
+    path on the same weights, within 1e-4 (1 + |cpu|); the retrieval
+    scores in slices equal one call's to the same tolerance."""
+    from repro_torch.configs import recsys as trecsys
+    from repro_torch.models.recsys import bst as tbst
+
+    cfg = trecsys.BST_SMOKE
+    cpu = tbst.init_params(cfg, 0, "cpu")
+    card = tbst.init_params(cfg, 0, cuda_device)
+    batch = tdata.bst_batch(cfg, 256, 0, device="cpu")
+    before = tsegk.LAUNCHES["segment_sum"]
+    loss = tbst.loss_fn(card, *(t.to(cuda_device) for t in batch))
+    assert tsegk.LAUNCHES["segment_sum"] == before + 1
+    loss.backward()
+    want = tbst.loss_fn(cpu, *batch)
+    want.backward()
+    torch.testing.assert_close(loss.detach().cpu(), want.detach(),
+                               rtol=1e-4, atol=1e-4)
+    cpu_params = dict(cpu.named_parameters())
+    for name, p in card.named_parameters():
+        ref = cpu_params[name].grad
+        assert bool(((p.grad.cpu() - ref).abs()
+                     <= 1e-4 * (1 + ref.abs())).all()), name
+    step = tsteps.bst_retrieval_step(cfg)
+    hist, cands = batch[0][0].to(cuda_device), torch.arange(
+        cfg.item_vocab, device=cuda_device)
+    assert tbst.RETRIEVAL_SLICE >= cfg.item_vocab
+    one = step(card, hist, cands)
+    monkeypatch.setattr(tbst, "RETRIEVAL_SLICE", 300)
+    assert bool(((step(card, hist, cands) - one).abs()
+                 <= 1e-4 * (1 + one.abs())).all())

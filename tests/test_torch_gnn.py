@@ -371,13 +371,15 @@ def test_train_main_needs_the_card_by_default(monkeypatch):
         tgat.init_params(tgnn.GATEDGCN_SMOKE)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "bst", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "bst", "qwen2-moe-a2.7b",
+                                  "not-an-arch"])
 def test_train_main_refuses_what_is_not_ported(arch):
-    """The LMs (dense and MoE) train on the CPU now; BST still raises and
-    names its ROADMAP item."""
+    """Every architecture of the reference is ported: the LMs (dense and
+    MoE) and BST train on the CPU; only a name the registry does not
+    know is refused."""
     argv = ["--arch", arch, "--smoke", "--steps", "1", "--device", "cpu"]
-    if arch == "bst":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    if arch == "not-an-arch":
+        with pytest.raises(KeyError, match="unknown --arch"):
             ttrain.main(argv)
         return
     report = ttrain.main(argv + ["--batch", "2", "--seq", "8"])

@@ -356,24 +356,31 @@ def test_registry_lists_the_dense_lms():
     assert dense == {"smollm-135m", "gemma3-1b", "gemma3-4b"}
     assert lms - dense == {"qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b"}
     assert set(ARCH_MODULES) == lms | {"gatedgcn", "gat-cora", "schnet",
-                                       "dimenet"}
+                                       "dimenet", "bst", "cover-edge-tc"}
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi3.5-moe-42b-a6.6b",
                                   "cover-edge-tc", "bst"])
 def test_unported_archs_raise_naming_the_queue(arch):
-    """The MoE LMs are ported: their config modules resolve and their
-    smoke models build.  ``cover-edge-tc`` and ``bst`` still raise."""
+    """Every architecture of the reference is ported: the MoE LMs' and
+    BST's config modules resolve and their smoke models build;
+    ``cover-edge-tc`` resolves to the triangle count's config, which has
+    no weights, so ``init_for`` raises for it alone."""
+    mod = arch_module(arch)
     if arch.startswith(("qwen2", "phi3.5")):
-        mod = arch_module(arch)
         assert mod.FAMILY == "lm" and mod.SMOKE.moe is not None
         model = tsteps.init_for(arch, mod.SMOKE, device="cpu")
         assert all(hasattr(lp, "moe") for lp in model.layers)
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        arch_module(arch)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        tsteps.init_for(arch, tlm.SMOLLM_135M_SMOKE, device="cpu")
+    if arch == "bst":
+        assert mod.FAMILY == "recsys"
+        model = tsteps.init_for(arch, mod.SMOKE, device="cpu")
+        assert model.item_embed.shape == (mod.SMOKE.item_vocab,
+                                          mod.SMOKE.embed_dim)
+        return
+    assert mod.FAMILY == "tc" and mod.SHAPES["rmat_smoke"]["scale"] == 10
+    with pytest.raises(ValueError, match="no weights"):
+        tsteps.init_for(arch, mod.SMOKE, device="cpu")
 
 
 def test_unknown_arch_raises():

@@ -338,6 +338,12 @@ def test_relaunch_after_a_step_failure_equals_a_clean_run(tmp_path,
 
 
 def test_train_main_still_refuses_bst():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        ttrain.main(["--arch", "bst", "--smoke", "--steps", "1", "--device",
-                     "cpu"])
+    """BST trains now (``--batch`` users a step); the one family that
+    trains nothing, ``cover-edge-tc``'s ``tc``, exits as the reference's
+    entry point does."""
+    report = ttrain.main(["--arch", "bst", "--smoke", "--steps", "1",
+                          "--batch", "8", "--device", "cpu"])
+    assert report["steps"] == 1 and np.isfinite(report["history"]).all()
+    with pytest.raises(SystemExit, match="not trainable"):
+        ttrain.main(["--arch", "cover-edge-tc", "--smoke", "--steps", "1",
+                     "--device", "cpu"])

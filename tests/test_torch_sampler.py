@@ -6,7 +6,7 @@ on ``rmat(8, 8)`` with seeds 0-15 and fanouts (5, 3) under several keys
 (also through the reference's edge-validity check), on sentinel seeds
 and isolated nodes, and at one and three hops; the generator form;
 ``train/data.py``'s ``GNNSampledStream`` (deterministic at a cursor,
-restart-safe), ``block_batch`` and the streams that wait for item 13.
+restart-safe), ``block_batch`` and the LM and BST streams.
 Integer outputs: no tolerance."""
 from __future__ import annotations
 
@@ -163,8 +163,9 @@ def test_block_batch_feeds_gat():
 
 @pytest.mark.parametrize("stream", ["LMStream", "BSTStream"])
 def test_streams_of_unported_models_raise_naming_the_queue(stream):
-    """``LMStream`` is ported (LM training) and yields next-token
-    batches; ``BSTStream`` still waits for the recsys BST."""
+    """Both streams are ported: ``LMStream`` (LM training) yields
+    next-token batches, ``BSTStream`` (the recsys BST) users' histories,
+    targets, profile bags and labels."""
     if stream == "LMStream":
         from repro_torch.configs import lm as tlm
 
@@ -174,5 +175,11 @@ def test_streams_of_unported_models_raise_naming_the_queue(stream):
         assert tok.shape == lab.shape == (4, 16) and lm.cursor == 1
         assert torch.equal(tok[:, 1:], lab[:, :-1])
         return
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        getattr(tdata, stream)(None, 4)
+    from repro_torch.configs import recsys as trecsys
+
+    cfg = trecsys.BST_SMOKE
+    bst = tdata.BSTStream(cfg, 4, seed=0, device="cpu")
+    hist, target, pidx, pbag, labels = next(bst)
+    assert hist.shape == (4, cfg.seq_len - 1) and bst.cursor == 1
+    assert target.shape == labels.shape == (4,)
+    assert pidx.shape == pbag.shape == (4 * cfg.profile_bag,)
