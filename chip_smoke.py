@@ -6,9 +6,10 @@ training, the batch route with its triangle server, the approx route
 with robust serving, distributed Algorithm 2, the trace-driven
 autotuner, the static auditor, the training of GAT, SchNet and DimeNet,
 LM training (smollm-135m), the MoE LM qwen2-moe-a2.7b (served and
-trained) and the recsys BST (trained, served and scored over 10^6
-candidates) end to end on one NVIDIA H100, through the hand-written
-Hopper kernels K1 to K5 and K5's backward.
+trained, and on its explicit expert-parallel path), the recsys BST
+(trained, served and scored over 10^6 candidates), the int8 gradient
+psum and the dry run end to end on one NVIDIA H100, through the
+hand-written Hopper kernels K1 to K5 and K5's backward.
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
@@ -324,7 +325,32 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
                ``cover-edge-tc``'s ``rmat_smoke`` through Algorithm 2 in
                the config's ring mode over ``LocalShards(8, "cuda")``,
                equal to the local count.
- 17. summary — one JSON line per kernel, the card's name and power
+ 17. a2a     — qwen2-moe-a2.7b's explicit expert parallelism
+               (``models/moe_a2a.py``) at full width and the training
+               depth cut of 2 layers (float32, random weights from seed
+               0), ``dispatch="a2a"`` under a (data 1, model 4) layout
+               over ``LocalShards(4, "cuda")``.  (a) Layer 0's MoE FFN
+               on a [4, 32, 2,048] input against the CPU's a2a path on
+               the same weights (each slice's routing integers equal,
+               output and aux within 1e-4 (1 + |cpu|)), each slice's
+               dropped share beside the sort path's; the default
+               request's prefill (batch 4, prompt 32) as a main path (K5
+               and K4 alone, 2 each) and timed a2a against the sort path
+               in turns; the first training step against the CPU's a2a
+               path at B 1 x S 128 as in 14 (b); training at B 2 x S
+               4,096 through ``launch/train.py``'s pieces: a warm-up,
+               one step as a main path (K5 4, its backward 2, K4 4), 6
+               timed steps a path in turns, one profiled; every K4
+               launch of a prefill and of a step timed beside its bound,
+               its plain version and ``index_add_``.  (b)
+               ``int8_compressed_psum`` over ``LocalShards(8, "cuda")``
+               on eight per-shard copies of a GatedGCN-sized gradient
+               tree with unequal absmax: equal bit for bit to the CPU's,
+               its ms a call, its error against the exact float64 sum.
+               (c) The dry run of every cell on ``pod`` and ``multipod``
+               on the host: cells, skips, seconds; the cells whose
+               per-device argument bytes exceed the card's memory.
+ 18. summary — one JSON line per kernel, the card's name and power
                limit, and the final ``{"ok": true, ...}`` line.
 
 It imports nothing of JAX or of the JAX package.  Without a usable card,
@@ -4002,18 +4028,16 @@ def lm_train_phase(dev, main_path) -> dict:
     return out
 
 
-def moe_drops(run) -> dict:
-    """``run()`` with each MoE layer's routing recorded: the dropped
-    fraction of the (token, expert) entries of every call, by its token
-    count."""
+def route_calls(run) -> list:
+    """``run()`` with every call of ``models/moe.py:route`` recorded, in
+    order: ``(tokens, capacity, routing)``."""
     from repro_torch.models import moe as tmoe
 
-    real, seen = tmoe.route, {}
+    real, seen = tmoe.route, []
 
     def spy(router, cfg, tokens, capacity):
         r = real(router, cfg, tokens, capacity)
-        seen.setdefault(tokens.shape[0], []).append(
-            (int(r.keep.numel()), int((~r.keep).sum().item()), capacity))
+        seen.append((tokens.shape[0], capacity, r))
         return r
 
     tmoe.route = spy
@@ -4021,11 +4045,29 @@ def moe_drops(run) -> dict:
         run()
     finally:
         tmoe.route = real
+    return seen
+
+
+def moe_drops(run) -> dict:
+    """``run()`` with each MoE layer's routing recorded: the dropped
+    fraction of the (token, expert) entries of every call, by its token
+    count."""
+    seen = {}
+    for n, capacity, r in route_calls(run):
+        seen.setdefault(n, []).append(
+            (int(r.keep.numel()), int((~r.keep).sum().item()), capacity))
     return {n: dict(calls=len(v), capacity=v[0][2],
                     dropped=sum(x[1] for x in v),
                     entries=sum(x[0] for x in v),
                     drop_fraction=sum(x[1] for x in v) / sum(x[0] for x in v))
             for n, v in seen.items()}
+
+
+def leaves_on_cpu(leaves: dict) -> dict:
+    """A copy of a MoE layer's ``leaves()`` on the CPU."""
+    return {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                else {n: t.detach().cpu() for n, t in v.items()})
+            for k, v in leaves.items()}
 
 
 def moe_layer_check(model, cfg, dev) -> dict:
@@ -4035,9 +4077,7 @@ def moe_layer_check(model, cfg, dev) -> dict:
     from repro_torch.models import moe as tmoe
 
     leaves = model.layers[0].moe.leaves()
-    cpu_leaves = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
-                      else {n: t.detach().cpu() for n, t in v.items()})
-                  for k, v in leaves.items()}
+    cpu_leaves = leaves_on_cpu(leaves)
     x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(
         device=dev).manual_seed(1), device=dev)
     with torch.no_grad():
@@ -4550,6 +4590,326 @@ def bst_phase(dev, main_path) -> dict:
     out["seconds"] = time.perf_counter() - t_phase
     log("bst_summary", **{k: v for k, v in out.items()
                           if k not in ("train", "serve")})
+    return out
+
+
+# ------------------------------------------------- explicit expert parallel
+
+#: phase 17: qwen2-moe-a2.7b at full width with ``dispatch="a2a"`` under
+#: a (data 1, model 4) layout over ``LocalShards(4, "cuda")``, at the
+#: training depth cut.  ``prefill``: the server's default request (batch,
+#: prompt) and the timed prefills a path; ``train``: (layers, batch, seq,
+#: timed steps a path); ``check``: the short batch of the first training
+#: step held against the CPU's a2a path
+A2A = {"arch": "qwen2-moe-a2.7b", "mesh": (1, 4), "prefill": (4, 32, 5),
+       "train": (2, 2, 4096, 3), "check": (1, 128)}
+#: phase 17 (b): the int8 gradient psum's shards and its timed calls
+PSUM = {"shards": 8, "calls": 20}
+
+
+def drop_shares(calls, n_slices: int) -> list:
+    """The dropped share of (token, expert) entries of each slice
+    (calls in slice order, layer after layer)."""
+    out = []
+    for i in range(n_slices):
+        mine = calls[i::n_slices]
+        out.append(sum(int((~r.keep).sum()) for _, _, r in mine)
+                   / sum(r.keep.numel() for _, _, r in mine))
+    return out
+
+
+def a2a_layer_check(model, cfg, dev, layout) -> dict:
+    """Layer 0's MoE FFN on the a2a path on the card against the CPU's a2a
+    path on the same weights (copied) and a random [4, 32, d_model]
+    input: each slice's routing integers (experts, keep mask) equal, the
+    output and aux loss within GNN_TOL; each slice's dropped share
+    beside the sort path's on the same input."""
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.distributed.constrain import use_mesh
+    from repro_torch.models import moe as tmoe
+
+    n_model = layout.shape["model"]
+    leaves = model.layers[0].moe.leaves()
+    cpu_leaves = leaves_on_cpu(leaves)
+    x = torch.randn((4, 32, cfg.d_model), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev)
+    res = {}
+    with torch.no_grad():
+        with use_mesh(layout, LocalShards(n_model, dev)):
+            card = route_calls(lambda: res.setdefault(
+                "card", tmoe.moe_ffn(leaves, cfg.moe, x)))
+        with use_mesh(layout, LocalShards(n_model, "cpu")):
+            cpu = route_calls(lambda: res.setdefault(
+                "cpu", tmoe.moe_ffn(cpu_leaves, cfg.moe, x.cpu())))
+        sort = route_calls(lambda: tmoe.moe_ffn(leaves, cfg.moe, x))
+    (got, aux), (want, aux_cpu) = res["card"], res["cpu"]
+    same = [{f: bool(torch.equal(getattr(a[2], f).cpu(), getattr(b[2], f)))
+             for f in ("expert_idx", "keep")} for a, b in zip(card, cpu)]
+    k = cfg.moe.top_k
+    gaps = [float((top[:, k - 1] - top[:, k]).min()) for top in (
+        r.probs.sort(-1, descending=True).values for _, _, r in cpu)]
+    err, ok = within(got.cpu(), want, GNN_TOL)
+    aux_err, aux_ok = within(aux.cpu(), aux_cpu, GNN_TOL)
+    out = dict(tokens=x.shape[0] * x.shape[1], slices=len(card),
+               slice_tokens=card[0][0], slice_capacity=card[0][1],
+               sort_capacity=sort[0][1], max_abs_err=err,
+               aux_abs_err=aux_err, aux=float(aux), tol=GNN_TOL,
+               within_tol=bool(ok and aux_ok), routing_equal=same,
+               smallest_topk_gap=min(gaps),
+               drop_share_per_slice=drop_shares(card, n_model),
+               drop_share_sort=drop_shares(sort, 1)[0])
+    log("a2a_layer_cpu_vs_card", **out)
+    if not (out["within_tol"] and len(card) == n_model == len(cpu)
+            and all(all(s.values()) for s in same)):
+        raise SystemExit(f"the a2a MoE layer on the card differs from the "
+                         f"CPU's: {out}")
+    return out
+
+
+def psum_phase(dev) -> dict:
+    """Phase 17 (b): ``int8_compressed_psum`` over ``LocalShards(8,
+    "cuda")`` on eight per-shard copies of a GatedGCN-sized gradient tree
+    (the full config's parameter shapes; standard normals, each shard
+    scaled by 10^-u, u uniform in [0, 3), seed 0): equal bit for bit to
+    the CPU's, its ms a call, and its largest error against the exact
+    float64 sum, relative to each leaf's largest |sum| (the reference's
+    shared scale at full size)."""
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.launch.mesh import make_tc_mesh
+    from repro_torch.launch.steps import shape_model
+    from repro_torch.train.trainer import int8_compressed_psum
+
+    p = PSUM["shards"]
+    shapes = {k: tuple(v.shape) for k, v in shape_model(
+        "gatedgcn", arch_module("gatedgcn").CONFIG).named_parameters()}
+    rng = np.random.default_rng(0)
+    scale = (10.0 ** -rng.uniform(0, 3, p)).astype(np.float32)
+    host = {k: torch.from_numpy((rng.standard_normal((p,) + s).astype(
+        np.float32) * scale.reshape((p,) + (1,) * len(s))))
+        for k, s in shapes.items()}
+    tree = {k: v.to(dev) for k, v in host.items()}
+    shards = make_tc_mesh(p, dev)
+    got = int8_compressed_psum(tree, shards)
+    want = int8_compressed_psum(host, LocalShards(p, "cpu"))
+    same = all(torch.equal(got[k].cpu().view(torch.int32),
+                           want[k].view(torch.int32)) for k in host)
+    ms = cuda_ms(lambda: int8_compressed_psum(tree, shards),
+                 reps=PSUM["calls"])
+    rel = {}
+    for k, v in host.items():
+        exact = v.double().sum(0)
+        rel[k] = float((got[k].cpu().double() - exact).abs().max()
+                       / exact.abs().max().clamp_min(1e-30))
+    worst = max(rel, key=rel.get)
+    out = dict(shards=p, leaves=len(host),
+               params=sum(int(np.prod(s)) for s in shapes.values()),
+               shard_scales=scale.tolist(), bits_equal_cpu=same, ms=ms,
+               max_rel_err=rel[worst], worst_leaf=worst,
+               median_rel_err=statistics.median(rel.values()))
+    log("a2a_int8_psum", **out)
+    if not same:
+        raise SystemExit(f"int8_compressed_psum on the card differs from "
+                         f"the CPU's: {out}")
+    return out
+
+
+def dryrun_phase() -> dict:
+    """Phase 17 (c): every dry-run cell (the 40 assigned and both TC
+    shapes) on ``pod`` and ``multipod``, on the host: cells built, skips,
+    seconds, and each cell whose per-device argument bytes exceed the
+    card's memory."""
+    from repro_torch.launch.dryrun import run_cell, select_cells
+    from repro_torch.launch.mesh import make_production_mesh
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = select_cells(include_tc=True) + [("cover-edge-tc",
+                                              "rmat_smoke")]
+    out = {"device_memory": total}
+    for mesh in ("pod", "multipod"):
+        layout = make_production_mesh(multi_pod=mesh == "multipod")
+        t0 = time.perf_counter()
+        recs = [run_cell(a, s, layout) for a, s in cells]
+        secs = time.perf_counter() - t0
+        ok = [r for r in recs if r["status"] == "ok"]
+        over = {f"{r['arch']}|{r['shape']}": r["argument_bytes"]
+                for r in ok if r["argument_bytes"] > total}
+        out[mesh] = dict(cells=len(recs), ok=len(ok), seconds=secs,
+                         skipped=[f"{r['arch']}|{r['shape']}" for r in recs
+                                  if r["status"] == "skipped"],
+                         max_argument_bytes=max(r["argument_bytes"]
+                                                for r in ok))
+        log("a2a_dryrun_over_device_memory", mesh=mesh,
+            device_memory=total, cells=over)
+        if len(ok) + len(out[mesh]["skipped"]) != len(recs):
+            raise SystemExit(f"dry run on {mesh}: a cell failed: {recs}")
+    log("a2a_dryrun", **out)
+    return out
+
+
+def a2a_phase(dev, main_path) -> dict:
+    """Phase 17: qwen2-moe-a2.7b's explicit expert parallelism on the card,
+    the int8 gradient psum and the dry run (see the module's docstring);
+    ``main_path`` is ``main``'s.  Returns the phase's summary with K4's
+    a2a entries."""
+    import contextlib
+    import dataclasses
+
+    from repro_torch.configs.data import lm_batch
+    from repro_torch.configs.registry import arch_module
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.distributed.constrain import use_mesh
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.serve import prompt_tokens
+    from repro_torch.launch.steps import init_for
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    arch = A2A["arch"]
+    layers, tb, ts, tsteps = A2A["train"]
+    base = arch_module(arch).CONFIG
+    cfg = dataclasses.replace(base, n_layers=layers,
+                              moe=dataclasses.replace(base.moe,
+                                                      dispatch="a2a"))
+    layout = make_debug_mesh(A2A["mesh"])
+    n_model = layout.shape["model"]
+    shards = LocalShards(n_model, dev)
+
+    def mesh(a2a: bool):
+        return use_mesh(layout, shards) if a2a else contextlib.nullcontext()
+
+    model = init_for(arch, cfg, 0, dev)
+    out = {"draw_seconds": model.init_seconds, "k4": {},
+           "params": sum(p.numel() for p in model.parameters())}
+    out["layer_check"] = a2a_layer_check(model, cfg, dev, layout)
+
+    # (a) prefill of the default request, a2a against the sort path
+    b, p, runs = A2A["prefill"]
+    tokens = prompt_tokens(cfg, b, p, dev)
+
+    def prefill(a2a: bool):
+        with mesh(a2a):
+            return model.prefill(tokens, p)
+
+    prefill(True), prefill(False)                               # warm-up
+    with shards.recording() as rec:   # the a2a path, not the sort path
+        (logits, _), _, _, got, mem = main_path(lambda c: prefill(True))
+    want = {"flash_attention": layers, "segment_sum": layers}
+    a2as = sum(c.kind == "all_to_all" for c in rec)
+    if {k: v for k, v in got.items() if v} != want or a2as != 2 * layers:
+        raise SystemExit(f"a2a prefill: launched {got} and {a2as} "
+                         f"all-to-alls; expected {want} and {2 * layers}")
+    ms = {True: [], False: []}
+    for a2a in (True, False, False, True) * ((runs + 1) // 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill(a2a)
+        torch.cuda.synchronize()
+        ms[a2a].append((time.perf_counter() - t0) * 1e3)
+    drops = {a2a: route_calls(lambda a=a2a: prefill(a))
+             for a2a in (True, False)}
+    calls = []
+    record_segsum(lambda: prefill(True),
+                  lambda m, lay, k: calls.append(time_segsum_call(m, lay,
+                                                                  k)))
+    out["k4"]["prefill"] = sum_segsum_calls(calls)
+    out["k4"]["prefill"].update(e=b * p * cfg.moe.top_k, f=cfg.d_model)
+    log("a2a_k4", part="prefill", **out["k4"]["prefill"])
+    line = dict(batch=b, prompt=p, launches=got, all_to_alls=a2as,
+                memory=mem,
+                finite=bool(torch.isfinite(logits).all()),
+                a2a_ms=ms[True], sort_ms=ms[False],
+                median_a2a_ms=statistics.median(ms[True]),
+                median_sort_ms=statistics.median(ms[False]),
+                drop_share_per_slice=drop_shares(drops[True], n_model),
+                drop_share_sort=drop_shares(drops[False], 1)[0])
+    log("a2a_prefill", **line)
+    if not line["finite"]:
+        raise SystemExit("a2a prefill: the logits are not finite")
+    out["prefill"] = line
+    del logits
+
+    # (a) training: the first step against the CPU's a2a path at a short
+    # batch, then steps through launch/train.py's pieces, a2a and sort
+    cb, cs = A2A["check"]
+    with use_mesh(layout):  # each device's own LocalShards(4)
+        out["cpu_vs_card"] = lm_cpu_check(
+            arch, cfg, model, lm_batch(cfg, cb, cs, 0, device=dev),
+            "a2a_train_cpu_vs_card")
+    args = ltrain.parse_args(["--arch", arch, "--batch", str(tb), "--seq",
+                              str(ts), "--steps", str(4 * tsteps + 4)])
+    _, stream = ltrain.build_lm_pieces(cfg, args)
+    auxes = []
+
+    def loss_fn(m, tok, lab):   # the reference's loss, its aux kept
+        logits, aux = m(tok)
+        auxes.append(aux.detach())
+        return tfm.softmax_xent(logits, lab) + 0.01 * aux
+
+    opt = OptConfig(kind="adamw", lr=3e-4, warmup=10,
+                    total_steps=4 * tsteps + 4)
+    trainer = Trainer(loss_fn, model, opt, cfg=cfg, log_every=10**9)
+
+    def step(a2a: bool):
+        with mesh(a2a):
+            return trainer.fit(stream, 1)
+
+    history = step(True)["history"] + step(False)["history"]   # warm-up
+    # the record is this thread's: the forward's all-to-alls (the
+    # backward's may run on autograd's device thread)
+    with shards.recording() as rec:
+        rep, _, _, got, mem = main_path(lambda c: step(True))
+    want = {"flash_attention": 2 * layers, "flash_attention_bwd": layers,
+            "segment_sum": 2 * layers}
+    a2as = sum(c.kind == "all_to_all" for c in rec)
+    if {k: v for k, v in got.items() if v} != want or a2as < 2 * layers:
+        raise SystemExit(f"a2a train: launched {got} and {a2as} "
+                         f"all-to-alls; expected {want} and at least "
+                         f"{2 * layers}")
+    history += rep["history"]
+    step_ms = {True: [], False: []}
+    for a2a in (True, False, False, True) * ((tsteps + 1) // 2):
+        r = step(a2a)
+        history += r["history"]
+        step_ms[a2a] += [s * 1e3 for s in r["step_seconds"]]
+    busy_ms, wall_s, top, per = device_busy(lambda: step(True))
+    calls = []
+    record_segsum(lambda: step(True),
+                  lambda m, lay, k: calls.append(time_segsum_call(m, lay,
+                                                                  k)))
+    out["k4"]["train"] = sum_segsum_calls(calls)
+    out["k4"]["train"].update(e=tb * ts * cfg.moe.top_k, f=cfg.d_model)
+    log("a2a_k4", part="train", **out["k4"]["train"])
+    line = dict(layers=layers, batch=tb, seq=ts, launches_per_step=got,
+                all_to_alls_this_thread=a2as, memory=mem, loss=history,
+                aux_loss=[float(a) for a in auxes],
+                a2a_step_ms=step_ms[True], sort_step_ms=step_ms[False],
+                median_a2a_step_ms=statistics.median(step_ms[True]),
+                median_sort_step_ms=statistics.median(step_ms[False]),
+                device_busy_ms=busy_ms, profiled_seconds=wall_s,
+                busy_share=busy_ms / 1e3 / wall_s,
+                k4_device_ms=sum(ms for n, ms in per.items()
+                                 if "segsum" in n),
+                top_device_ms=top)
+    log("a2a_train", **line)
+    if not np.isfinite(history).all():
+        raise SystemExit(f"a2a train: a loss is not finite: {history}")
+    out["train"] = line
+    bad = [t for t, v in out["k4"].items()
+           if not (v["within_tol"] and v["bit_identical"] and v["launches"])]
+    if bad:
+        raise SystemExit(f"K4 at the a2a shapes: {bad}: {out['k4']}")
+    del model, trainer, stream, tokens
+    torch.cuda.empty_cache()
+
+    out["psum"] = psum_phase(dev)
+    out["dryrun"] = dryrun_phase()
+    out["seconds"] = time.perf_counter() - t_phase
+    log("a2a_summary", **{k: v for k, v in out.items()
+                          if k not in ("prefill", "train")})
     return out
 
 
@@ -5173,7 +5533,33 @@ def main() -> int:
                      "whole_function_*: the gather, the layout and K4 "
                      "(embedding_bag) against F.embedding_bag(mode='sum')"})
 
-    # --------------------------------------------------------- 17. summary
+    # ------------------------------------------------------------ 17. a2a
+    a2a = a2a_phase(dev, main_path)
+    ak = a2a["k4"]
+    gnn["kernel"].update({
+        "a2a_launches": {"prefill": a2a["prefill"]["launches"][
+            "segment_sum"], "train_step": a2a["train"]["launches_per_step"][
+            "segment_sum"]},
+        "matches_plain": gnn["kernel"]["matches_plain"] and all(
+            v["within_tol"] for v in ak.values()),
+        "max_abs_err": max(gnn["kernel"]["max_abs_err"],
+                           *(v["max_abs_err"] for v in ak.values())),
+        "max_scaled_err": max(gnn["kernel"]["max_scaled_err"],
+                              *(v["max_scaled_err"] for v in ak.values())),
+        "a2a": {tag: {k: v[k] for k in (
+            "e", "f", "launches", "ms", "host_paced_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_scaled_err")} for tag, v in ak.items()},
+        "a2a_shape": "phase 17: qwen2-moe-a2.7b's expert combine on the "
+                     "explicit expert-parallel path (4 model slices on "
+                     "LocalShards(4), one launch a layer for all of them, "
+                     "F = d_model 2,048): every launch of a 2-layer "
+                     "prefill of 4 x 32 tokens (512 rows) and of one "
+                     "2-layer training step of 2 x 4,096 tokens (32,768 "
+                     "rows), each timed and held against its plain "
+                     "version summed in float64"})
+
+    # --------------------------------------------------------- 18. summary
     log("summary", end_to_end={k: v["median_seconds"] for k, v in e2e.items()},
         device_busy_ms={k: v["device_busy_ms"] for k, v in e2e.items()},
         memory=memory, stream_updates_per_second={
@@ -5219,6 +5605,19 @@ def main() -> int:
                  "chunk")},
              "cover_edge_tc": bst["cover_edge_tc"]["triangles"],
              "seconds": bst["seconds"]},
+        a2a={"prefill_ms": {k: a2a["prefill"][k] for k in (
+                 "median_a2a_ms", "median_sort_ms")},
+             "step_ms": {k: a2a["train"][k] for k in (
+                 "median_a2a_step_ms", "median_sort_step_ms")},
+             "drop_share_per_slice": a2a["prefill"]["drop_share_per_slice"],
+             "drop_share_sort": a2a["prefill"]["drop_share_sort"],
+             "k4_device_ms": {t: v["ms"] for t, v in a2a["k4"].items()},
+             "memory": a2a["train"]["memory"],
+             "psum_ms": a2a["psum"]["ms"],
+             "psum_max_rel_err": a2a["psum"]["max_rel_err"],
+             "dryrun": {m: {k: a2a["dryrun"][m][k] for k in (
+                 "cells", "ok", "seconds")} for m in ("pod", "multipod")},
+             "seconds": a2a["seconds"]},
         serve_tc_batch={k: v["median_seconds"]
                         for k, v in stc["batch"].items()},
         serve_tc_graphs_per_second={

@@ -3,14 +3,23 @@ configs), the counterparts of ``repro.configs.lm``'s entries.
 
 ``*_SMOKE`` variants shrink width, depth and vocab only: the same code
 paths and family pattern (GQA ratios, gemma3's 5:1 local:global, MoE
-top-k).  The reference's ``OPT`` knobs (chunked attention, bf16
-compute, the a2a dispatch) are execution settings of its TPU runs and
-are not carried.
+top-k).
+
+``OPT`` holds the reference's execution knobs that the port's configs
+also have (model-math preserving): ``attn_impl="chunked"`` (the same
+function as "dense" here: both go through K5), bf16 activations with
+float32 master weights, and for the MoE LMs the explicit expert-parallel
+dispatch (``models/moe_a2a.py``, under a mesh with a ``model`` axis).
+The dataclass defaults are the faithful baseline.  ``LM_SHAPES`` is the
+shape pool of the dry run's cells (``configs/registry.py``).
 """
 from __future__ import annotations
 
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
+
+OPT = dict(attn_impl="chunked", act_dtype="bfloat16")
+OPT_MOE = {"moe.dispatch": "a2a", **OPT}
 
 # [hf:HuggingFaceTB/SmolLM-135M; hf] — llama-arch small
 SMOLLM_135M = LMConfig(
@@ -76,3 +85,16 @@ PHI35_MOE_SMOKE = LMConfig(
     d_head=16, d_ff=128, vocab=256, act="silu", tie_embeddings=False,
     moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=64),
 )
+
+# LM shape pool: (name, kind, seq_len, global_batch)
+LM_SHAPES = {
+    "train_4k": dict(kind="train", seq_len=4096, global_batch=256),
+    "prefill_32k": dict(kind="prefill", seq_len=32768, global_batch=32),
+    "decode_32k": dict(kind="decode", seq_len=32768, global_batch=128),
+    "long_500k": dict(kind="decode", seq_len=524288, global_batch=1),
+}
+
+# pure full-attention archs skip long_500k (a 512k dense-cache decode is
+# the quadratic regime the pool excludes them from); gemma3's 5:1
+# sliding-window hybrids run it
+LONG_CONTEXT_OK = {"gemma3-4b", "gemma3-1b"}

@@ -2,7 +2,8 @@
 training step (``make_train_step``; ``gnn_train_step`` and
 ``bst_train_step`` over it), the LM serving steps (``lm_prefill_step``,
 ``lm_decode_step``), BST's serving and retrieval
-steps (``bst_serve_step``, ``bst_retrieval_step``) and ``init_for``.
+steps (``bst_serve_step``, ``bst_retrieval_step``), ``init_for`` and
+``shape_model`` (a model on the ``meta`` device, for the dry run).
 
 A training step is the forward, ``loss.backward()`` and ``opt_update``,
 in place on the model and the optimizer state.  The reference's
@@ -12,7 +13,7 @@ train; a serving or retrieval step runs without gradients.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, get_type_hints
 
 import torch
 from torch import nn
@@ -135,3 +136,20 @@ def init_for(arch: str, cfg, seed: int = 0,
                          f"weights; repro_torch.api.TriangleEngine counts "
                          f"its graphs")
     return tfm.init_params(cfg, seed, device)
+
+
+def shape_model(arch: str, cfg) -> nn.Module:
+    """The model of ``cfg`` built on the ``meta`` device: its parameters'
+    names, shapes and dtypes, no storage and no draw (the dry run's
+    cells)."""
+    mod = arch_module(arch)
+    with torch.device("meta"):
+        if arch in GNN_MODULES:   # the class its init_params returns
+            return get_type_hints(GNN_MODULES[arch].init_params)[
+                "return"](cfg)
+        if mod.FAMILY == "recsys":
+            return bst_m.BST(cfg)
+        if mod.FAMILY == "lm":
+            return tfm.TransformerLM(cfg)
+    raise ValueError(f"--arch {arch}: the {mod.FAMILY} family has no "
+                     f"weights")

@@ -11,6 +11,8 @@ become one module per slice; GAT's per-layer leaves ``W{i}``,
 one module per entry.  The KV cache has the
 same ``[L, B, T, Hkv, D]`` layout in both packages.  The tests use both
 to hold the port against the reference on the same weights.
+:func:`reference_leaf` names the reference leaf behind each of the
+port's parameters (the sharding rules' tests read it).
 """
 from __future__ import annotations
 
@@ -199,3 +201,18 @@ def cache_from_numpy(cache, device: str | torch.device = "cuda"):
     the port's on ``device``."""
     dev = resolve_device(device)
     return tuple(torch.from_numpy(np.array(c)).to(dev) for c in cache)
+
+
+def reference_leaf(model, name: str) -> tuple[tuple, int | None]:
+    """The reference leaf behind the port's parameter ``name`` of
+    ``model``: ``(path, index)``, ``path`` the keys into the reference's
+    tree and ``index`` the slice of its stacked ``[L, ...]`` leaf (None
+    for a leaf that is not stacked)."""
+    parts = name.split(".")
+    if isinstance(model, _gat.GAT):            # W{i}, a_src{i}, a_dst{i}
+        return (f"{parts[2]}{parts[1]}",), None
+    if isinstance(model, _bst.BST) and parts[0] == "blocks":  # a list
+        return ("blocks", int(parts[1]), *parts[2:]), None
+    if parts[0] in ("layers", "blocks"):       # stacked [L, ...]
+        return (parts[0], *parts[2:]), int(parts[1])
+    return tuple(parts), None

@@ -30,10 +30,12 @@ expert's entries by ``scatter_add_`` into ``n_phys`` slots, a dropped
 entry is written to a spare buffer row that is cut off, and gathered
 from a spare zero row.
 
-``dispatch="a2a"`` names the reference's explicit expert parallelism
-(``repro.models.moe_a2a``), which applies only on a mesh with a
-``model`` axis; on one card it takes the sort-based path here, as the
-reference does without such a mesh.
+``dispatch="a2a"`` is the reference's explicit expert parallelism,
+:mod:`repro_torch.models.moe_a2a`: it applies under a mesh
+(``distributed/constrain.py:use_mesh``) with a ``model`` axis that
+divides the sequence and the expert slots.  Without such a mesh (decode
+at S = 1 among them) the layer takes the sort-based path here, as the
+reference does (``repro/models/moe.py:91-96``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.constrain import current_mesh, maybe_constrain
 from repro_torch.kernels.segsum.ops import segment_sum
 from repro_torch.models.layers import glu_mlp
 
@@ -59,7 +62,8 @@ class MoEConfig:
     # physical expert slots (qwen2's 60 routed experts -> 64); the router
     # masks the padded slots so the semantics stay at n_experts
     pad_experts_to: int = 0
-    # "gspmd" or "a2a": both take the sort-based path on one card
+    # "gspmd" (the sort-based path) or "a2a" (models/moe_a2a.py under a
+    # mesh with a model axis; the sort-based path elsewhere)
     dispatch: str = "gspmd"
 
     @property
@@ -153,6 +157,7 @@ class Routing(NamedTuple):
     sgate: torch.Tensor       # [T*k] their gates
     pos: torch.Tensor         # int64 [T*k] position inside the expert
     keep: torch.Tensor        # bool [T*k] pos < capacity
+    stats: torch.Tensor       # [E] frac_routed * frac_prob (aux = e * sum)
 
 
 def capacity_for(cfg: MoEConfig, n_tok: int) -> int:
@@ -184,7 +189,8 @@ def route(router: torch.Tensor, cfg: MoEConfig, tokens: torch.Tensor,
         0, flat_expert, torch.ones(n_tok * k, device=probs.device))
     frac_routed = counts / (n_tok * k)
     frac_prob = probs.float().mean(0)
-    aux = e * (frac_routed * frac_prob).sum()
+    stats = frac_routed * frac_prob
+    aux = e * stats.sum()
 
     # sort-based dispatch
     flat_token = torch.arange(n_tok, device=tokens.device)[:, None].expand(
@@ -196,14 +202,25 @@ def route(router: torch.Tensor, cfg: MoEConfig, tokens: torch.Tensor,
     pos = torch.arange(n_tok * k, device=se.device) - starts[se.clamp(0,
                                                                       e - 1)]
     keep = pos < capacity
-    return Routing(probs, expert_idx, aux, se, stok, sgate, pos, keep)
+    return Routing(probs, expert_idx, aux, se, stok, sgate, pos, keep, stats)
 
 
 def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor, *,
             capacity: Optional[int] = None):
     """x [B, S, D] -> (out [B, S, D] in x's dtype, aux loss 0-d).
     ``params`` is :meth:`MoE.leaves` (the matrices already in the
-    compute dtype); ``capacity`` overrides the reference's formula."""
+    compute dtype); ``capacity`` overrides the reference's formula.
+    With ``cfg.dispatch == "a2a"`` under a mesh whose ``model`` axis
+    applies (``moe_a2a.a2a_applicable``) the layer is
+    :func:`repro_torch.models.moe_a2a.moe_ffn_a2a`, which takes its own
+    per-slice capacity."""
+    if cfg.dispatch == "a2a":
+        from repro_torch.models.moe_a2a import a2a_applicable, moe_ffn_a2a
+
+        mesh = current_mesh()
+        if mesh is not None and a2a_applicable(cfg, x, mesh[0]):
+            return moe_ffn_a2a(params, cfg, x, layout=mesh[0],
+                               shards=mesh[1])
     b, s, d = x.shape
     tokens = x.reshape(b * s, d)
     n_tok = b * s
@@ -217,6 +234,7 @@ def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor, *,
     col = torch.where(r.keep, r.pos, 0)
     buf = tokens.new_zeros((e + 1, capacity, d))
     buf = buf.index_put((row, col), tokens[r.stok])[:e]
+    buf = maybe_constrain(buf, "model", ("pod", "data"), None)
 
     ex = params["experts"]
     h = F.silu(torch.bmm(buf, ex["w_gate"])) * torch.bmm(buf, ex["w_up"])

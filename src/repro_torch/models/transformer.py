@@ -28,7 +28,10 @@ cache, then one-token decode steps).
   returning a new cache.
 
 The reference's sharding hint (``distributed.constrain.maybe_constrain``)
-has no meaning on one card and is dropped.
+stays at its call site and returns its input: eager PyTorch has no
+partitioner to pin a layout for.  A MoE config with ``dispatch="a2a"``
+under ``distributed/constrain.py:use_mesh`` runs its MoE layers on
+``models/moe_a2a.py``'s explicit expert parallelism.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.constrain import maybe_constrain
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.layers import (
     apply_rope,
@@ -86,6 +90,26 @@ class LMConfig:
             None if (i + 1) % self.global_every == 0 else self.window
             for i in range(self.n_layers)
         ]
+
+    def param_count(self) -> int:
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hq = self.n_heads * self.d_head
+        hk = self.n_kv_heads * self.d_head
+        attn = d * hq + 2 * d * hk + hq * d
+        ffn = self.moe.param_count(d) if self.moe is not None else 3 * d * f
+        per_layer = attn + ffn + 2 * d
+        emb = v * d * (1 if self.tie_embeddings else 2)
+        return self.n_layers * per_layer + emb + d
+
+    def active_param_count(self) -> int:
+        """Parameters a token passes through: top-k of the routed
+        experts."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        per_layer_ffn = (self.moe.active_param_count(d)
+                         - self.moe.param_count(d))
+        return self.param_count() + self.n_layers * per_layer_ffn
 
 
 def _check_config(cfg: LMConfig) -> None:
@@ -192,6 +216,8 @@ class TransformerLM(nn.Module):
         k = apply_rope(k, *rope)
         kv_offset = 0
         if cache is not None:
+            # the reference pins the one-token k/v of a decode step here
+            k, v = maybe_constrain((k, v), None, None, None, None)
             ck, cv = cache[0][i], cache[1][i]  # [B, T, Hkv, D]
             ck[:, cache_index:cache_index + s] = k
             cv[:, cache_index:cache_index + s] = v

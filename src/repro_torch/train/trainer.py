@@ -6,14 +6,15 @@ counterpart of ``repro.train.trainer``:
   * step-time watchdog: a straggling or hung step (> ``watchdog_s``)
     raises, and the launcher's retry loop relaunches from the last
     checkpoint;
-  * a log line every ``log_every`` steps.
+  * a log line every ``log_every`` steps;
+  * ``int8_compressed_psum``, the reference's int8 gradient reduction
+    for data-parallel (replicated-parameter) families, over a shard
+    group.
 
 A step is the forward, ``loss.backward()`` and ``opt_update``
 (``launch.steps.make_train_step``), in place on the model.  Reading the
 loss back is the step's one host sync, so a step's seconds include its
-device time.  The reference's ``int8_compressed_psum`` is a
-data-parallel gradient reduction of the model zoo: it comes with
-``distributed/*``, ROADMAP Queue 1 item 13.4.
+device time.
 """
 from __future__ import annotations
 
@@ -21,11 +22,43 @@ import time
 from pathlib import Path
 from typing import Any, Callable, Iterable, Optional
 
+import numpy as np
+import torch
 from torch import nn
 
 from repro_torch.launch.steps import make_train_step
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig, opt_init
+
+
+#: 1 / 127 in float32
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
+
+
+def int8_compressed_psum(tree, shards):
+    """Each leaf ``[local, ...]`` (one gradient a shard) quantised to int8
+    with its shard's absmax scale, summed over ``shards`` in int32
+    (``psum``) and dequantised with the largest shard's scale
+    (``pmax``): the reference's arithmetic, bit for bit, including its
+    shared scale.  That scale is exact only when every shard has the
+    same absmax; otherwise the smaller shards' terms come back scaled up
+    by max/own (ROADMAP, reference caveat 6).  Returns the replicated
+    sums, float32, ``tree``'s structure without the shard axis."""
+
+    def one(g):
+        a = g.abs().amax(dim=tuple(range(1, g.dim()))) + 1e-12  # [local]
+        a_b = a.reshape(-1, *([1] * (g.dim() - 1)))
+        q = torch.clamp(torch.round(g / a_b * 127.0), -127, 127).to(
+            torch.int8)
+        qs = shards.psum(q.to(torch.int32))
+        scale = shards.pmax(a)  # shared scale bound
+        # XLA folds the reference's ``scale / 127.0`` into a product
+        # with the float32 reciprocal; the same product keeps its bits
+        return qs.to(torch.float32) * (scale * _INV_127)
+
+    if isinstance(tree, dict):
+        return {k: int8_compressed_psum(v, shards) for k, v in tree.items()}
+    return one(tree)
 
 
 class Trainer:

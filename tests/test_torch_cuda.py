@@ -28,7 +28,9 @@ against its plain version and bit for bit across launches, the
 ``grad_fn`` of K5's output on the card, an LM training step through
 K5's backward against the CPU, and one MoE layer (its combine on K4)
 against the CPU; BST's bag sum on K4 and a BST training step
-against the CPU.
+against the CPU; the explicit expert-parallel MoE layer over
+``LocalShards(4, "cuda")`` (its combine on K4) against the CPU's, and
+the int8 gradient psum on the card equal to the CPU's bits.
 
 Marked ``cuda``; run them on a machine with an NVIDIA H100 with
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1390,3 +1392,84 @@ def test_bst_train_step_on_the_card_matches_the_cpu(cuda_device,
     monkeypatch.setattr(tbst, "RETRIEVAL_SLICE", 300)
     assert bool(((step(card, hist, cands) - one).abs()
                  <= 1e-4 * (1 + one.abs())).all())
+
+
+def test_a2a_moe_layer_on_the_card_matches_the_cpu(cuda_device):
+    """The explicit expert-parallel MoE layer (``models/moe_a2a.py``) at
+    qwen2-moe's width over ``LocalShards(4, "cuda")`` under a (data 2,
+    model 4) layout against the CPU's a2a path on the same weights: one
+    K4 launch a data group, each slice's routing integers equal, the
+    output, aux loss and every gradient within 1e-4 (1 + |cpu|)."""
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.distributed.constrain import use_mesh
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import moe as tmoe
+
+    cfg = dataclasses.replace(tlm.QWEN2_MOE_A2_7B.moe, dispatch="a2a")
+    d = tlm.QWEN2_MOE_A2_7B.d_model
+    g = torch.Generator().manual_seed(0)
+    layer = tmoe.MoE(cfg, d)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    x = torch.randn((4, 32, d), generator=g)
+    layout = make_debug_mesh((2, 4))
+    seen = {"cpu": [], "cuda": []}
+    real = tmoe.route
+
+    def spy(router, cfg_, tokens, capacity):
+        r = real(router, cfg_, tokens, capacity)
+        seen[tokens.device.type].append(r)
+        return r
+
+    w = torch.randn((4, 32, d), generator=g) * 0.01  # a fixed cotangent
+
+    def run(lay, xx, dev):
+        with use_mesh(layout, LocalShards(4, dev)):
+            out, aux = tmoe.moe_ffn(lay.leaves(), cfg, xx)
+        ((out * w.to(dev)).sum() + aux).backward()
+        return out.detach(), aux.detach()
+
+    tmoe.route = spy
+    try:
+        want, want_aux = run(layer, x, "cpu")
+        card = tmoe.MoE(cfg, d).to(cuda_device)
+        card.load_state_dict(layer.state_dict())
+        before = tsegk.LAUNCHES["segment_sum"]
+        got, aux = run(card, x.to(cuda_device), cuda_device)
+        assert tsegk.LAUNCHES["segment_sum"] - before == 2
+    finally:
+        tmoe.route = real
+    assert len(seen["cuda"]) == len(seen["cpu"]) == 8  # 2 groups x 4
+    for rc, rg in zip(seen["cpu"], seen["cuda"]):
+        for f in ("expert_idx", "keep"):
+            assert torch.equal(getattr(rg, f).cpu(), getattr(rc, f)), f
+    assert bool(((got.cpu() - want).abs() <= 1e-4 * (1 + want.abs())).all())
+    assert abs(float(aux) - float(want_aux)) <= 1e-4 * (1 + abs(
+        float(want_aux)))
+    cpu_params = dict(layer.named_parameters())
+    for name, p in card.named_parameters():
+        ref = cpu_params[name].grad
+        err = ((p.grad.cpu() - ref).abs() / (1 + ref.abs())).max()
+        assert float(err) <= 1e-4, (name, float(err))
+
+
+def test_int8_psum_on_the_card_equals_the_cpu_bits(cuda_device):
+    """``int8_compressed_psum`` over ``LocalShards(8, "cuda")`` with
+    unequal per-shard absmax equals the CPU's bit for bit."""
+    from repro_torch.core.shards import LocalShards
+    from repro_torch.train.trainer import int8_compressed_psum
+
+    rng = np.random.default_rng(0)
+    scale = (10.0 ** -rng.uniform(0, 3, 8)).astype(np.float32)
+    shapes = {"w": (70, 70), "b": (70,), "e": (1433, 70)}
+    host = {k: torch.from_numpy((rng.standard_normal((8,) + s)
+                                 * scale.reshape((8,) + (1,) * len(s))
+                                 ).astype(np.float32))
+            for k, s in shapes.items()}
+    got = int8_compressed_psum({k: v.to(cuda_device) for k, v in
+                                host.items()}, LocalShards(8, cuda_device))
+    want = int8_compressed_psum(host, LocalShards(8, "cpu"))
+    for k in host:
+        assert torch.equal(got[k].cpu().view(torch.int32),
+                           want[k].view(torch.int32)), k
