@@ -58,6 +58,7 @@ from repro_torch.core import parallel_tc as _ptc
 from repro_torch.core import sequential as _seq
 from repro_torch.core.approx import ApproxEstimate, wedge_sample_estimate
 from repro_torch.core.comm_instrument import CommTally, choose_hedge_mode
+from repro_torch.core.hostio import note_read_back
 from repro_torch.core.intersect import (
     BACKENDS,
     DEFAULT_BUCKET_WIDTHS,
@@ -497,6 +498,8 @@ class TriangleEngine:
         return load_profile(profile)  # None and a warning when unusable
 
     def _graph(self, graph_or_edges, clock=None) -> Graph:
+        if clock is not None:
+            clock.start()
         if isinstance(graph_or_edges, Graph):
             if graph_or_edges.device.type != self.device.type:
                 raise ValueError(
@@ -505,8 +508,6 @@ class TriangleEngine:
                 )
             return graph_or_edges
         edges, n_nodes = graph_or_edges
-        if clock is not None:
-            clock.start()
         g = from_edges(np.asarray(edges), int(n_nodes), device=self.device)
         if clock is not None:
             clock.lap("csr")
@@ -662,8 +663,19 @@ class TriangleEngine:
         :class:`~repro_torch.core.sequential.StageClock`) records the
         per-stage seconds of the local route, each closed by a device
         synchronize: CSR build, BFS (and its sweep count), horizontal
-        compaction, plan, probe.
+        compaction, plan (its host pass also as ``plan.host``), probe
+        and, on every route, ``report`` last, up to the return; its
+        ``timeline`` also keeps this call's own span, ``count``.
         """
+        if clock is None:
+            return self._count(graph_or_edges, route, options, None)
+        with clock.span("count"):
+            clock.start()
+            rep = self._count(graph_or_edges, route, options, clock)
+            clock.lap("report")
+        return rep
+
+    def _count(self, graph_or_edges, route, options, clock):
         o = options or self.options
         if isinstance(graph_or_edges, GraphBatch):
             raise TypeError(
@@ -915,15 +927,17 @@ class TriangleEngine:
         """The report of one graph's raw result; ``n`` slices a
         budget-padded lane's credit and degrees to the graph's own
         vertices."""
-        tri, c1, c2, nh, k, ovf = (
-            x.item() for x in (res.triangles, res.c1, res.c2,
-                               res.num_horizontal, res.k, res.h_overflow)
-        )
+        scalars = (res.triangles, res.c1, res.c2, res.num_horizontal, res.k,
+                   res.h_overflow)
+        note_read_back(*scalars)
+        tri, c1, c2, nh, k, ovf = (x.item() for x in scalars)
         pv = degs = None
         if o.per_vertex:
+            note_read_back(res.per_vertex, deg)
             pv, degs = res.per_vertex.cpu().numpy(), deg.cpu().numpy()
             if n is not None:
                 pv, degs = pv[:n], degs[:n]
+        note_read_back(res.levels)
         return TriangleReport(
             triangles=int(tri), k=float(k), num_horizontal=int(nh),
             c1=int(c1), c2=int(c2), overflow=Overflow(h=bool(ovf)),

@@ -29,6 +29,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.hostio import note_read_back, note_wait
+
 UNVISITED = 2**30
 
 
@@ -64,6 +66,7 @@ def bfs_levels_iters(
         torch.tensor(0, dtype=torch.int32, device=dev),
     )
     level[..., root] = 0
+    note_wait()  # the Python scalar's blocking copy to the card
     unv_pad = torch.full((*lead, 1), UNVISITED, dtype=torch.int32,
                          device=dev)
     zero1 = torch.zeros((*lead, 1), dtype=torch.int32, device=dev)
@@ -88,7 +91,9 @@ def bfs_levels_iters(
         seed = torch.argmax(still.to(torch.int32), dim=-1)
         level = torch.where(need_seed[..., None] & (ids == seed[..., None]),
                             cur + 1, level)
-        progressed = bool((any_new | need_seed).any().item())
+        flag = (any_new | need_seed).any()
+        note_read_back(flag)
+        progressed = bool(flag.item())
         cur += 1
     return level, cur
 
@@ -184,6 +189,7 @@ def bfs_levels_sharded(
         torch.tensor(0, dtype=torch.int32, device=dev),
     )
     level[root] = 0
+    note_wait()  # the Python scalar's blocking copy to the card
     wire = getattr(torch, frontier_dtype)
     unv_pad = torch.full((1,), UNVISITED, dtype=torch.int32, device=dev)
     zero1 = torch.zeros((1,), dtype=scan, device=dev)
@@ -204,6 +210,8 @@ def bfs_levels_sharded(
             seed = torch.argmax(still.to(torch.int32))
             level = torch.where(need_seed & (ids[:n] == seed), cur + 1,
                                 level)
-            progressed = bool((any_new | need_seed).item())
+            flag = any_new | need_seed
+            note_read_back(flag)
+            progressed = bool(flag.item())
             cur += 1
     return level

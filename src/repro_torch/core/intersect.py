@@ -63,6 +63,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.hostio import note_read_back, note_wait
 from repro_torch.graph.csr import (
     Graph,
     GraphBatch,
@@ -412,6 +413,7 @@ def hit_list(flat, s_s, offsets, hits):
     row-major (row by row, candidates in order): each hit's row and its
     candidate ``flat[s_s[row] + j]``."""
     pos = hits.nonzero().squeeze(1)
+    note_wait()  # the hits' count
     row = torch.searchsorted(offsets[1:], pos, right=True)
     return row, flat[s_s[row].long() + (pos - offsets[row])]
 
@@ -419,16 +421,22 @@ def hit_list(flat, s_s, offsets, hits):
 def cell_chunks(l_s, *, d_cand: int):
     """Row ranges ``[(r0, r1), ...]`` covering ``l_s`` in order, each of
     at most ``HIT_CELL_BUDGET + d_cand`` clamped candidate cells (one
-    host sync)."""
+    host sync; a second reads the cut points back past the budget)."""
     budget = HIT_CELL_BUDGET
     q = l_s.shape[0]
     cum = torch.cumsum(l_s.clamp(0, max(0, d_cand)), 0, dtype=torch.int64)
-    total = int(cum[-1].item()) if q else 0
+    total = 0
+    if q:
+        last = cum[-1]
+        note_read_back(last)
+        total = int(last.item())
     if total <= budget:
         return [(0, q)] if q else []
     marks = torch.arange(budget, total, budget, dtype=torch.int64,
                          device=l_s.device)
-    cuts = [0, *torch.searchsorted(cum, marks, right=True).tolist(), q]
+    at = torch.searchsorted(cum, marks, right=True)
+    note_read_back(at)
+    cuts = [0, *at.tolist(), q]
     return [(a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
 
 
@@ -535,6 +543,7 @@ def _count_chunk(adj, qu, qw, bounds, base, count, *, d_cand, d_targ,
             c1 = c1 + tally(diff, row)
             c2 = c2 + tally(~diff, row)
             diff_rows = segment_sum(ones[diff], row[diff], qu.shape[0])
+            note_wait(2)  # the two bool masks' sizes
             credit += _chunk_credit(n, cand, diff_rows, qu, qw)
             if clock is not None:
                 clock.lap("credit")

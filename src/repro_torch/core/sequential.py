@@ -40,6 +40,7 @@ width, non-horizontal rows masked.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -54,6 +55,7 @@ from repro_torch.core.edges import (
     horizontal_queries,
     k_fraction,
 )
+from repro_torch.core.hostio import HOST_IO, note_read_back
 from repro_torch.core.intersect import (
     CsrAdjacency,
     IntersectPlan,
@@ -73,6 +75,7 @@ from repro_torch.graph.csr import (
     max_degree,
     undirected_edges,
 )
+from repro_torch.kernels.intersect.intersect import LAUNCHES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,31 +104,83 @@ class TCResult:
     #   on the dense reference path)
 
 
+def _io_marks() -> tuple[int, int, int]:
+    """``(host syncs, read-back bytes, intersect launches)`` so far in
+    this process."""
+    return (HOST_IO["syncs"], HOST_IO["d2h_bytes"],
+            sum(LAUNCHES.values()))
+
+
 class StageClock:
     """Per-stage wall seconds of one count, each stage closed by a device
     synchronize so the time is the device's, not the enqueue's.  Passed
     in by a caller that wants the split; the count does not sync per
-    stage without one."""
+    stage without one.
+
+    ``start()`` opens a stage and ``lap(stage)`` closes it.  Besides its
+    seconds, each lap records into ``counts`` the stage's host waits,
+    read-back bytes (``core/hostio.py``) and K1/K2/K3 launches
+    (``LAUNCHES``), under ``host_syncs.<stage>``,
+    ``readback_bytes.<stage>`` and ``probe_launches.<stage>``, and adds
+    them to the answer's totals ``host_syncs``, ``readback_bytes`` and
+    ``probe_launches``.
+
+    ``timeline`` keeps every lap, every :meth:`span` and the facade's
+    ``count`` span as ``(name, begin_ns, end_ns)`` on ``time.time_ns()``,
+    the clock of the profiler's raw device records, so a caller can line
+    the stages up with a ``torch.profiler`` trace of the same answer."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
         self.seconds: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.timeline: list[tuple[str, int, int]] = []
         self._t = time.perf_counter()
+        self._ns = time.time_ns()
+        self._io = _io_marks()
 
     def start(self) -> None:
         self._sync()
         self._t = time.perf_counter()
+        self._ns = time.time_ns()
+        self._io = _io_marks()
 
     def lap(self, stage: str) -> None:
         self._sync()
         now = time.perf_counter()
+        now_ns = time.time_ns()
         self.seconds[stage] = self.seconds.get(stage, 0.0) + now - self._t
-        self._t = now
+        self.timeline.append((stage, self._ns, now_ns))
+        io = _io_marks()
+        for key, a, b in zip(("host_syncs", "readback_bytes",
+                              "probe_launches"), self._io, io):
+            for k in (key, f"{key}.{stage}"):
+                self.counts[k] = self.counts.get(k, 0) + b - a
+        self._t, self._ns, self._io = now, now_ns, io
+
+    @contextlib.contextmanager
+    def span(self, name: str):
+        """A host-only span, with no synchronize: kept on ``timeline``;
+        a dotted name (``plan.host``) is a part of the stage before its
+        dot and its seconds also go into ``seconds``, where undotted
+        keys stay the stages that tile the answer."""
+        t, ns = time.perf_counter(), time.time_ns()
+        try:
+            yield
+        finally:
+            self.timeline.append((name, ns, time.time_ns()))
+            if "." in name:
+                self.seconds[name] = (self.seconds.get(name, 0.0)
+                                      + time.perf_counter() - t)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+
+def _nested(clock: Optional[StageClock], name: str):
+    """``clock.span(name)``, or nothing without a clock."""
+    return contextlib.nullcontext() if clock is None else clock.span(name)
 
 
 def _exact_plan(g: Graph, o, backend: str, *,
@@ -137,9 +192,9 @@ def _exact_plan(g: Graph, o, backend: str, *,
 
     Returns ``(level, qu, qw, n_h, k, h_used, h_dropped, plan)``: the
     plan covers the first ``h_used = min(cap_h, n_h)`` query rows and
-    ``h_dropped`` is True iff ``cap_h`` cut real queries."""
-    if clock is not None:
-        clock.start()
+    ``h_dropped`` is True iff ``cap_h`` cut real queries.  A ``clock``
+    is started by the caller (``TriangleEngine._graph``), so ``bfs``
+    begins where ``csr`` ended."""
     level, sweeps = bfs_levels_iters(
         g.src, g.dst, g.n_nodes, int(o.root), row_offsets=g.row_offsets
     )
@@ -150,19 +205,23 @@ def _exact_plan(g: Graph, o, backend: str, *,
     k = k_fraction(g.src, g.dst, level, g.n_nodes)
     if clock is not None:
         clock.lap("compact")
+    note_read_back(n_h)
     H = int(n_h.item())
     h_used = H if o.cap_h is None else min(int(o.cap_h), H)
     row_mult = int(o.query_chunk) if o.query_chunk else o.row_mult
-    plan = plan_buckets(
-        d_small[:h_used].cpu().numpy(),
-        d_large[:h_used].cpu().numpy(),
-        bucket_widths=o.bucket_widths,
-        d_cap=o.d_max,
-        row_mult=row_mult,
-        backend=backend,
-        query_chunk=o.query_chunk,
-        layout="desc",
-    )
+    ds, dl = d_small[:h_used], d_large[:h_used]
+    note_read_back(ds, dl)
+    ds, dl = ds.cpu().numpy(), dl.cpu().numpy()
+    with _nested(clock, "plan.host"):
+        plan = plan_buckets(
+            ds, dl,
+            bucket_widths=o.bucket_widths,
+            d_cap=o.d_max,
+            row_mult=row_mult,
+            backend=backend,
+            query_chunk=o.query_chunk,
+            layout="desc",
+        )
     if clock is not None:
         clock.lap("plan")
     return level, qu, qw, n_h, k, h_used, h_used < H, plan
@@ -241,19 +300,22 @@ def _exact_batch_plan(gview: Graph, o, backend: str, *,
     level, qu, qw, ds_pool, dl_pool, n_h, k = _plan_batch(
         gview, int(o.root), clock)
     S = ds_pool.shape[0]
-    host = torch.cat([ds_pool, dl_pool, n_h.max().reshape(1)]).cpu().numpy()
+    host = torch.cat([ds_pool, dl_pool, n_h.max().reshape(1)])
+    note_read_back(host)
+    host = host.cpu().numpy()
     H = int(host[-1])
     h_used = H if o.cap_h is None else min(int(o.cap_h), H)
     row_mult = int(o.query_chunk) if o.query_chunk else o.row_mult
-    plan = plan_buckets(
-        host[:h_used], host[S:S + h_used],
-        bucket_widths=o.bucket_widths,
-        d_cap=o.d_max,
-        row_mult=row_mult,
-        backend=backend,
-        query_chunk=o.query_chunk,
-        layout="desc",
-    )
+    with _nested(clock, "plan.host"):
+        plan = plan_buckets(
+            host[:h_used], host[S:S + h_used],
+            bucket_widths=o.bucket_widths,
+            d_cap=o.d_max,
+            row_mult=row_mult,
+            backend=backend,
+            query_chunk=o.query_chunk,
+            layout="desc",
+        )
     if clock is not None:
         clock.lap("plan")
     return level, qu, qw, n_h, k, h_used, h_used < H, plan

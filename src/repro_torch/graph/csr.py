@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.dtypes import torch_index_dtype
+from repro_torch.core.hostio import note_wait
 from repro_torch.device import resolve_device
 
 
@@ -91,11 +92,13 @@ def _normalize_edges(
         return z, z
     edges = edges.reshape(-1, 2)
     edges = edges[edges[:, 0] != edges[:, 1]]
+    note_wait()  # the bool mask's size
     if edges.shape[0] == 0:
         return z, z
     lo = torch.minimum(edges[:, 0], edges[:, 1])
     hi = torch.maximum(edges[:, 0], edges[:, 1])
     und = torch.unique(lo * n_nodes + hi, sorted=True)
+    note_wait()  # the unique keys' count
     lo, hi = und // n_nodes, und % n_nodes
     # both directions as packed ``src * n + dst`` keys: they are unique,
     # so one sort of the keys is the lexicographic (src, dst) order
@@ -147,9 +150,12 @@ def from_edges(
     n_nodes = int(n_nodes)
     torch_index_dtype(n_nodes, site="csr.from_edges vertex ids")
     if isinstance(edges, torch.Tensor):
+        if edges.device.type != dev.type:
+            note_wait()  # the blocking copy to the device
         e = edges.to(dev, torch.int64)
     else:
         e = torch.as_tensor(np.asarray(edges, dtype=np.int64)).to(dev)
+        note_wait()  # the blocking copy to the device
     s, d = _normalize_edges(e, n_nodes)
     m2 = s.shape[0]
     slots = int(num_slots) if num_slots is not None else m2
@@ -162,6 +168,7 @@ def from_edges(
     row_offsets = torch.zeros(n_nodes + 2, dtype=torch.int64, device=dev)
     row_offsets[1:] = torch.cumsum(counts, 0)
     row_offsets[n_nodes + 1] = slots
+    note_wait(2)  # bincount's size; the Python scalar's blocking copy
     return Graph(
         src=torch.cat([s.to(torch.int32), pad]),
         dst=torch.cat([d.to(torch.int32), pad]),

@@ -16,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.hostio import note_wait
 from repro_torch.kernels.segsum import ops as segops
 from repro_torch.kernels.segsum.segsum import SegsumLayout
 
@@ -34,6 +35,7 @@ def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
     out = torch.zeros((num_segments, *data.shape[1:]), dtype=data.dtype,
                       device=data.device)
     keep = (segment_ids >= 0) & (segment_ids < num_segments)
+    note_wait(2)  # the two bool masks' sizes
     return out.index_add_(0, segment_ids[keep].long(), data[keep])
 
 

@@ -40,6 +40,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hostio import note_read_back
 from repro_torch.kernels.intersect.ref import (
     hit_offsets,
     intersect_count_ref,
@@ -331,6 +332,7 @@ def intersect_hits(flat, s_s, l_s, s_l, l_l, *, d_cand: int, d_targ: int,
                       d_cand=d_cand, d_targ=d_targ, path=path,
                       align=_align(ts["flat"])) if q else None
     copied.synchronize()
+    note_read_back(size)
     hits = torch.empty(int(size[0]), dtype=torch.bool, device=dev)
     if q == 0:
         return offsets, hits

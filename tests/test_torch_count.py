@@ -178,7 +178,8 @@ def test_stage_clock_records_every_stage():
     clock = tseq.StageClock(CPU)
     r = tapi.TriangleEngine(device=CPU).count((edges, n), clock=clock)
     assert r.triangles == expect
-    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan", "probe"}
+    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan",
+                                  "plan.host", "probe", "report"}
     assert clock.counts["bfs_sweeps"] >= 2
 
 

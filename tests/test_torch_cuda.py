@@ -237,6 +237,82 @@ def test_find_and_per_vertex_rmat16_go_through_k2(cuda_device):
     np.testing.assert_array_equal(found, r.per_vertex)
 
 
+#: (options, K2's cell budget) of the counted answers: the count (K1),
+#: the per-vertex count (K2, one chunk a bucket slice) and the per-vertex
+#: count cut into many chunks (the cut points read back by ``tolist``)
+TRACED = {
+    "count": (TCOptions(), None),
+    "pv": (TCOptions(per_vertex=True), None),
+    "pv_chunked": (TCOptions(per_vertex=True), 1 << 16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACED))
+def test_stage_clock_counts_what_the_recorder_sees(cuda_device, case,
+                                                   monkeypatch):
+    """``host_syncs`` equals the sync ops ``walker.OpRecorder`` records
+    for the same answer, and ``probe_launches`` the ``LAUNCHES`` delta.
+    No wait of this path is hidden from the recorder: K2's wait on its
+    size's event is counted once, at ``copied.synchronize()``, and the
+    recorder sees it as the ``_local_scalar_dense`` of the pinned copy
+    that follows."""
+    from repro_torch.analysis.walker import OpRecorder, sync_ops
+    from repro_torch.core.sequential import StageClock
+
+    opts, budget = TRACED[case]
+    if budget is not None:
+        monkeypatch.setattr(tint, "HIT_CELL_BUDGET", budget)
+    edges, n = gen.rmat(16, 16, seed=0)
+    eng = TriangleEngine(device=cuda_device)
+    eng.count((edges, n), options=opts)    # loads the kernels
+    clock = StageClock(cuda_device)
+    before = sum(tkern.LAUNCHES.values())
+    with OpRecorder() as rec:
+        r = eng.count((edges, n), options=opts, clock=clock)
+    assert r.triangles == 15673932
+    c = clock.counts
+    assert c["host_syncs"] == len(sync_ops(rec.record))
+    assert c["probe_launches"] == sum(tkern.LAUNCHES.values()) - before > 0
+    assert c["host_syncs"] == sum(v for k, v in c.items()
+                                  if k.startswith("host_syncs."))
+    if case == "count":
+        assert c["probe_launches"] == 3 and c["bfs_sweeps"] == 30
+        assert c["host_syncs"] == c["bfs_sweeps"] + 16
+
+
+def test_kernel_records_lie_inside_their_program_spans(cuda_device):
+    """On the profiler's clock, every device record of an answer lies in
+    the facade's ``count`` span, and every K1 record in a ``probe`` span,
+    which ends with the synchronize that waits for it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.sequential import StageClock
+
+    edges, n = gen.rmat(16, 16, seed=0)
+    eng = TriangleEngine(device=cuda_device)
+    eng.count((edges, n))
+    clock = StageClock(cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.count((edges, n), clock=clock)
+    records = [(e.name(), int(e.start_ns()),
+                int(e.start_ns()) + int(e.duration_ns()))
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA]
+    (facade,) = [(b, e) for s, b, e in clock.timeline if s == "count"]
+    stages = [m for m in clock.timeline if "." not in m[0]
+              and m[0] != "count"]
+    assert (stages[0][0], stages[-1][0]) == ("csr", "report")
+    assert all(a[2] == b[1] for a, b in zip(stages, stages[1:]))
+    probes = [(b, e) for s, b, e in clock.timeline if s == "probe"]
+    kernels = [r for r in records
+               if "intersect_items" in r[0] or "walk_rows" in r[0]]
+    assert len(kernels) >= 3
+    assert all(facade[0] <= s and e <= facade[1] for _, s, e in records)
+    for name, s, e in kernels:
+        assert any(b <= s and e <= en for b, en in probes), name
+
+
 # K3 under the rule by shape (every call here has 3,000 rows, so it walks):
 # short rows in tiles of several rows, long rows in tiles of one (their
 # target's slice staged or searched in global memory), and clamps.

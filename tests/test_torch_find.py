@@ -337,6 +337,6 @@ def test_stage_clock_splits_find():
     _, cnt = tapi.TriangleEngine(device=CPU).find(
         (edges, n), max_triangles=10, clock=clock)
     assert int(cnt) == expect
-    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan", "probe",
-                                  "hit_list", "emit"}
+    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan",
+                                  "plan.host", "probe", "hit_list", "emit"}
     assert clock.counts["bfs_sweeps"] >= 2

@@ -233,5 +233,6 @@ def test_stage_clock_splits_the_per_vertex_probe():
     clock = tseq.StageClock(CPU)
     r = tapi.TriangleEngine(PV, device=CPU).count((edges, n), clock=clock)
     assert r.triangles == 75682
-    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan", "probe",
-                                  "hit_list", "credit"}
+    assert set(clock.seconds) == {"csr", "bfs", "compact", "plan",
+                                  "plan.host", "probe", "hit_list",
+                                  "credit", "report"}
